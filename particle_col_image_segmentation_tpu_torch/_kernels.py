@@ -1,0 +1,120 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+The sources have a plain C interface, so they compile with ``nvcc`` alone
+(seconds, no PyTorch headers) into one shared library, loaded with
+``ctypes``.  The library is built on first use under ``build/`` at the
+checkout root and named by a hash of the sources and flags, so an edited
+``.cu`` rebuilds and an unchanged one loads at once.  A missing ``nvcc`` or a
+failed build raises: there is no other path for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pcis_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "pcis_median_u8": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
+    "pcis_ccl_u8": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "pcis_ccl_i32": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "pcis_compact_partial_len": (_L, [_I, _I, _I]),
+    "pcis_compact": (_I, [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
+    "pcis_region_counts": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "pcis_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [shutil.which("nvcc")]
+    for home in (cuda_home, "/usr/local/cuda"):
+        if home:
+            candidates.append(os.path.join(home, "bin", "nvcc"))
+    for c in candidates:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of particle_col_image_segmentation_tpu_torch cannot "
+        "be built"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library, built first if this source tree has none yet.
+
+    ``library().build_log`` holds what nvcc printed (the ptxas register and
+    shared-memory report), empty when an earlier build was loaded."""
+    build_log = ""
+    lib_path = BUILD_DIR / f"libpcis_kernels_{_digest()}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{build_log}"
+            )
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    lib.build_log = build_log
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero cudaError_t."""
+    if err != 0:
+        msg = library().pcis_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of the current stream on ``t``'s device (launch target)."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != tensors[0].device:
+            raise ValueError(
+                f"{name}: expected CUDA tensors on one device, got {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")

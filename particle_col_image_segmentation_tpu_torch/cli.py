@@ -1,0 +1,169 @@
+"""Command-line interface of the PyTorch port (the ``batch`` verb).
+
+  batch — streaming fused segmentation stats over every .h5 plane of a tree
+
+Output lines and the ``--csv`` file match the JAX package's ``batch`` verb
+byte for byte.  ``--device`` is required: the port never picks a device on
+its own.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import sys
+
+from particle_col_image_segmentation_tpu.config import AnalysisConfig
+
+
+def main(argv=None) -> int:
+    prog = os.path.basename(sys.argv[0] or "")
+    if prog in ("", "cli.py", "__main__.py"):
+        prog = "python -m particle_col_image_segmentation_tpu_torch"
+    parser = argparse.ArgumentParser(
+        prog=prog,
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser(
+        "batch",
+        help="stream fused segmentation stats over every .h5 plane "
+        "(the scale-out replacement for the reference's folder loop)",
+    )
+    p.add_argument("folder")
+    p.add_argument(
+        "--device", required=True,
+        help="torch device to run on: cuda, cuda:N (the kernels; Hopper "
+        "cards only) or cpu (the plain PyTorch versions)",
+    )
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--max-regions", type=int, default=AnalysisConfig().max_regions)
+    p.add_argument(
+        "--particle-val", type=int, default=None,
+        help="particle class value (default: derive per file from its "
+        "strain/channel tokens, like analyze)",
+    )
+    p.add_argument(
+        "--cell-vals", type=int, nargs="+", default=None,
+        help="cell class values (default: derive per file)",
+    )
+    p.add_argument(
+        "--manifest", default=None,
+        help="restartable-progress manifest path (skips completed planes)",
+    )
+    p.add_argument("--csv", default=None, help="write per-plane stats CSV here")
+    p.add_argument(
+        "--fail-fast", action="store_true",
+        help="abort on the first decode failure instead of logging and "
+        "skipping the plane (skipped planes are never marked done, so a "
+        "manifest resume retries them)",
+    )
+
+    args = parser.parse_args(argv)
+    return _batch(args)
+
+
+def _batch(args) -> int:
+    import torch
+
+    from particle_col_image_segmentation_tpu.io.discovery import get_h5_files_recursively
+    from particle_col_image_segmentation_tpu.io.hdf5 import load_h5_plane
+    from particle_col_image_segmentation_tpu.oracle.reference_pipeline import (
+        normalize_ds_arr,
+    )
+    from particle_col_image_segmentation_tpu_torch.models.batch import (
+        derive_class_values,
+        run_batch,
+    )
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: CUDA is not available here")
+    cfg = AnalysisConfig(max_regions=args.max_regions)
+    folder_to_files = get_h5_files_recursively(args.folder)
+    paths = [
+        os.path.join(folder, f)
+        for folder, files in folder_to_files.items()
+        for f in files
+    ]
+    if not paths:
+        print("no .h5 planes found under", args.folder)
+        return 1
+    # class values per file: explicit flags win (either flag alone overrides
+    # its half); otherwise derive from the path tokens (analyze's rules)
+    if args.particle_val is not None and args.cell_vals is not None:
+        groups = {(args.particle_val, tuple(args.cell_vals)): paths}
+    else:
+        sig_of = derive_class_values(folder_to_files)
+        groups = {}
+        for path in paths:
+            pv, cv = sig_of[path]
+            if args.particle_val is not None:
+                pv = args.particle_val
+            if args.cell_vals is not None:
+                cv = tuple(args.cell_vals)
+            groups.setdefault((pv, cv), []).append(path)
+    manifest = None
+    if args.manifest:
+        from particle_col_image_segmentation_tpu.utils.manifest import RunManifest
+
+        manifest = RunManifest(args.manifest)
+
+    def load_fn(path: str):
+        return normalize_ds_arr(load_h5_plane(path), cfg)
+
+    sink = None
+    writer = None
+    if args.csv:
+        # append on an ACTUAL manifest resume (completed planes whose rows
+        # live only in the old CSV); a fresh manifest + leftover CSV truncates
+        resume = (
+            manifest is not None and manifest.done_count > 0
+            and os.path.exists(args.csv)
+        )
+        sink = open(args.csv, "a" if resume else "w", newline="")
+        writer = csv.writer(sink)
+        if not resume:
+            writer.writerow(["plane", "regions", "particle_px", "cell_px", "status"])
+    try:
+        for (particle_val, cell_vals), group_paths in groups.items():
+            for path, stats in run_batch(
+                group_paths, load_fn, cfg, device=device,
+                batch_size=args.batch_size, particle_val=particle_val,
+                cell_vals=cell_vals, manifest=manifest,
+                on_error="raise" if args.fail_fast else "skip",
+            ):
+                flag = " OVERFLOW(raise --max-regions)" if stats.overflow else ""
+                if not stats.converged:
+                    flag += " UNCONVERGED(stats invalid)"
+                print(
+                    f"{path}: regions={stats.num_regions} "
+                    f"particle_px={stats.particle_px} cell_px={stats.cell_px}"
+                    f"{flag}"
+                )
+                if writer is not None:
+                    # unconverged wins over overflow: unconverged stats are
+                    # invalid wholesale, overflow rows are valid undercounts;
+                    # consumers keep rows with status == "ok"
+                    status = (
+                        "unconverged" if not stats.converged
+                        else ("overflow" if stats.overflow else "ok")
+                    )
+                    writer.writerow(
+                        [path, stats.num_regions, stats.particle_px,
+                         stats.cell_px, status]
+                    )
+                    # flush BEFORE run_batch marks the plane done in the
+                    # manifest, or a crash could lose a row for good
+                    sink.flush()
+    finally:
+        if sink is not None:
+            sink.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

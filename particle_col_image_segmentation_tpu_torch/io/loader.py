@@ -1,0 +1,98 @@
+"""Prefetching batch loader: host decode and host-to-device copies
+overlapped with device compute.
+
+Counterpart of ``batched_device_iterator`` in
+``particle_col_image_segmentation_tpu/io/loader.py``; the thread-pool decode
+(``prefetch_map_paths``) is the JAX package's own JAX-free host code.  On a
+CUDA device each batch is stacked into a fresh pinned host buffer and copied
+with ``non_blocking=True`` on a side stream, enqueued before the previous
+batch is handed to the consumer, so the copy overlaps that batch's compute.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterator, Sequence
+
+import numpy as np
+import torch
+
+from particle_col_image_segmentation_tpu.io.loader import prefetch_map_paths
+
+
+def batched_device_iterator(
+    load_fn: Callable[[str], np.ndarray],
+    paths: Sequence[str],
+    batch_size: int,
+    device: torch.device,
+    num_workers: int = 4,
+    on_error: str = "raise",
+    with_paths: bool = False,
+) -> Iterator[tuple]:
+    """Yield (device_batch [B,H,W], count) with decode + transfer pipelined.
+
+    The final short batch is padded by repeating its last plane (``count``
+    tells the consumer how many rows are real) so every step sees one shape.
+    ``on_error="skip"`` drops files whose decode fails (logged) instead of
+    killing the stream; ``with_paths=True`` appends the tuple of the
+    ``count`` real source paths to each yield — REQUIRED under "skip", where
+    positional path↔plane alignment no longer holds.
+
+    A yielded CUDA batch is ready for use on the consumer's current stream
+    (which waits for the copy) and is owned by it.
+    """
+    if on_error not in ("raise", "skip"):
+        raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
+    if on_error == "skip" and not with_paths:
+        raise ValueError("on_error='skip' shifts plane positions; consume with_paths=True")
+    device = torch.device(device)
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def ship(batch, batch_paths):
+        n = len(batch)
+        if n < batch_size:
+            batch = batch + [batch[-1]] * (batch_size - n)
+        host = torch.from_numpy(np.stack(batch))
+        ready = None
+        if copy_stream is None:
+            dev = host.to(device)
+        else:
+            # a fresh pinned buffer per batch: the caching host allocator
+            # does not hand it out again until this copy has completed
+            host = host.pin_memory()
+            with torch.cuda.stream(copy_stream):
+                dev = host.to(device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(copy_stream)
+        return dev, ready, n, tuple(batch_paths)
+
+    def hand_over(item):
+        dev, ready, n, batch_paths = item
+        if ready is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(ready)
+            # allocated on the copy stream, used on the consumer's
+            dev.record_stream(consumer)
+        return (dev, n, batch_paths) if with_paths else (dev, n)
+
+    batch, batch_paths = [], []
+    pending = None
+    for path, plane in prefetch_map_paths(
+        load_fn, paths, num_workers=num_workers, prefetch=2 * batch_size,
+        on_error=on_error,
+    ):
+        batch.append(plane)
+        batch_paths.append(path)
+        if len(batch) == batch_size:
+            # enqueue this copy before handing the previous batch over
+            shipped = ship(batch, batch_paths)
+            if pending is not None:
+                yield hand_over(pending)
+            pending = shipped
+            batch, batch_paths = [], []
+    if batch:
+        shipped = ship(batch, batch_paths)
+        if pending is not None:
+            yield hand_over(pending)
+        pending = shipped
+    if pending is not None:
+        yield hand_over(pending)

@@ -1,0 +1,215 @@
+"""Whole-experiment batch pipeline (bench config #5) on PyTorch.
+
+Counterpart of ``particle_col_image_segmentation_tpu/models/batch.py``:
+prefetching host loader → fused segmentation of each batch on one device →
+per-plane stat tables → caller's sink, with a restartable manifest.  The
+data-parallel mesh, the space-sharded path and 4-bit packed transfers of the
+JAX version are not part of this port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Iterator, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from particle_col_image_segmentation_tpu.config import DEFAULT_CONFIG, AnalysisConfig
+from particle_col_image_segmentation_tpu.labels import classmaps
+from particle_col_image_segmentation_tpu.utils.logging import get_logger
+from particle_col_image_segmentation_tpu_torch.io.loader import batched_device_iterator
+from particle_col_image_segmentation_tpu_torch.ops.ccl import (
+    compact_labels_auto,
+    connected_components_auto,
+)
+from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import median_label_filter_auto
+from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import region_counts_auto
+from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
+
+_log = get_logger("batch")
+
+
+def derive_class_values(folder_to_files):
+    """{full_path: (particle_val, cell_vals)} via the analyze dispatch rules.
+
+    Single-file folders read strains from the file name; multi-file folders
+    read the per-channel map from folder strains + file channel token.
+    Paths whose names carry no recognizable tokens fall back to (2, (1,))
+    with a warning — the streaming path must not die on one odd file.
+    """
+    out = {}
+    for folder, files in folder_to_files.items():
+        for f in files:
+            full = os.path.join(folder, f)
+            try:
+                if len(files) == 1:
+                    ct = classmaps.get_cell_type_map(f)
+                else:
+                    strains = classmaps.get_strains_from_path(folder)
+                    channel = classmaps.get_channel_from_path(f)
+                    ct = classmaps.get_cell_type_map_from_channel(strains, channel)
+                inv = {v: k for k, v in ct.items()}
+                cells = tuple(
+                    k for k, v in ct.items() if v not in ("Particle", "Background")
+                )
+                out[full] = (inv["Particle"], cells)
+            except (ValueError, KeyError, IndexError) as e:
+                # IndexError: get_channel_from_path with no channel token
+                _log.warning("no class map derivable for %s (%s); using defaults", full, e)
+                out[full] = (2, (1,))
+    return out
+
+
+@dataclasses.dataclass
+class PlaneStats:
+    """Per-plane headline statistics from the fused pass."""
+
+    num_regions: int
+    particle_px: int
+    cell_px: int
+    class_px: np.ndarray  # [num_classes] pixel histogram
+    # True when num_regions > cfg.max_regions: components past capacity were
+    # dropped from the tables, so the pixel stats UNDERCOUNT.  Re-run the
+    # plane with a larger AnalysisConfig.max_regions.
+    overflow: bool = False
+    # False when a fixpoint exhausted its iteration budget: the labels (and
+    # every stat) are INVALID for this plane, and it is not marked done.
+    converged: bool = True
+
+
+def fused_segment_batch(
+    imgs: torch.Tensor,
+    cfg: AnalysisConfig,
+    particle_val: int = 2,
+    cell_vals: Tuple[int, ...] = (1,),
+):
+    """[B,H,W] uint8 → (seg [B,H,W], num [B], area-table [B,R+1],
+    class-table [B,R+1], particle_px [B], cell_px [B], class_px
+    [B,num_classes], converged [B]); int32 but ``converged`` (bool).
+
+    CUDA tensors run the kernels K1-K4, CPU tensors their plain versions.
+    """
+    den = median_label_filter_auto(imgs, cfg.denoise_size, cfg.num_classes)
+    raw, conv_ccl = connected_components_auto(
+        den, background=None, num_classes=cfg.num_classes, with_flag=True,
+        max_iters=cfg.ccl_max_iters,
+    )
+    seg, num, conv_cmp = compact_labels_auto(raw, cfg.max_regions, with_flag=True)
+    areas, classes = region_counts_auto(
+        seg, den, cfg.max_regions, val_bound=cfg.num_classes - 1
+    )
+    class_px, particle_px, cell_px = _pixel_stats_from_tables(
+        areas, classes, cfg, particle_val, cell_vals
+    )
+    converged = conv_ccl & conv_cmp  # per plane [B]
+    return seg, num, areas, classes, particle_px, cell_px, class_px, converged
+
+
+def _pixel_stats_from_tables(areas, classes, cfg: AnalysisConfig,
+                             particle_val: int, cell_vals):
+    """Per-plane pixel histograms reduced over the [R+1] region tables
+    (every pixel belongs to exactly one class-homogeneous region).  Requires
+    num ≤ cfg.max_regions (ids past capacity are dropped from the tables);
+    callers check ``num``."""
+    class_px = torch.stack(
+        [
+            torch.where(classes == v, areas, 0).sum(-1, dtype=torch.int32)
+            for v in range(cfg.num_classes)
+        ],
+        dim=-1,
+    )
+    particle_px = class_px[..., particle_val]
+    # empty cell_vals (e.g. an RFP plane with no cell class) must still
+    # yield a [B] tensor, not Python 0
+    cell_px = (
+        sum(class_px[..., v] for v in cell_vals)
+        if cell_vals
+        else torch.zeros_like(particle_px)
+    )
+    return class_px, particle_px, cell_px
+
+
+def run_batch(
+    paths: Sequence[str],
+    load_fn: Callable[[str], np.ndarray],
+    cfg: AnalysisConfig = DEFAULT_CONFIG,
+    *,
+    device: torch.device,
+    batch_size: int = 4,
+    particle_val: int = 2,
+    cell_vals: Tuple[int, ...] = (1,),
+    manifest=None,
+    on_error: str = "skip",
+) -> Iterator[Tuple[str, PlaneStats]]:
+    """Stream per-plane stats for every path on ``device``; skips
+    manifest-completed units.
+
+    By default a plane whose decode raises is logged and skipped — one
+    corrupt file must not kill a 100k-plane run.  Skipped planes are never
+    marked done, so a resume (after fixing the file) retries exactly those;
+    callers without a manifest should diff the yielded paths against their
+    input (or pass ``on_error="raise"`` to fail fast).
+    """
+    device = torch.device(device)
+    todo = [p for p in paths if manifest is None or not manifest.is_done(p)]
+    if len(todo) < len(paths):
+        _log.info("manifest: skipping %d completed planes", len(paths) - len(todo))
+    it = batched_device_iterator(
+        load_fn, todo, batch_size=batch_size, device=device, on_error=on_error,
+        with_paths=True,
+    )
+    for dev_batch, count, batch_paths in it:
+        with stage("fused_segment", device,
+                   megapixels=count * dev_batch.shape[-1] * dev_batch.shape[-2] / 1e6):
+            out = fused_segment_batch(dev_batch, cfg, particle_val, cell_vals)
+        _, num, _, _, particle_px, cell_px, class_px, converged = out
+        # ONE host readback per batch: the per-plane scalars ride a single
+        # packed [B, 4+C] tensor
+        stats_host = torch.cat(
+            [num[:, None], particle_px[:, None], cell_px[:, None],
+             converged[:, None].to(num.dtype), class_px],
+            dim=-1,
+        ).cpu().numpy()
+        num = stats_host[:, 0]
+        particle_px = stats_host[:, 1]
+        cell_px = stats_host[:, 2]
+        conv_host = stats_host[:, 3]
+        class_px = stats_host[:, 4:]
+        for b in range(count):
+            path = batch_paths[b]
+            converged = bool(conv_host[b])
+            if not converged:
+                _log.error(
+                    "%s: CCL exhausted its iteration budget — stats INVALID "
+                    "for this plane; not marking done (pathological geometry; "
+                    "raise AnalysisConfig.ccl_max_iters)", path,
+                )
+            overflow = int(num[b]) > cfg.max_regions
+            if overflow:
+                _log.warning(
+                    "%s: %d components > max_regions=%d — stats undercount; "
+                    "not marking done, so a re-run with a larger "
+                    "AnalysisConfig.max_regions retries this plane",
+                    path, int(num[b]), cfg.max_regions,
+                )
+            stats = PlaneStats(
+                num_regions=int(num[b]),
+                particle_px=int(particle_px[b]),
+                cell_px=int(cell_px[b]),
+                class_px=class_px[b],
+                overflow=overflow,
+                converged=converged,
+            )
+            # yield FIRST, mark done after: if the consumer crashes while
+            # recording this plane the plane stays unmarked and a resume
+            # retries it — at-least-once, never a done-but-unrecorded gap.
+            # Overflowed and unconverged planes are also left unmarked.
+            yield path, stats
+            if manifest is not None and converged and not overflow:
+                meta = {
+                    "regions": stats.num_regions,
+                    "particle_px": stats.particle_px,
+                }
+                manifest.mark_done(path, meta=meta)

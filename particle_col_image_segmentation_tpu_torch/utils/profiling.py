@@ -1,0 +1,43 @@
+"""Pipeline-stage tracing: a ``torch.profiler`` range plus wall-time and MP/s
+logging (counterpart of the JAX package's ``utils/profiling.stage``)."""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Iterator, Optional
+
+import torch
+
+from particle_col_image_segmentation_tpu.utils.logging import get_logger
+
+_log = get_logger("profile")
+
+
+@contextlib.contextmanager
+def stage(
+    name: str, device: torch.device, megapixels: Optional[float] = None
+) -> Iterator[None]:
+    """Annotate a pipeline stage for ``torch.profiler`` traces and log its
+    time.  On a CUDA device the time runs between two CUDA events on the
+    current stream and the exit waits for the second, so it covers the
+    device work the stage enqueued, not just its launch."""
+    cuda = torch.device(device).type == "cuda"
+    with torch.profiler.record_function(name):
+        if cuda:
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        t0 = time.perf_counter()
+        yield
+        if cuda:
+            end.record(stream)
+            end.synchronize()
+            dt = start.elapsed_time(end) / 1e3
+        else:
+            dt = time.perf_counter() - t0
+    if megapixels is not None and dt > 0:
+        _log.debug("%s: %.1f ms (%.1f MP/s)", name, dt * 1e3, megapixels / dt)
+    else:
+        _log.debug("%s: %.1f ms", name, dt * 1e3)

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
 The sources have a plain C interface, so they compile with ``nvcc`` alone
-(seconds, no PyTorch headers) into one shared library, loaded with
-``ctypes``.  The library is built on first use under ``build/`` at the
-checkout root and named by a hash of the sources and flags, so an edited
-``.cu`` rebuilds and an unchanged one loads at once.  A missing ``nvcc`` or a
+(seconds, no PyTorch headers; one ``nvcc`` per ``.cu``, all started
+together, then one link) into one shared library, loaded with ``ctypes``.
+The library is built on first use under ``build/`` at the checkout root
+and named by a hash of the sources and flags, so an edited ``.cu`` (or
+``.cuh``) rebuilds and an unchanged one loads at once.  A missing ``nvcc`` or a
 failed build raises: there is no other path for CUDA tensors.
 """
 
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pcis_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +38,10 @@ _SIGNATURES = {
     "pcis_compact_partial_len": (_L, [_I, _I, _I]),
     "pcis_compact": (_I, [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "pcis_region_counts": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "pcis_region_table": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "pcis_table_lookup": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "pcis_edt_sq": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "pcis_particle_fill": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "pcis_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -76,18 +81,40 @@ def library() -> ctypes.CDLL:
     ``library().build_log`` holds what nvcc printed (the ptxas register and
     shared-memory report), empty when an earlier build was loaded."""
     build_log = ""
-    lib_path = BUILD_DIR / f"libpcis_kernels_{_digest()}.so"
+    digest = _digest()
+    lib_path = BUILD_DIR / f"libpcis_kernels_{digest}.so"
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{build_log}"
-            )
-        os.replace(tmp, lib_path)
+        nvcc = _nvcc()
+        obj_dir = BUILD_DIR / f"obj_{digest}.{os.getpid()}"
+        obj_dir.mkdir(parents=True, exist_ok=True)
+        try:
+            # one nvcc per source, all started together, then one link
+            jobs = []
+            for src in _sources():
+                obj = obj_dir / f"{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                proc = subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                )
+                jobs.append((cmd, obj, proc))
+            outs = [proc.communicate()[0] for _, _, proc in jobs]  # wait for all
+            build_log = "".join(outs)
+            for (cmd, _, proc), out in zip(jobs, outs):
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+                    )
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            build_log += res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n{build_log}"
+                )
+            os.replace(tmp, lib_path)
+        finally:
+            shutil.rmtree(obj_dir, ignore_errors=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)

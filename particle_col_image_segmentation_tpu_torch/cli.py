@@ -1,10 +1,11 @@
-"""Command-line interface of the PyTorch port (the ``batch`` verb).
+"""Command-line interface of the PyTorch port.
 
-  batch — streaming fused segmentation stats over every .h5 plane of a tree
+  analyze — recursive .h5 analysis: position, merged-position and density
+            CSVs (tiff_analysis.main parity)
+  batch   — streaming fused segmentation stats over every .h5 plane of a tree
 
-Output lines and the ``--csv`` file match the JAX package's ``batch`` verb
-byte for byte.  ``--device`` is required: the port never picks a device on
-its own.
+Files and output lines match the JAX package's verbs byte for byte.
+``--device`` is required: the port never picks a device on its own.
 """
 
 from __future__ import annotations
@@ -15,6 +16,56 @@ import os
 import sys
 
 from particle_col_image_segmentation_tpu.config import AnalysisConfig
+
+
+def _add_device_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--device", required=True,
+        help="torch device to run on: cuda, cuda:N (the kernels; Hopper "
+        "cards only) or cpu (the plain PyTorch versions)",
+    )
+
+
+def _add_analysis_flags(p: argparse.ArgumentParser) -> None:
+    d = AnalysisConfig()
+    p.add_argument("--denoise-size", type=int, default=d.denoise_size)
+    p.add_argument("--dilation-radius", type=int, default=d.dilation_radius)
+    p.add_argument("--distance-threshold", type=int, default=d.distance_threshold)
+    p.add_argument(
+        "--cell-cluster-distance-threshold", type=int,
+        default=d.cell_cluster_distance_threshold,
+    )
+    p.add_argument("--dapi-overlap-threshold", type=float, default=d.dapi_overlap_threshold)
+    p.add_argument("--px-to-um", type=float, default=d.px_to_um)
+    p.add_argument("--max-regions", type=int, default=d.max_regions)
+    p.add_argument("--no-figures", action="store_true")
+    p.add_argument(
+        "--profile", action="store_true",
+        help="print cumulative per-stage times at exit",
+    )
+    p.add_argument("--strict-reference-errors", action="store_true")
+
+
+def _cfg_from_args(args) -> AnalysisConfig:
+    return AnalysisConfig(
+        denoise_size=args.denoise_size,
+        dilation_radius=args.dilation_radius,
+        distance_threshold=args.distance_threshold,
+        cell_cluster_distance_threshold=args.cell_cluster_distance_threshold,
+        dapi_overlap_threshold=args.dapi_overlap_threshold,
+        px_to_um=args.px_to_um,
+        max_regions=args.max_regions,
+        strict_reference_errors=args.strict_reference_errors,
+    )
+
+
+def _device(name: str):
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: CUDA is not available here")
+    return device
 
 
 def main(argv=None) -> int:
@@ -28,17 +79,23 @@ def main(argv=None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
+    p = sub.add_parser("analyze", help="recursive .h5 label-map analysis")
+    p.add_argument("folder", help="top-level folder (strain tokens in path)")
+    _add_device_flag(p)
+    _add_analysis_flags(p)
+    p.add_argument(
+        "--batch-planes", type=int, default=1,
+        help="batch same-shape planes from the whole tree into single "
+        "device launches of up to this many planes (byte-identical CSVs)",
+    )
+
     p = sub.add_parser(
         "batch",
         help="stream fused segmentation stats over every .h5 plane "
         "(the scale-out replacement for the reference's folder loop)",
     )
     p.add_argument("folder")
-    p.add_argument(
-        "--device", required=True,
-        help="torch device to run on: cuda, cuda:N (the kernels; Hopper "
-        "cards only) or cpu (the plain PyTorch versions)",
-    )
+    _add_device_flag(p)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--max-regions", type=int, default=AnalysisConfig().max_regions)
     p.add_argument(
@@ -63,12 +120,25 @@ def main(argv=None) -> int:
     )
 
     args = parser.parse_args(argv)
+    if args.command == "analyze":
+        return _analyze(args)
     return _batch(args)
 
 
-def _batch(args) -> int:
-    import torch
+def _analyze(args) -> int:
+    from particle_col_image_segmentation_tpu_torch.models.experiment import run_analysis
+    from particle_col_image_segmentation_tpu_torch.utils.profiling import STAGE_TOTALS
 
+    run_analysis(args.folder, _cfg_from_args(args),
+                 make_figures=not args.no_figures, device=_device(args.device),
+                 batch_planes=args.batch_planes)
+    if args.profile:
+        for name, total in sorted(STAGE_TOTALS.items(), key=lambda kv: -kv[1]):
+            print(f"profile: {name:24s} {total*1e3:10.1f} ms")
+    return 0
+
+
+def _batch(args) -> int:
     from particle_col_image_segmentation_tpu.io.discovery import get_h5_files_recursively
     from particle_col_image_segmentation_tpu.io.hdf5 import load_h5_plane
     from particle_col_image_segmentation_tpu.oracle.reference_pipeline import (
@@ -79,9 +149,7 @@ def _batch(args) -> int:
         run_batch,
     )
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: CUDA is not available here")
+    device = _device(args.device)
     cfg = AnalysisConfig(max_regions=args.max_regions)
     folder_to_files = get_h5_files_recursively(args.folder)
     paths = [

@@ -5,13 +5,16 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
 from particle_col_image_segmentation_tpu.utils.logging import get_logger
 
 _log = get_logger("profile")
+
+# cumulative time per stage name for this process (``analyze --profile``)
+STAGE_TOTALS: Dict[str, float] = {}
 
 
 @contextlib.contextmanager
@@ -37,6 +40,7 @@ def stage(
             dt = start.elapsed_time(end) / 1e3
         else:
             dt = time.perf_counter() - t0
+    STAGE_TOTALS[name] = STAGE_TOTALS.get(name, 0.0) + dt
     if megapixels is not None and dt > 0:
         _log.debug("%s: %.1f ms (%.1f MP/s)", name, dt * 1e3, megapixels / dt)
     else:

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels K1-K4 against their plain PyTorch versions,
-on the card.  Every test here needs a Hopper card and skips where there is
+"""The hand-written CUDA kernels K1-K6, K8 and K9 against their plain
+PyTorch versions, on the card.  Every test here needs a Hopper card and skips where there is
 none; on one, run them with
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -17,10 +17,20 @@ from particle_col_image_segmentation_tpu_torch.ops import (
     compact_labels,
     compact_labels_cuda,
     connected_components,
+    edt_sq,
+    edt_sq_cuda,
     median_label_filter,
     median_label_filter_cuda,
+    particle_fill_step,
+    particle_fill_step_cuda,
     region_counts,
     region_counts_cuda,
+    region_props,
+    region_sums,
+    region_sums_cuda,
+    region_table_cuda,
+    table_lookup,
+    table_lookup_cuda,
 )
 
 from fixtures import random_class_plane, synthetic_label_plane
@@ -129,3 +139,107 @@ def test_wrappers_check_their_inputs(dev):
         compact_labels_cuda(x, 8)
     with pytest.raises(ValueError, match="shapes"):
         region_counts_cuda(x.to(torch.int32), x[:1], 8)
+
+
+def _labelled(shape, seed, max_regions):
+    x = torch.from_numpy(_planes(shape, seed=seed))
+    seg, _ = compact_labels(connected_components(x, max_iters=4096), max_regions)
+    return seg, x
+
+
+@pytest.mark.parametrize("max_regions", [16384, 20000, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_region_table_kernel(dev, shape, max_regions):
+    seg, x = (t.to(dev) for t in _labelled(shape, 7, max_regions))
+    before = region_table_cuda.launches
+    _equal(region_table_cuda(seg, x, max_regions), region_props(seg, x, max_regions))
+    assert region_table_cuda.launches == before + 1
+    vals = x.to(torch.int32) * 4099 - 16384  # signed values, one per class
+    _equal(region_table_cuda(seg, vals, max_regions), region_props(seg, vals, max_regions))
+
+
+def test_region_table_kernel_drops_ids_and_saturates(dev):
+    rng = np.random.default_rng(8)
+    seg = torch.from_numpy(rng.integers(-3, 40, (2, 64, 256)).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.integers(-16384, 16384, (2, 64, 256)).astype(np.int32)).to(dev)
+    _equal(region_table_cuda(seg, vals, 30), region_props(seg, vals, 30))
+    big = torch.zeros((2, 512, 512), dtype=torch.int32, device=dev)
+    big_vals = torch.full((2, 512, 512), 16383, dtype=torch.int32, device=dev)
+    big_vals[1] = -16384
+    _equal(region_table_cuda(big, big_vals, 4), region_props(big, big_vals, 4))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_region_sums_kernel(dev, shape):
+    seg, x = (t.to(dev) for t in _labelled(shape, 9, 4096))
+    other = (x == 1).to(torch.int32)
+    before = (region_sums_cuda.launches, region_counts_cuda.launches)
+    _equal(region_sums_cuda(seg, other, 4096), region_sums(seg, other, 4096))
+    assert (region_sums_cuda.launches, region_counts_cuda.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("R", [1, 600, 16385, 40000])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_table_lookup_kernel(dev, shape, R):
+    rng = np.random.default_rng(10)
+    seg = rng.integers(-1, R + 3, shape).astype(np.int32)
+    flat = seg.reshape(-1)
+    flat[: min(5, flat.size)] = [-1, 0, R - 1, R, 2 * R][: min(5, flat.size)]
+    seg = torch.from_numpy(seg).to(dev)
+    B = shape[0] if len(shape) == 3 else 1
+    for tshape in [(R,)] + ([(B, R)] if len(shape) == 3 else []):
+        tab = torch.from_numpy(rng.integers(0, 256, tshape).astype(np.int32)).to(dev)
+        tab[..., 0] = 255
+        tab[..., -1] = 0
+        before = table_lookup_cuda.launches
+        _equal([table_lookup_cuda(seg, tab)], [table_lookup(seg, tab)])
+        assert table_lookup_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("cap", [0, 2, 5, 8, 9, 20, 32])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_edt_kernel(dev, shape, cap):
+    rng = np.random.default_rng(cap)
+    for density in (0.02, 0.0, 1.0):
+        m = torch.from_numpy(rng.random(shape) < density).to(dev)
+        before = edt_sq_cuda.launches
+        _equal([edt_sq_cuda(m, cap)], [edt_sq(m, cap)])
+        _equal([edt_sq_cuda(m.to(torch.uint8), cap)], [edt_sq(m, cap)])
+        assert edt_sq_cuda.launches == before + 2
+
+
+def test_edt_kernel_long_rows_and_cap_past_the_plane(dev):
+    rng = np.random.default_rng(11)
+    m = torch.from_numpy(rng.random((2, 40, 3000)) < 0.001).to(dev)
+    for cap in (3, 100, 1000):
+        _equal([edt_sq_cuda(m, cap)], [edt_sq(m, cap)])
+
+
+@pytest.mark.parametrize("params", [(2, 1, 20, 4, 400), (2, 1, 5, 9, 4), (4, 2, 2, 4, 4)])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fill_kernel(dev, shape, params):
+    x = torch.from_numpy(_planes(shape, seed=12)).to(dev)
+    before = particle_fill_step_cuda.launches
+    _equal(particle_fill_step_cuda(x, *params), particle_fill_step(x, *params))
+    assert particle_fill_step_cuda.launches == before + 1
+    none = torch.where(x == params[0], 3, x)  # no particle pixel at all
+    _equal(particle_fill_step_cuda(none, *params), particle_fill_step(none, *params))
+
+
+def test_new_wrappers_check_their_inputs(dev):
+    x = torch.zeros((2, 16, 16), dtype=torch.uint8, device=dev)
+    i = x.to(torch.int32)
+    with pytest.raises(ValueError, match="shapes"):
+        region_table_cuda(i, x[:1], 8)
+    with pytest.raises(ValueError, match="int32"):
+        table_lookup_cuda(i, torch.zeros(4, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="table"):
+        table_lookup_cuda(i[0], torch.zeros((2, 4), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="cap"):
+        edt_sq_cuda(x, -1)
+    with pytest.raises(ValueError, match="bool or uint8"):
+        edt_sq_cuda(i, 2)
+    with pytest.raises(ValueError, match="uint8"):
+        particle_fill_step_cuda(i, 2, 1, 20, 4, 400)
+    with pytest.raises(ValueError, match="class values"):
+        particle_fill_step_cuda(x, 300, 1, 20, 4, 400)

@@ -107,3 +107,201 @@ def test_auto_takes_plain_on_cpu_and_wrapper_refuses_cpu():
     assert region_counts_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         region_counts_cuda(seg_t, img_t, max_regions)
+
+
+# ---- the full RegionTable (K5's plain version), sums and lookup (K6) ----
+
+
+def _components(shape, seed, max_regions):
+    """Compact ids and the class plane of synthetic label planes, labelled by
+    the JAX package's scatter path (so both packages see the same ids)."""
+    from particle_col_image_segmentation_tpu.ops.ccl import label_image
+
+    from fixtures import synthetic_label_plane
+
+    B = int(np.prod(shape[:-2]))
+    img = np.stack([
+        synthetic_label_plane(seed=seed + b, shape=(192, 192))[: shape[-2], : shape[-1]]
+        for b in range(B)
+    ]).reshape(shape).astype(np.uint8)
+    seg = np.stack([
+        np.asarray(label_image(jnp.asarray(p), max_regions=max_regions)[0])
+        for p in img.reshape((B,) + shape[-2:])
+    ]).reshape(shape).astype(np.int32)
+    return seg, img
+
+
+def _assert_tables_equal(got, want, masked_by_valid=True):
+    """Columns as numpy; ``area`` on every row, the rest on valid rows (the
+    JAX scatter path holds segment-max identities on empty rows)."""
+    valid = np.asarray(want.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    for name in want._fields:
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert g.shape == w.shape, name
+        if name == "area" or not masked_by_valid:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g[valid], w[valid], err_msg=name)
+
+
+@pytest.mark.parametrize("shape,max_regions", [((96, 128), 512), ((2, 64, 160), 4096)])
+def test_region_props_matches_jax_scatter_and_mxu(shape, max_regions):
+    from particle_col_image_segmentation_tpu.ops.regionprops import (
+        region_props as jax_region_props,
+    )
+    from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
+        region_table_mxu,
+    )
+
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import region_props
+
+    seg, img = _components(shape, seed=9, max_regions=max_regions)
+    got = region_props(torch.from_numpy(seg), torch.from_numpy(img), max_regions)
+    assert got.area.shape == shape[:-2] + (max_regions + 1,)
+    assert got.bbox.shape == shape[:-2] + (max_regions + 1, 4)
+    assert all(t.dtype == torch.int32 for t in got[:-1]) and got.valid.dtype == torch.bool
+    segs, imgs = seg.reshape((-1,) + shape[-2:]), img.reshape((-1,) + shape[-2:])
+    for b in range(segs.shape[0]):
+        want = jax_region_props(jnp.asarray(segs[b]), jnp.asarray(imgs[b]), max_regions)
+        plane = type(got)(*(t.reshape((-1,) + t.shape[len(shape) - 2:])[b] for t in got))
+        _assert_tables_equal(plane, want)
+    mxu = region_table_mxu(jnp.asarray(seg), jnp.asarray(img), max_regions,
+                           rows_per_chunk=8, interpret=True)
+    _assert_tables_equal(got, mxu)
+    # empty rows: zeros in every column, bbox included
+    empty = ~got.valid.numpy()
+    assert (got.bbox.numpy()[empty] == 0).all() and (got.sr_lo.numpy()[empty] == 0).all()
+
+
+def test_region_props_digit_sums_are_not_a_split_of_the_total():
+    """One region over rows 0..255 of a 256x1 plane: Σ(r % 128) = 2·8128,
+    far past 127 — the digits are summed on their own, as in the JAX table."""
+    from particle_col_image_segmentation_tpu.ops.regionprops import (
+        region_props as jax_region_props,
+    )
+
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import (
+        HILO_BASE,
+        centroids_int,
+        region_props,
+    )
+
+    seg = np.ones((256, 1), np.int32)
+    got = region_props(torch.from_numpy(seg), torch.from_numpy(seg), 4)
+    want = jax_region_props(jnp.asarray(seg), jnp.asarray(seg), 4)
+    _assert_tables_equal(got, want)
+    assert int(got.sr_hi[1]) == 128 and int(got.sr_lo[1]) == 2 * 8128
+    assert HILO_BASE * int(got.sr_hi[1]) + int(got.sr_lo[1]) == sum(range(256))
+    icy, icx = centroids_int(got)
+    assert int(icy[1]) == 127 and int(icx[1]) == 0
+
+
+def test_centroids_match_jax():
+    from particle_col_image_segmentation_tpu.ops.regionprops import (
+        centroids_f64 as jax_centroids_f64,
+        centroids_int as jax_centroids_int,
+        region_props as jax_region_props,
+    )
+
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import (
+        centroids_f64,
+        centroids_int,
+        region_props,
+    )
+
+    seg, img = _components((128, 96), seed=12, max_regions=1024)
+    got = region_props(torch.from_numpy(seg), torch.from_numpy(img), 1024)
+    want = jax_region_props(jnp.asarray(seg), jnp.asarray(img), 1024)
+    for g, w in zip(centroids_int(got), jax_centroids_int(want)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    host = type(got)(*(t.numpy() for t in got))
+    for g, w in zip(centroids_f64(host), jax_centroids_f64(want)):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("val_bound", [None, 1])
+def test_region_sums_matches_mxu(val_bound):
+    from particle_col_image_segmentation_tpu.ops.regionprops_tiles import region_sums_mxu
+
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import region_sums
+
+    rng = np.random.default_rng(13)
+    seg = rng.integers(-2, 300, (2, 64, 128)).astype(np.int32)
+    hi = 2 if val_bound == 1 else 16384
+    vals = rng.integers(0 if val_bound == 1 else -16384, hi, seg.shape).astype(np.int32)
+    area, vsum = region_sums(torch.from_numpy(seg), torch.from_numpy(vals), 255)
+    a1, v1 = region_sums_mxu(jnp.asarray(seg), jnp.asarray(vals), 255,
+                             rows_per_chunk=8, interpret=True, val_bound=val_bound)
+    np.testing.assert_array_equal(area.numpy(), np.asarray(a1))
+    np.testing.assert_array_equal(vsum.numpy(), np.asarray(v1))
+    assert vsum.dtype == torch.int32
+
+
+@pytest.mark.parametrize("batched_table", [False, True])
+def test_table_lookup_matches_mxu_and_auto(batched_table):
+    """Ids -1, 0, R-1, R and 2R; table values 0 and 255; [R] and [B,R]."""
+    from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
+        table_lookup_auto as jax_lookup_auto,
+        table_lookup_mxu,
+    )
+
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import (
+        table_lookup,
+        table_lookup_auto,
+        table_lookup_cuda,
+    )
+
+    rng = np.random.default_rng(14)
+    R = 600
+    seg = rng.integers(-1, R + 5, (2, 32, 128)).astype(np.int32)
+    seg[:, 0, :5] = [-1, 0, R - 1, R, 2 * R]
+    shape = (2, R) if batched_table else (R,)
+    tab = rng.integers(0, 256, shape).astype(np.int32)
+    tab[..., 0], tab[..., R - 1] = 255, 0
+    before = table_lookup_cuda.launches
+    got = table_lookup_auto(torch.from_numpy(seg), torch.from_numpy(tab))
+    assert table_lookup_cuda.launches == before
+    assert got.dtype == torch.int32
+    got = got.numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(table_lookup_mxu(jnp.asarray(seg), jnp.asarray(tab),
+                                         rows_per_chunk=8, interpret=True)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_lookup_auto(jnp.asarray(seg), jnp.asarray(tab))))
+    row0 = tab[0] if batched_table else tab
+    assert got[0, 0, :5].tolist() == [0, 255, 0, 0, 0] and got[0, 0, 2] == row0[R - 1]
+    if not batched_table:
+        np.testing.assert_array_equal(
+            table_lookup(torch.from_numpy(seg[0]), torch.from_numpy(tab)).numpy(), got[0])
+    with pytest.raises(ValueError, match="table"):
+        table_lookup(torch.from_numpy(seg[0]), torch.from_numpy(np.zeros((2, R), np.int32)))
+
+
+def test_table_auto_takes_plain_on_cpu_and_wrappers_refuse_cpu():
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import (
+        region_props,
+        region_sums,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import (
+        region_props_auto,
+        region_sums_auto,
+        region_sums_cuda,
+        region_table_cuda,
+        table_lookup_cuda,
+    )
+
+    seg, img, max_regions = _case(0, 8, seed=15)
+    seg_t, img_t = torch.from_numpy(seg), torch.from_numpy(img.astype(np.uint8))
+    before = (region_table_cuda.launches, region_sums_cuda.launches)
+    got = region_props_auto(seg_t, img_t, max_regions)
+    want = region_props(seg_t, img_t, max_regions)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = region_sums_auto(seg_t, img_t, max_regions)
+    assert all(torch.equal(g, w) for g, w in zip(got, region_sums(seg_t, img_t, max_regions)))
+    assert (region_table_cuda.launches, region_sums_cuda.launches) == before
+    for fn in (region_table_cuda, region_sums_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(seg_t, img_t, max_regions)
+    with pytest.raises(ValueError, match="CUDA"):
+        table_lookup_cuda(seg_t, torch.zeros(4, dtype=torch.int32))

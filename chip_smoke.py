@@ -8,8 +8,8 @@ nonzero and no result line is printed):
   1. environment — card name and power limit, torch/CUDA versions, compute
      capability (must be 9.x), whether triton, h5py and matplotlib import
      (nothing below needs them), the nvcc in use;
-  2. build — the eight kernels K1-K6, K8, K9 from csrc/ (one nvcc per
-     source, in parallel), timed;
+  2. build — the eleven kernels K1-K11 from csrc/ (one nvcc per source,
+     in parallel), timed;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
      same card tensors, exact equality (all outputs are integers, so the
      tolerance is 0): 2048² bench planes, odd [3,97,130] batches, 2-D
@@ -17,7 +17,15 @@ nonzero and no result line is printed):
      sums (both K4 wrappers: class tables and the dedup's clamped sums),
      table overflow (max_regions=8), out-of-range lookup ids, EDT caps
      0..32 on sparse, full and empty masks (cap > H included), fill steps
-     with and without particles;
+     with and without particles; and the refine slice on the 2048² relief
+     (480 touching cell pairs, plane b rolled by 17·b columns): the exact
+     EDT (K9 probe, and a plane that forces the exact fallback), local
+     maxima through K2 (connectivity 1 and 2), each watershed phase — K10's
+     costs and K11's labels — on smooth and 16-level reliefs at
+     [2,2048,2048] (connectivity 1 and 2), an unreachable masked island and
+     a random [3,97,130] relief, a one-pass budget that must report
+     unconverged, and K7 on the [8,2048,2048] watershed labels, [3,97,130]
+     ids past R, a 2-D plane and R+1 = 30001 (three id tiles);
   4. batch path — run_batch over 40 bench planes in batches of 32 (the last
      one short and padded), max_regions=16383: every plane converged, no
      overflow, particle_px equal to scipy's median count; plane 0's labels
@@ -28,7 +36,10 @@ nonzero and no result line is printed):
      K9 at [16,2048,2048] (cap 2, the merge contexts), K6 at [2048,2048];
      analyze_planes_device on a device-resident [8,2048,2048] batch — each
      through the kernels and through the plain versions, by CUDA events (no
-     thresholds);
+     thresholds); K7 at [8,2048,2048] (R = 4096) beside one ``index_add_``
+     of its five digit columns; each watershed phase on the [8,2048,2048]
+     relief (its passes, one host sync each, inside the events);
+     refine_plane_device on that relief, kernels and plain, on the card;
   6. analyze path — run_analysis over a folder tree of 2048² bench planes
      (8 single-file 3D05 folders, batched 8 at a time, and one 3D05+6B07
      folder with RFP and DAPI files: per-channel analysis, DAPI dedup,
@@ -39,13 +50,20 @@ nonzero and no result line is printed):
      byte-identical to the same flow through the plain versions on the CPU;
      dapi_dedup_device at 2048² and a [2,1024,1024] crop through
      analyze_planes_device, kernels on the card equal to plain on the CPU;
-  7. profile, only with --profile — see ``profile_phase``.
+  7. profile, only with --profile — see ``profile_phase``;
+  8. refine path — refine_boundaries_stack over the [8,2048,2048] relief on
+     the card: K2, K3, K7, K9, K10 and K11 launched (counts reset just
+     before the run), labels, cell counts, areas and centroids equal to the
+     plain run on the card; the stack CSV of a [2,1024,1024] crop equal to
+     the plain CPU run's byte for byte; the passes of each watershed phase.
 The line before the last is the per-kernel JSON record (``launches`` sums
-the batch and analyze paths' runs); the last line is {"ok": true, ...}.
+the batch, analyze and refine paths' runs, ``bound_ms`` is the bytes each
+function must move over 3.35 TB/s); the last line is {"ok": true, ...}.
 
 The script imports the port, bench.py's plane generator, numpy and scipy:
-nothing of JAX and nothing of the JAX package directly.  CSV parity of the
-port with the JAX package is held in tests/test_torch_analysis.py.
+nothing of JAX and nothing of the JAX package, which it checks before the
+record line.  CSV parity of the port with the JAX package is held in
+tests/test_torch_analysis.py and tests/test_torch_refine.py.
 """
 
 import argparse
@@ -62,6 +80,9 @@ BATCH = 32
 MAX_REGIONS = 16383
 N_MAIN = 40
 ANALYZE_REGIONS = 16384  # AnalysisConfig().max_regions: R+1 = 16385
+REFINE_REGIONS = 4095  # refine's default: R+1 = 4096
+REFINE_PLANES = 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SRC = "particle_col_image_segmentation_tpu_torch/csrc/"
 TPU = "particle_col_image_segmentation_tpu/ops/"
 KERNELS = [  # key, name, source, TPU kernel it replaces
@@ -71,8 +92,11 @@ KERNELS = [  # key, name, source, TPU kernel it replaces
     ("K4", "K4 region counts", "counts.cu", "regionprops_tiles.py:80"),
     ("K5", "K5 region table", "table.cu", "regionprops_tiles.py:226"),
     ("K6", "K6 table lookup", "lookup.cu", "regionprops_tiles.py:558"),
+    ("K7", "K7 centroid table", "centroid.cu", "regionprops_tiles.py:435"),
     ("K8", "K8 particle fill", "fill.cu", "fill_tiles.py:37"),
     ("K9", "K9 capped edt", "edt.cu", "edt_tiles.py:41"),
+    ("K10", "K10 watershed costs", "watershed.cu", "watershed_tiles.py:191"),
+    ("K11", "K11 watershed labels", "watershed.cu", "watershed_tiles.py:244"),
 ]
 SINGLE = ((1, "3D05"), (2, "Particle"), (3, "Background"))
 
@@ -114,6 +138,29 @@ def scipy_labels(den):
     rank = np.empty(n, np.int64)
     rank[np.argsort(first)] = np.arange(1, n + 1)
     return rank[lab - 1], n
+
+
+def refine_relief(n: int = H, pairs: int = 480, seed: int = 0):
+    """The bench's touching-cell relief (bench.py config #3) at n², the same
+    draws: ``pairs`` touching disc pairs with centres in [40, n−40), r² in
+    [150, 400), prob = 1 − edt/max.  Each pair is drawn in its own window,
+    which gives the full-plane masks at a fraction of the time."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    m = np.zeros((n, n), bool)
+    for _ in range(pairs):
+        cy, cx = rng.integers(40, n - 40, 2)
+        r2 = int(rng.integers(150, 400))
+        dx2 = int(1.5 * np.sqrt(r2))
+        r = int(np.ceil(np.sqrt(r2)))
+        y0, y1, x0, x1 = max(cy - r, 0), min(cy + r + 1, n), max(cx - r, 0), min(cx + dx2 + r + 1, n)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        m[y0:y1, x0:x1] |= (((yy - cy) ** 2 + (xx - cx) ** 2 <= r2)
+                            | ((yy - cy) ** 2 + (xx - cx - dx2) ** 2 <= r2))
+    dist = ndi.distance_transform_edt(m)
+    return (1.0 - dist / max(1.0, dist.max())).astype(np.float32)
 
 
 def make_tree(root: str, singles) -> dict:
@@ -240,6 +287,38 @@ def profile_phase(planes, cfg, dev, card: str) -> None:
         log(f"phase 7 profile:   {t:8.4f} s {n:6d}x  {name[:90]}")
 
 
+def profile_refine(x, rcfg, card: str) -> None:
+    """``--profile``: torch.profiler over three ``refine_plane_device`` calls
+    on the device-resident relief x: device ms per call of each kernel, and
+    the device's busy share of the calls' wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from particle_col_image_segmentation_tpu_torch.models.refine import refine_plane_device
+
+    refine_plane_device(x, rcfg, REFINE_REGIONS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            refine_plane_device(x, rcfg, REFINE_REGIONS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    intervals = device_intervals(prof)
+    if not intervals:
+        raise AssertionError("phase 7: the refine trace holds no device activity")
+    per_name = {}
+    for s, e, name in intervals:
+        per_name[name] = per_name.get(name, 0.0) + (e - s) / 3e3
+    total = sum(per_name.values())
+    busy = busy_us(intervals) / 1e6
+    log(f"phase 7 profile [{card}]: refine_plane_device {list(x.shape)}, {total:.3f} ms of "
+        f"device time a call; device busy {busy:.4f} s of {wall:.4f} s wall "
+        f"(idle {100 * (1 - busy / wall):.1f} %) over 3 calls")
+    for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:14]:
+        log(f"phase 7 profile:   {t:8.3f} ms {100 * t / total:5.1f} %  {name[:90]}")
+
+
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean device time of fn() over reps launches, by CUDA events."""
     import torch
@@ -259,9 +338,9 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
-                    help="also run phase 7: a torch.profiler breakdown of the analysis "
-                         "graph, run_analysis walls at batch_planes 1 and 8, and the "
-                         "device's traced idle share on the analyze path")
+                    help="also run phase 7: torch.profiler breakdowns of the analysis "
+                         "graph and of refine_plane_device, run_analysis walls at "
+                         "batch_planes 1 and 8, and the device's traced idle share")
     args = ap.parse_args()
 
     import torch
@@ -274,7 +353,7 @@ def main() -> int:
     from scipy import ndimage as ndi
 
     import bench
-    from particle_col_image_segmentation_tpu_torch import AnalysisConfig, _kernels
+    from particle_col_image_segmentation_tpu_torch import AnalysisConfig, RefineConfig, _kernels
     from particle_col_image_segmentation_tpu_torch.labels.analysis import (
         PlaneDeviceOut,
         analyze_planes_device,
@@ -286,14 +365,26 @@ def main() -> int:
         run_batch,
     )
     from particle_col_image_segmentation_tpu_torch.models.experiment import run_analysis
+    from particle_col_image_segmentation_tpu_torch.models.refine import (
+        refine_boundaries_stack,
+        refine_plane_device,
+        write_refine_stack_csv,
+    )
     from particle_col_image_segmentation_tpu_torch.ops import (
         ccl_cuda,
+        centroid_sums,
+        centroid_sums_cuda,
+        centroids_f64,
         centroids_int,
         compact_labels,
         compact_labels_cuda,
         connected_components,
         edt_sq,
         edt_sq_cuda,
+        edt_sq_exact,
+        edt_sq_exact_auto,
+        local_maxima,
+        local_maxima_auto,
         median_label_filter,
         median_label_filter_cuda,
         particle_fill_step,
@@ -306,6 +397,19 @@ def main() -> int:
         region_table_cuda,
         table_lookup,
         table_lookup_cuda,
+        watershed,
+        watershed_auto,
+        watershed_cuda,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.watershed import (
+        claim_labels,
+        minimax_costs,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
+        claim_labels_cuda,
+        minimax_costs_cuda,
+        watershed_cost_pass_cuda,
+        watershed_label_pass_cuda,
     )
 
     # ---- phase 1: environment -------------------------------------------
@@ -340,7 +444,9 @@ def main() -> int:
         for g, w in zip(got, want, strict=True):
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(f"{kernel} {case}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
-            if g.numel():
+            if g.numel() and g.is_floating_point():  # watershed costs: exact too
+                d = max(d, float((g.to(torch.float64) - w.to(torch.float64)).abs().max()))
+            elif g.numel():
                 d = max(d, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
         err[kernel] = max(err[kernel], d)
         log(f"phase 3 {kernel} {case}: max |kernel - plain| = {d}")
@@ -440,11 +546,90 @@ def main() -> int:
     short = odd_mask[:, :20].contiguous()
     compare("K9", "[3,20,130] cap=32 > H", [edt_sq_cuda(short, 32)], [edt_sq(short, 32)])
 
+    # ---- phase 3, the refine slice: exact EDT, local maxima, K10/K11, K7 ---
+    rcfg = RefineConfig()
+    t0 = time.perf_counter()
+    relief = refine_relief()
+    stack8 = np.stack([np.roll(relief, 17 * b, axis=1) for b in range(REFINE_PLANES)])
+    q2 = (np.round(stack8[:2] * 15.0) / 15.0).astype(np.float32)  # the bench's 16 levels
+    log(f"phase 3 refine relief: [{REFINE_PLANES},{H},{W}] built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    x8r = torch.from_numpy(stack8).to(dev)
+    mask8 = x8r < rcfg.boundary_threshold
+    dsq8 = edt_sq_exact_auto(~mask8, rcfg.edt_probe_cap)
+    compare("K9", "edt_sq_exact_auto [2,2048,2048] relief (capped probe certified)",
+            [edt_sq_exact_auto(~mask8[:2], rcfg.edt_probe_cap)], [edt_sq_exact(~mask8[:2])])
+    deep = torch.zeros((1, 1024, 1024), dtype=torch.bool, device=dev)
+    deep[0, 100, 200] = deep[0, 900, 50] = True
+    compare("K9", "edt_sq_exact_auto [1,1024,1024] two features (the exact fallback)",
+            [edt_sq_exact_auto(deep, rcfg.edt_probe_cap)], [edt_sq_exact(deep)])
+    for conn in (2, 1):
+        compare("K2", f"local_maxima_auto [2,2048,2048] relief EDT² connectivity={conn}",
+                [local_maxima_auto(dsq8[:2], conn)], [local_maxima(dsq8[:2], conn)])
+    maxima8 = local_maxima_auto(dsq8)
+    mk8, num8 = compact_labels_cuda(ccl_cuda(maxima8.to(torch.uint8), background=0),
+                                    REFINE_REGIONS)
+    seeded8 = (mk8 > 0) & mask8
+
+    def ws_phases(case: str, img, mk, m, conn: int):
+        """Each watershed phase, kernels against plain; returns the labels."""
+        seeded = (mk > 0) & m
+        cost_k, busy_k, p1 = minimax_costs_cuda(img, m, seeded, conn)
+        cost_p, busy_p = minimax_costs(img, m, seeded, conn)
+        if busy_k.any() or busy_p.any():
+            raise AssertionError(f"phase 1 did not converge on {case}")
+        compare("K10", f"{case} connectivity={conn} ({p1} passes)", [cost_k], [cost_p])
+        lab_k, busy_k, p2 = claim_labels_cuda(cost_k, img, mk, m, seeded, conn)
+        lab_p, busy_p = claim_labels(cost_p, img, mk, m, seeded, conn)
+        if busy_k.any() or busy_p.any():
+            raise AssertionError(f"phase 2 did not converge on {case}")
+        compare("K11", f"{case} connectivity={conn} ({p2} passes)", [lab_k], [lab_p])
+        return lab_k
+
+    for name, imgs in (("smooth relief", x8r[:2]), ("16-level relief", torch.from_numpy(q2).to(dev))):
+        for conn in (1, 2):
+            ws_phases(f"[2,{H},{W}] {name}", imgs, mk8[:2], mask8[:2], conn)
+    island_m, island_mk = mask8[:2].clone(), mk8[:2].clone()
+    island_m[:, 100:300, 100:103] = island_m[:, 100:300, 297:300] = False
+    island_m[:, 100:103, 100:300] = island_m[:, 297:300, 100:300] = False
+    island_mk[:, 100:300, 100:300] = 0  # no seed inside the walled square
+    lab = ws_phases("unreachable island", x8r[:2], island_mk, island_m, 1)
+    if int(lab[:, 103:297, 103:297].abs().sum()) != 0 or int(island_m[:, 103:297, 103:297].sum()) == 0:
+        raise AssertionError("the unreachable island was flooded (or holds no mask)")
+    rng3 = np.random.default_rng(9)
+    img3 = torch.from_numpy(rng3.random((3, 97, 130)).astype(np.float32)).to(dev)
+    mk3 = torch.zeros((3, 97, 130), dtype=torch.int32, device=dev)
+    mk3[:, 5, 5], mk3[:, 90, 120], mk3[1, 50, 2] = 1, 2, 3
+    m3 = torch.ones((3, 97, 130), dtype=torch.bool, device=dev)
+    m3[:, :, 60:63] = False
+    for conn in (1, 2):
+        ws_phases("odd [3,97,130] random relief", img3, mk3, m3, conn)
+    need = minimax_costs_cuda(x8r[:2], mask8[:2], seeded8[:2])[2]
+    _, conv1 = watershed_cuda(x8r[:2], mk8[:2], mask8[:2], max_iters=1, with_flag=True)
+    if conv1.any() or need < 2:
+        raise AssertionError("a one-pass budget reported a converged plane")
+    log(f"phase 3 K10/K11: a one-pass budget reports converged {conv1.tolist()} on "
+        f"planes whose phase 1 needs {need} passes")
+    labels8 = watershed_auto(x8r, mk8, mask8)
+    compare("K7", f"[{REFINE_PLANES},{H},{W}] watershed labels R={REFINE_REGIONS + 1}",
+            list(centroid_sums_cuda(labels8, REFINE_REGIONS)),
+            list(centroid_sums(labels8, REFINE_REGIONS)))
+    ids3 = torch.from_numpy(rng3.integers(-3, 5000, (3, 97, 130)).astype(np.int32)).to(dev)
+    compare("K7", "odd [3,97,130] ids -3..4999 (past R)",
+            list(centroid_sums_cuda(ids3, REFINE_REGIONS)), list(centroid_sums(ids3, REFINE_REGIONS)))
+    compare("K7", f"2-D [{H},{W}] labels", list(centroid_sums_cuda(labels8[0], REFINE_REGIONS)),
+            list(centroid_sums(labels8[0], REFINE_REGIONS)))
+    wide = torch.randint(0, 40000, (2, 512, 512), dtype=torch.int32, device=dev)
+    compare("K7", "[2,512,512] R+1 = 30001 (three id tiles)",
+            list(centroid_sums_cuda(wide, 30000)), list(centroid_sums(wide, 30000)))
+
     # ---- launch counts: reset just before a path runs, read just after -----
     counters = {
         "K1": [median_label_filter_cuda], "K2": [ccl_cuda], "K3": [compact_labels_cuda],
         "K4": [region_counts_cuda, region_sums_cuda], "K5": [region_table_cuda],
-        "K6": [table_lookup_cuda], "K8": [particle_fill_step_cuda], "K9": [edt_sq_cuda],
+        "K6": [table_lookup_cuda], "K7": [centroid_sums_cuda], "K8": [particle_fill_step_cuda],
+        "K9": [edt_sq_cuda], "K10": [watershed_cost_pass_cuda],
+        "K11": [watershed_label_pass_cuda],
     }
 
     def reset_counts() -> None:
@@ -602,6 +787,57 @@ def main() -> int:
     compare_outs(f"phase 5 analyze_planes_device [8,{H},{W}] kernels vs plain on the card",
                  analyze_planes_device(x8, SINGLE, acfg), plain_analyze(x8))
     del xb, x8, den8, seg8, ctx16
+
+    # the refine slice: K7, each watershed phase, refine_plane_device
+    R1r = REFINE_REGIONS + 1
+    ms["K7"] = time_ms(lambda: centroid_sums_cuda(labels8, REFINE_REGIONS), reps=10)
+    plain_ms["K7"] = time_ms(lambda: centroid_sums(labels8, REFINE_REGIONS), reps=2)
+    pix = torch.arange(H * W, device=dev)
+    rows, cols = pix // W, pix % W
+    digits = torch.stack([torch.ones_like(pix), rows // 128, rows % 128, cols // 128,
+                          cols % 128], dim=1).to(torch.int32).repeat(REFINE_PLANES, 1)
+    bins = (labels8.reshape(REFINE_PLANES, -1).to(torch.int64)
+            + R1r * torch.arange(REFINE_PLANES, device=dev)[:, None]).reshape(-1)
+    lib_table = torch.zeros((REFINE_PLANES * R1r, 5), dtype=torch.int32, device=dev)
+    library_ms = {"K7": time_ms(lambda: lib_table.index_add_(0, bins, digits), reps=5)}
+    del pix, rows, cols, digits, bins, lib_table
+    ms["K10"] = time_ms(lambda: minimax_costs_cuda(x8r, mask8, seeded8), reps=5)
+    cost8, _, passes_k10 = minimax_costs_cuda(x8r, mask8, seeded8)
+    plain_ms["K10"] = time_ms(lambda: minimax_costs(x8r, mask8, seeded8), reps=1, warmup=0)
+    ms["K11"] = time_ms(lambda: claim_labels_cuda(cost8, x8r, mk8, mask8, seeded8), reps=5)
+    passes_k11 = claim_labels_cuda(cost8, x8r, mk8, mask8, seeded8)[2]
+    plain_ms["K11"] = time_ms(lambda: claim_labels(cost8, x8r, mk8, mask8, seeded8),
+                              reps=1, warmup=0)
+    shapes.update(K7=f"[{REFINE_PLANES},{H},{W}] R={R1r}",
+                  K10=f"[{REFINE_PLANES},{H},{W}] relief, {passes_k10} passes",
+                  K11=f"[{REFINE_PLANES},{H},{W}] relief, {passes_k11} passes")
+    for k in ("K7", "K10", "K11"):
+        lib = f", one index_add_ {library_ms[k]:.3f} ms" if k in library_ms else ""
+        log(f"phase 5 times [{card}]: {k} kernel {ms[k]:.3f} ms, plain "
+            f"{plain_ms[k]:.3f} ms{lib} at {shapes[k]}")
+
+    def plain_refine(x):
+        """refine_plane_device through the plain versions on x's device."""
+        bm = x < rcfg.boundary_threshold
+        cap = rcfg.edt_probe_cap
+        dsq = edt_sq(~bm, cap)
+        if bool((dsq > cap * cap).any()):
+            dsq = edt_sq_exact(~bm)
+        maxima, conv_max = local_maxima(dsq, with_flag=True)
+        raw, conv_ccl = connected_components(maxima.to(torch.uint8), background=0,
+                                             num_classes=2, with_flag=True)
+        markers, num = compact_labels(raw, REFINE_REGIONS)
+        labels, conv_ws = watershed(x, markers, bm, with_flag=True,
+                                    max_iters=rcfg.watershed_max_iters)
+        return labels, num, centroid_sums(labels, REFINE_REGIONS), conv_max & conv_ccl & conv_ws
+
+    rmp = REFINE_PLANES * H * W / 1e6
+    refine_ms = time_ms(lambda: refine_plane_device(x8r, rcfg, REFINE_REGIONS), reps=3)
+    plain8 = {}
+    plain_refine_ms = time_ms(lambda: plain8.update(out=plain_refine(x8r)), reps=1, warmup=0)
+    log(f"phase 5 times [{card}]: refine_plane_device [{REFINE_PLANES},{H},{W}] kernels "
+        f"{refine_ms:.3f} ms = {rmp / refine_ms * 1e3:.1f} MP/s; plain "
+        f"{plain_refine_ms:.3f} ms = {rmp / plain_refine_ms * 1e3:.1f} MP/s")
     log(f"phase 5 peak device memory: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
@@ -625,8 +861,8 @@ def main() -> int:
             f"{H}x{W} (8 single-file folders batched by 8, one RFP+DAPI "
             f"folder): {analyze_s:.2f} s wall [{card}]; kernel launches "
             f"{analyze_launches}")
-        for k, n in analyze_launches.items():
-            if n <= 0:
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9"):
+            if analyze_launches[k] <= 0:
                 raise AssertionError(f"{k} was never launched on the analyze path")
 
         # the same flow through the plain versions on the CPU, over folder 0
@@ -672,13 +908,72 @@ def main() -> int:
 
     if args.profile:
         profile_phase(planes, acfg, dev, card)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+        profile_refine(x8r, rcfg, card)
+
+    # ---- phase 8: the refine path ------------------------------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    results = refine_boundaries_stack(stack8, rcfg, REFINE_REGIONS, device=dev)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    refine_launches = read_counts()
+    passes = watershed_cuda.last_passes
+    log(f"phase 8 refine path: refine_boundaries_stack over [{REFINE_PLANES},{H},{W}]: "
+        f"{refine_s:.2f} s wall [{card}]; watershed passes: phase 1 {passes[0]}, "
+        f"phase 2 {passes[1]}; kernel launches {refine_launches}")
+    for k in ("K2", "K3", "K7", "K9", "K10", "K11"):
+        if refine_launches[k] <= 0:
+            raise AssertionError(f"{k} was never launched on the refine path")
+    p_labels, p_num, p_table, p_conv = plain8.pop("out")
+    if not bool(p_conv.all()):
+        raise AssertionError("the plain refine did not converge")
+    host = type(p_table)(*(t.cpu().numpy() for t in p_table))
+    cy, cx = centroids_f64(host)
+    for z, r in enumerate(results):
+        n = int(p_num[z])
+        if (r.num_cells != n or not np.array_equal(r.labels, p_labels[z].cpu().numpy())
+                or not np.array_equal(r.areas, host.area[z][1:n + 1])
+                or not np.array_equal(r.centroids, np.stack([cy[z], cx[z]], 1)[1:n + 1])):
+            raise AssertionError(f"phase 8 plane {z}: the refine path differs from plain")
+    log(f"phase 8 refine path: labels, cell counts, areas and centroids == plain on the "
+        f"card; cells per plane {[r.num_cells for r in results]}")
+    crop = np.ascontiguousarray(stack8[:2, 512:1536, 512:1536])
+    with tempfile.TemporaryDirectory(prefix="pcis_refine_") as tmp:
+        card_csv, cpu_csv = os.path.join(tmp, "card.csv"), os.path.join(tmp, "cpu.csv")
+        write_refine_stack_csv(refine_boundaries_stack(crop, rcfg, REFINE_REGIONS, device=dev),
+                               card_csv)
+        t0 = time.perf_counter()
+        write_refine_stack_csv(refine_boundaries_stack(crop, rcfg, REFINE_REGIONS, device="cpu"),
+                               cpu_csv)
+        cpu_s = time.perf_counter() - t0
+        with open(card_csv, "rb") as a, open(cpu_csv, "rb") as b:
+            card_bytes, cpu_bytes = a.read(), b.read()
+    n_rows = card_bytes.count(b"\n") - 1
+    if card_bytes != cpu_bytes or n_rows < 2:
+        raise AssertionError("phase 8: the crop's stack CSV differs from the plain CPU run's")
+    log(f"phase 8 refine path: [2,1024,1024] crop stack CSV ({n_rows} cells) == the plain "
+        f"CPU run's ({cpu_s:.1f} s), byte for byte")
+
+    loaded = sorted(k for k in sys.modules
+                    if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
+    if loaded:
+        raise AssertionError(f"JAX or the JAX package was imported: {loaded[:5]}")
+    n_px = {"K1": 2, "K2": 5, "K3": 8, "K4": 5, "K5": 5, "K6": 8, "K7": 4, "K8": 2,
+            "K9": 5, "K10": 13, "K11": 17}  # bytes a pixel: inputs read, outputs written
+    planes_of = {"K1": BATCH, "K2": BATCH, "K3": BATCH, "K4": BATCH, "K5": 8, "K6": 1,
+                 "K7": REFINE_PLANES, "K8": 8, "K9": 16, "K10": REFINE_PLANES,
+                 "K11": REFINE_PLANES}
+    table_bytes = {"K3": 4 * BATCH, "K4": 8 * BATCH * (MAX_REGIONS + 1), "K5": 40 * 8 * R1,
+                   "K6": 4 * R1, "K7": 20 * REFINE_PLANES * R1r, "K8": 4 * 8}
+    bound_ms = {k: (n_px[k] * planes_of[k] * H * W + table_bytes.get(k, 0))
+                / HBM_BYTES_PER_S * 1e3 for k in n_px}
+    paths = {"batch": batch_launches, "analyze": analyze_launches, "refine": refine_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
-         "launches": batch_launches[k] + analyze_launches[k],
-         "launches_by_path": {"batch": batch_launches[k], "analyze": analyze_launches[k]},
-         "max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k]}
+         "launches": sum(v[k] for v in paths.values()),
+         "launches_by_path": {p: v[k] for p, v in paths.items()},
+         "max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k],
+         "bound_ms": bound_ms[k], "bound_by": "bytes", "library_ms": library_ms.get(k)}
         for k, name, src, tpu in KERNELS
     ]}
     log(card)

@@ -3,6 +3,8 @@
   analyze — recursive .h5 analysis: position, merged-position and density
             CSVs (tiff_analysis.main parity)
   batch   — streaming fused segmentation stats over every .h5 plane of a tree
+  refine  — watershed boundary refinement of an Ilastik probability export
+            (refine_boundaries parity): refined labels and per-cell CSV
 
 Files and output lines match the JAX package's verbs byte for byte.
 ``--device`` is required: the port never picks a device on its own.
@@ -15,7 +17,7 @@ import csv
 import os
 import sys
 
-from particle_col_image_segmentation_tpu.config import AnalysisConfig
+from particle_col_image_segmentation_tpu_torch.config import AnalysisConfig, RefineConfig
 
 
 def _add_device_flag(p: argparse.ArgumentParser) -> None:
@@ -119,9 +121,25 @@ def main(argv=None) -> int:
         "manifest resume retries them)",
     )
 
+    p = sub.add_parser("refine", help="watershed boundary refinement of a probability .h5")
+    p.add_argument("h5_file")
+    _add_device_flag(p)
+    p.add_argument("--channel", type=int, default=RefineConfig().boundary_channel)
+    p.add_argument("--threshold", type=float, default=RefineConfig().boundary_threshold)
+    p.add_argument("--out", default=None, help="write refined labels to this .h5")
+    p.add_argument("--csv", default=None, help="write per-cell stats to this CSV")
+    p.add_argument(
+        "--stack", action="store_true",
+        help="treat the export as a z-stack ([Z,H,W] / [Z,C,H,W] / "
+        "[Z,H,W,C]) and refine all planes in one batched pass "
+        "(4-D inputs take this path automatically)",
+    )
+
     args = parser.parse_args(argv)
     if args.command == "analyze":
         return _analyze(args)
+    if args.command == "refine":
+        return _refine(args)
     return _batch(args)
 
 
@@ -138,10 +156,45 @@ def _analyze(args) -> int:
     return 0
 
 
+def _refine(args) -> int:
+    import numpy as np
+
+    from particle_col_image_segmentation_tpu_torch.io.hdf5 import load_h5_plane, save_h5_plane
+    from particle_col_image_segmentation_tpu_torch.models.refine import (
+        refine_boundaries,
+        refine_boundaries_stack,
+        write_refine_csv,
+        write_refine_stack_csv,
+    )
+
+    device = _device(args.device)
+    cfg = RefineConfig(boundary_threshold=args.threshold, boundary_channel=args.channel)
+    probs = load_h5_plane(args.h5_file, key="exported_data")
+    if args.stack or probs.ndim == 4:
+        results = refine_boundaries_stack(probs, cfg, device=device)
+        print(f"planes: {len(results)}, cells: {sum(r.num_cells for r in results)}")
+        if args.out:
+            save_h5_plane(args.out, np.stack([r.labels for r in results]))
+            print("labels written to", args.out)
+        if args.csv:
+            write_refine_stack_csv(results, args.csv)
+            print("cell stats written to", args.csv)
+    else:
+        result = refine_boundaries(probs, cfg, device=device)
+        print(f"cells: {result.num_cells}")
+        if args.out:
+            save_h5_plane(args.out, result.labels)
+            print("labels written to", args.out)
+        if args.csv:
+            write_refine_csv(result, args.csv)
+            print("cell stats written to", args.csv)
+    return 0
+
+
 def _batch(args) -> int:
-    from particle_col_image_segmentation_tpu.io.discovery import get_h5_files_recursively
-    from particle_col_image_segmentation_tpu.io.hdf5 import load_h5_plane
-    from particle_col_image_segmentation_tpu.oracle.reference_pipeline import (
+    from particle_col_image_segmentation_tpu_torch.io.discovery import get_h5_files_recursively
+    from particle_col_image_segmentation_tpu_torch.io.hdf5 import load_h5_plane
+    from particle_col_image_segmentation_tpu_torch.oracle.reference_pipeline import (
         normalize_ds_arr,
     )
     from particle_col_image_segmentation_tpu_torch.models.batch import (
@@ -176,7 +229,7 @@ def _batch(args) -> int:
             groups.setdefault((pv, cv), []).append(path)
     manifest = None
     if args.manifest:
-        from particle_col_image_segmentation_tpu.utils.manifest import RunManifest
+        from particle_col_image_segmentation_tpu_torch.utils.manifest import RunManifest
 
         manifest = RunManifest(args.manifest)
 

@@ -1,2 +1,2 @@
-"""Host-to-device loading for the port (decode reuses the JAX package's
-JAX-free host code)."""
+"""Host I/O of the port: HDF5 codecs, dataset discovery and the
+prefetching host-to-device loader."""

@@ -1,9 +1,9 @@
 """Prefetching batch loader: host decode and host-to-device copies
 overlapped with device compute.
 
-Counterpart of ``batched_device_iterator`` in
-``particle_col_image_segmentation_tpu/io/loader.py``; the thread-pool decode
-(``prefetch_map_paths``) is the JAX package's own JAX-free host code.  On a
+Counterpart of ``prefetch_map_paths`` and ``batched_device_iterator`` in
+``particle_col_image_segmentation_tpu/io/loader.py``: a thread pool decodes
+planes ahead of use (``prefetch_map_paths``, the same host code).  On a
 CUDA device each batch is stacked into a fresh pinned host buffer and copied
 with ``non_blocking=True`` on a side stream, enqueued before the previous
 batch is handed to the consumer, so the copy overlaps that batch's compute.
@@ -11,12 +11,66 @@ batch is handed to the consumer, so the copy overlaps that batch's compute.
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Sequence
+import concurrent.futures as cf
+from collections import deque
+from typing import Callable, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from particle_col_image_segmentation_tpu.io.loader import prefetch_map_paths
+from particle_col_image_segmentation_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("loader")
+
+
+def prefetch_map_paths(
+    load_fn: Callable[[str], np.ndarray],
+    paths: Sequence[str],
+    num_workers: int = 4,
+    prefetch: int = 8,
+    on_error: str = "raise",
+) -> Iterator[Tuple[str, np.ndarray]]:
+    """Yield ``(path, load_fn(path))`` in order with ``prefetch`` in flight.
+
+    ``on_error="skip"`` logs a failing decode and continues with the next
+    path instead of killing the stream — one corrupt file in a 100k-plane
+    overnight batch must not drop the remaining work (the un-yielded path
+    stays unmarked in any manifest, so a resume after fixing the file
+    retries it).  The default ``"raise"`` re-raises, after cancelling the
+    queued loads so the exception surfaces without draining the pipeline.
+    """
+    if on_error not in ("raise", "skip"):
+        raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
+    pool = cf.ThreadPoolExecutor(num_workers)
+    try:
+        futures: deque = deque()
+        it = iter(paths)
+
+        def submit() -> None:
+            try:
+                p = next(it)
+            except StopIteration:
+                return
+            futures.append((p, pool.submit(load_fn, p)))
+
+        for _ in range(prefetch):
+            submit()
+        while futures:
+            path, done = futures.popleft()
+            submit()
+            try:
+                plane = done.result()
+            except Exception:
+                if on_error == "skip":
+                    _log.exception("skipping %s: decode failed", path)
+                    continue
+                raise
+            yield path, plane
+    finally:
+        # On exception or early consumer exit, drop queued decodes and do
+        # not block on in-flight ones — the error/exit should surface now,
+        # not after 2·batch_size decodes drain
+        pool.shutdown(wait=False, cancel_futures=True)
 
 
 def batched_device_iterator(

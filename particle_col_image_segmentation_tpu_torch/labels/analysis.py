@@ -8,7 +8,7 @@ tensors through their plain versions.  The O(regions) bookkeeping stays on
 the host (``models.single_channel``).
 
 There are no learned weights.  What crosses between this module and the JAX
-one is the frozen ``AnalysisConfig`` (imported as is) and the label planes,
+one is the frozen ``AnalysisConfig`` (the port's own, same fields) and the label planes,
 handed to both as numpy arrays; PyTorch runs eagerly, so the JAX module's
 per-stage ``jit`` has no counterpart here.
 
@@ -23,7 +23,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from particle_col_image_segmentation_tpu.config import CELL_TYPES, AnalysisConfig
+from particle_col_image_segmentation_tpu_torch.config import CELL_TYPES, AnalysisConfig
 from particle_col_image_segmentation_tpu_torch.ops.ccl import (
     compact_labels_auto,
     connected_components_auto,

@@ -16,9 +16,9 @@ from typing import Callable, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
-from particle_col_image_segmentation_tpu.config import DEFAULT_CONFIG, AnalysisConfig
-from particle_col_image_segmentation_tpu.labels import classmaps
-from particle_col_image_segmentation_tpu.utils.logging import get_logger
+from particle_col_image_segmentation_tpu_torch.config import DEFAULT_CONFIG, AnalysisConfig
+from particle_col_image_segmentation_tpu_torch.labels import classmaps
+from particle_col_image_segmentation_tpu_torch.utils.logging import get_logger
 from particle_col_image_segmentation_tpu_torch.io.loader import batched_device_iterator
 from particle_col_image_segmentation_tpu_torch.ops.ccl import (
     compact_labels_auto,

@@ -7,7 +7,7 @@ flows, ``process_single_h5_file`` (:627-671) and ``process_multiple_h5_files``
 kernels, the CPU the plain versions).  The CSVs equal the JAX package's byte
 for byte.  The space-sharded ``mesh`` path is not ported.  No learned
 weights: what the two packages share is the frozen ``AnalysisConfig``
-(imported as is) and the label planes, read as numpy arrays.
+(the port's own, same fields) and the label planes, read as numpy arrays.
 
 Faithful ordering quirks preserved:
   * single-file: counts/densities use the PRE-fill particle area (:647-648),
@@ -24,23 +24,23 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from particle_col_image_segmentation_tpu.config import (
+from particle_col_image_segmentation_tpu_torch.config import (
     BASE_TYPE_MAP,
     CELL_TYPES,
     DEFAULT_CONFIG,
     AnalysisConfig,
 )
-from particle_col_image_segmentation_tpu.io.discovery import (
+from particle_col_image_segmentation_tpu_torch.io.discovery import (
     get_h5_files_recursively,
     get_pos_and_density_file_names,
 )
-from particle_col_image_segmentation_tpu.io.hdf5 import load_h5_plane
-from particle_col_image_segmentation_tpu.labels import classmaps
-from particle_col_image_segmentation_tpu.oracle.reference_pipeline import (
+from particle_col_image_segmentation_tpu_torch.io.hdf5 import load_h5_plane
+from particle_col_image_segmentation_tpu_torch.labels import classmaps
+from particle_col_image_segmentation_tpu_torch.oracle.reference_pipeline import (
     get_cell_counts_and_densities,
     normalize_ds_arr,
 )
-from particle_col_image_segmentation_tpu.report.csvio import (
+from particle_col_image_segmentation_tpu_torch.report.csvio import (
     write_cell_position_info,
     write_density_info,
     write_merged_cell_position_info,
@@ -123,7 +123,7 @@ def process_single_h5_file(
     )
 
     if make_figures:
-        from particle_col_image_segmentation_tpu.viz import (
+        from particle_col_image_segmentation_tpu_torch.viz.figures import (
             create_single_plots,
             get_color_map,
             plot_original_vs_merged,
@@ -209,7 +209,7 @@ def process_multiple_h5_files(
             raise ValueError(f"Strain type not in cell types. {strain_type}")
 
         if make_figures:
-            from particle_col_image_segmentation_tpu.viz import (
+            from particle_col_image_segmentation_tpu_torch.viz.figures import (
                 create_channel_plots,
                 get_color_map,
             )
@@ -257,7 +257,7 @@ def process_multiple_h5_files(
         master_cell_clusters["6B07"] = dapi_res.cell_clusters.get("6B07", [])
 
         if make_figures:
-            from particle_col_image_segmentation_tpu.viz import (
+            from particle_col_image_segmentation_tpu_torch.viz.figures import (
                 get_color_map,
                 visualize_dapi_overlap_results,
             )
@@ -301,7 +301,7 @@ def process_multiple_h5_files(
     merged_clusters = fused_res.merged_clusters
 
     if make_figures and base_name is not None:
-        from particle_col_image_segmentation_tpu.viz import (
+        from particle_col_image_segmentation_tpu_torch.viz.figures import (
             create_plot,
             get_color_map,
             plot_original_vs_merged,

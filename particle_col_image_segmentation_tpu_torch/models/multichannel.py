@@ -10,7 +10,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from particle_col_image_segmentation_tpu.config import BASE_TYPE_MAP, STRAIN_MAP
+from particle_col_image_segmentation_tpu_torch.config import BASE_TYPE_MAP, STRAIN_MAP
 from particle_col_image_segmentation_tpu_torch.models.single_channel import as_plane
 
 __all__ = ["rfp_base_remap", "combine_channels_device", "fuse_channels"]

@@ -15,12 +15,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from particle_col_image_segmentation_tpu.config import (
+from particle_col_image_segmentation_tpu_torch.config import (
     CELL_TYPES,
     DEFAULT_CONFIG,
     AnalysisConfig,
 )
-from particle_col_image_segmentation_tpu.oracle.ndimage import Region
+from particle_col_image_segmentation_tpu_torch.oracle.ndimage import Region
 from particle_col_image_segmentation_tpu_torch.labels.analysis import (
     PlaneDeviceOut,
     analyze_plane_device,

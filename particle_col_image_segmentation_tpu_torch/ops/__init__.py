@@ -12,10 +12,15 @@ from particle_col_image_segmentation_tpu_torch.ops.ccl_tiles import (  # noqa: F
     ccl_cuda,
     compact_labels_cuda,
 )
-from particle_col_image_segmentation_tpu_torch.ops.edt import edt_sq  # noqa: F401
+from particle_col_image_segmentation_tpu_torch.ops.edt import (  # noqa: F401
+    edt_exact,
+    edt_sq,
+    edt_sq_exact,
+)
 from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import (  # noqa: F401
     edt_sq_auto,
     edt_sq_cuda,
+    edt_sq_exact_auto,
 )
 from particle_col_image_segmentation_tpu_torch.ops.fill_tiles import (  # noqa: F401
     particle_fill_step,
@@ -29,10 +34,20 @@ from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import (  # noq
     median_label_filter_auto,
     median_label_filter_cuda,
 )
-from particle_col_image_segmentation_tpu_torch.ops.morphology import dilate_disk  # noqa: F401
+from particle_col_image_segmentation_tpu_torch.ops.morphology import (  # noqa: F401
+    dilate_disk,
+    local_maxima,
+    local_maxima_auto,
+)
+from particle_col_image_segmentation_tpu_torch.ops.pairwise import (  # noqa: F401
+    min_dist_to_set,
+    nearest_neighbor_dists,
+)
 from particle_col_image_segmentation_tpu_torch.ops.regionprops import (  # noqa: F401
     HILO_BASE,
+    CentroidTable,
     RegionTable,
+    centroid_sums,
     centroids_f64,
     centroids_int,
     region_counts,
@@ -40,6 +55,8 @@ from particle_col_image_segmentation_tpu_torch.ops.regionprops import (  # noqa:
     region_sums,
 )
 from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import (  # noqa: F401
+    centroid_sums_auto,
+    centroid_sums_cuda,
     region_counts_auto,
     region_counts_cuda,
     region_props_auto,
@@ -49,4 +66,11 @@ from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import (  #
     table_lookup,
     table_lookup_auto,
     table_lookup_cuda,
+)
+from particle_col_image_segmentation_tpu_torch.ops.watershed import (  # noqa: F401
+    watershed,
+    watershed_auto,
+)
+from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (  # noqa: F401
+    watershed_cuda,
 )

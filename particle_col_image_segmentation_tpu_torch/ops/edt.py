@@ -1,8 +1,10 @@
-"""Bounded exact squared Euclidean distance transform (the K9 kernel's plain
-version).
+"""Squared Euclidean distance transforms: the bounded one (the K9 kernel's
+plain version) and the exact one.
 
-Counterpart of ``edt_sq`` and ``_doubling_dist`` in
-``particle_col_image_segmentation_tpu/ops/edt.py``, phase for phase:
+Counterpart of ``edt_sq``, ``_doubling_dist``, ``row_dh2_exact``,
+``minplus_rows``, ``edt_sq_exact`` and ``edt_exact`` in
+``particle_col_image_segmentation_tpu/ops/edt.py``.  The bounded transform,
+phase for phase:
 
   phase 1, within each row: capped distance to the nearest feature pixel of
     the same row — 2·cap+1 direct column taps for cap ≤ 8, bounded
@@ -14,6 +16,13 @@ Counterpart of ``edt_sq`` and ``_doubling_dist`` in
 Exact wherever the true distance ≤ cap; larger distances give a value in
 (cap², (cap+1)²], (cap+1)² where no feature is within cap rows.  So ``edt_sq(mask, r) ≤ r²`` is exactly ``binary_dilation(mask,
 disk(r))``, and any threshold ≤ cap² is exact.
+
+The exact transform takes each row's exact distance to its nearest feature,
+then the full min-plus over all source rows, ``out[r, c] = min_j dh²(j, c) +
+(r − j)²`` — O(H²·W), in tensor code chunked over source rows on every
+device (the JAX package, too, leaves it to XLA).  ``ops.edt_tiles.
+edt_sq_exact_auto`` runs it only where the capped transform cannot certify
+itself exact.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["edt_sq"]
+__all__ = ["edt_sq", "row_dh2_exact", "minplus_rows", "edt_sq_exact", "edt_exact"]
 
 
 def edt_sq(feature: torch.Tensor, cap: int) -> torch.Tensor:
@@ -68,3 +77,54 @@ def _doubling_dist(d0: torch.Tensor, c1: int, backward: bool) -> torch.Tensor:
         d = torch.minimum(d, shifted + s)
         s *= 2
     return torch.clamp(d, max=c1)
+
+
+def row_dh2_exact(feature: torch.Tensor, inf: int) -> torch.Tensor:
+    """Per-row squared distance to the nearest feature pixel of the same row
+    (int32); ``inf`` on featureless rows, so that they add +inf to the
+    min-plus and never a finite (W+1)² candidate."""
+    feature = feature != 0
+    W = feature.shape[-1]
+    capw = W + 1
+    idx = torch.arange(W, dtype=torch.int32, device=feature.device)
+    last = torch.cummax(torch.where(feature, idx, -capw), dim=-1).values
+    nxt = torch.flip(
+        torch.cummin(torch.flip(torch.where(feature, idx, 2 * capw), (-1,)), dim=-1).values,
+        (-1,),
+    )
+    dh = torch.minimum(idx - last, nxt - idx).clamp(max=capw)
+    return torch.where(dh >= capw, inf, dh * dh).to(torch.int32)
+
+
+def minplus_rows(dh2_src: torch.Tensor, r_idx: torch.Tensor, inf: int,
+                 rows_per_step: int = 8) -> torch.Tensor:
+    """``out[..., i, c] = min_j dh2_src[..., j, c] + (r_idx[i] − j)²`` over
+    ALL source rows j, ``rows_per_step`` source rows at a time."""
+    Hs, W = dh2_src.shape[-2:]
+    r_idx = r_idx.to(torch.int32)
+    out = torch.full(dh2_src.shape[:-2] + (r_idx.shape[0], W), inf,
+                     dtype=torch.int32, device=dh2_src.device)
+    for j0 in range(0, Hs, rows_per_step):
+        rows = dh2_src[..., j0:j0 + rows_per_step, :]  # [..., C, W]
+        j = torch.arange(j0, j0 + rows.shape[-2], dtype=torch.int32, device=dh2_src.device)
+        dy = r_idx[None, :] - j[:, None]  # [C, Hout]
+        cand = rows[..., :, None, :] + (dy * dy)[:, :, None]  # [..., C, Hout, W]
+        out = torch.minimum(out, cand.amin(dim=-3))
+    return out
+
+
+def edt_sq_exact(feature: torch.Tensor, rows_per_step: int = 8) -> torch.Tensor:
+    """Exact (uncapped) squared EDT of [..., H, W] as int32.  Pixels of a
+    plane without any feature get (H+W+2)²."""
+    H, W = feature.shape[-2:]
+    inf = (H + W + 2) * (H + W + 2)
+    dh2 = row_dh2_exact(feature, inf)
+    return minplus_rows(
+        dh2, torch.arange(H, dtype=torch.int32, device=feature.device), inf,
+        rows_per_step,
+    )
+
+
+def edt_exact(feature: torch.Tensor) -> torch.Tensor:
+    """Exact float32 EDT (scipy.ndimage.distance_transform_edt parity)."""
+    return torch.sqrt(edt_sq_exact(feature).to(torch.float32))

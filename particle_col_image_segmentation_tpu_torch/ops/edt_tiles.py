@@ -1,7 +1,9 @@
-"""K9: the capped squared-EDT kernel's wrapper and the transform's dispatch.
+"""K9: the capped squared-EDT kernel's wrapper, the transform's dispatch, and
+the certified-exact transform built on it.
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/edt_tiles.py``
-(``edt_sq_pallas``, ``edt_sq_auto``).  The JAX dispatch takes its Pallas
+(``edt_sq_pallas``, ``edt_sq_auto``) and of ``edt_sq_exact_auto`` in
+``particle_col_image_segmentation_tpu/ops/edt.py``.  The JAX dispatch takes its Pallas
 kernel only for cap > 8 on lane-aligned planes; here every CUDA tensor takes
 ``csrc/edt.cu`` whatever the cap or the plane size, and its output equals the
 plain ``ops.edt.edt_sq`` exactly.
@@ -13,9 +15,9 @@ import torch
 
 from particle_col_image_segmentation_tpu_torch import _kernels
 from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
-from particle_col_image_segmentation_tpu_torch.ops.edt import edt_sq
+from particle_col_image_segmentation_tpu_torch.ops.edt import edt_sq, edt_sq_exact
 
-__all__ = ["edt_sq_cuda", "edt_sq_auto", "MAX_CAP"]
+__all__ = ["edt_sq_cuda", "edt_sq_auto", "edt_sq_exact_auto", "MAX_CAP"]
 
 # (cap+1)² plus a dy² ≤ cap² must stay inside int32
 MAX_CAP = 32766
@@ -69,3 +71,19 @@ def edt_sq_auto(feature: torch.Tensor, cap: int) -> torch.Tensor:
     if use_kernel(feature):
         return edt_sq_cuda(feature, cap)
     return edt_sq(feature, cap)
+
+
+def edt_sq_exact_auto(feature: torch.Tensor, probe_cap: int = 32,
+                      rows_per_step: int = 8) -> torch.Tensor:
+    """Exact squared EDT with a capped fast path and a runtime certificate.
+
+    The capped transform (K9 on a CUDA tensor) is exact wherever the true
+    distance ≤ ``probe_cap`` and exceeds probe_cap² wherever it is not, so
+    no value above probe_cap² anywhere in the batch proves the capped result
+    exact.  Otherwise the exact O(H²·W) transform runs from scratch.  The
+    output equals ``ops.edt.edt_sq_exact`` either way."""
+    feature = (feature != 0).contiguous()
+    capped = edt_sq_auto(feature, probe_cap)
+    if bool((capped > probe_cap * probe_cap).any()):
+        return edt_sq_exact(feature, rows_per_step)
+    return capped

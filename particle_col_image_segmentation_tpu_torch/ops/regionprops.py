@@ -1,9 +1,10 @@
-"""Per-region tables: the plain versions behind K4 and K5.
+"""Per-region tables: the plain versions behind K4, K5 and K7.
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/regionprops.py``
-(``region_counts``, ``RegionTable``, ``region_props``, ``centroids_int``,
-``centroids_f64``).  Tables have ``max_regions + 1`` rows, row 0 being the
-background segment, and are batched over any leading axes of ``seg``.
+(``region_counts``, ``RegionTable``, ``region_props``, ``CentroidTable``,
+``centroid_sums``, ``centroids_int``, ``centroids_f64``).  Tables have
+``max_regions + 1`` rows, row 0 being the background segment, and are
+batched over any leading axes of ``seg``.
 
 Coordinate sums stay exact (hi, lo) int32 digit pairs at the API boundary,
 ``Σrow = HILO_BASE·sr_hi + sr_lo``, as in the JAX package.  The two digits
@@ -23,7 +24,9 @@ import torch
 __all__ = [
     "HILO_BASE",
     "RegionTable",
+    "CentroidTable",
     "region_counts",
+    "centroid_sums",
     "region_sums",
     "region_props",
     "centroids_int",
@@ -52,6 +55,18 @@ class RegionTable(NamedTuple):
     bbox: torch.Tensor  # [..., R+1, 4] int32 (minr, minc, maxr, maxc) half-open
     class_id: torch.Tensor  # [..., R+1] int32 pixel value of the component
     valid: torch.Tensor  # [..., R+1] bool (area > 0 and not background row)
+
+
+class CentroidTable(NamedTuple):
+    """Area and the exact (hi, lo) coordinate digit sums only: the five
+    columns the refine pipeline reads (``centroids_f64`` reads them by
+    name).  Row 0 is the background segment; empty rows hold 0."""
+
+    area: torch.Tensor  # [..., R+1] int32
+    sr_hi: torch.Tensor  # [..., R+1] int32   Σrow = HILO_BASE*sr_hi + sr_lo
+    sr_lo: torch.Tensor  # [..., R+1] int32
+    sc_hi: torch.Tensor  # [..., R+1] int32   Σcol = HILO_BASE*sc_hi + sc_lo
+    sc_lo: torch.Tensor  # [..., R+1] int32
 
 
 def _bins(seg: torch.Tensor, R1: int) -> torch.Tensor:
@@ -131,8 +146,7 @@ def region_props(seg: torch.Tensor, img: torch.Tensor, max_regions: int) -> Regi
     area = _binned_sum(bins, torch.ones_like(bins), n)
     digits = [
         _binned_sum(bins, d, n).to(torch.int32)
-        for d in (rows // HILO_BASE, rows % HILO_BASE,
-                  cols // HILO_BASE, cols % HILO_BASE)
+        for d in _pixel_digits(B, H, W, seg.device)
     ]
     sums = _binned_sum(bins, img.reshape(B, H * W), n).clamp(_I32_MIN, _I32_MAX)
 
@@ -162,6 +176,41 @@ def region_props(seg: torch.Tensor, img: torch.Tensor, max_regions: int) -> Regi
         bbox=shaped(bbox),
         class_id=shaped(class_id),
         valid=shaped(valid),
+    )
+
+
+def _pixel_digits(B: int, H: int, W: int, device):
+    """The four base-128 coordinate digits of every pixel, each [B, H·W]:
+    r // 128, r % 128, c // 128, c % 128."""
+    pix = torch.arange(H * W, device=device)
+    rows = (pix // W).expand(B, -1)
+    cols = (pix % W).expand(B, -1)
+    return (rows // HILO_BASE, rows % HILO_BASE, cols // HILO_BASE, cols % HILO_BASE)
+
+
+def centroid_sums(seg: torch.Tensor, max_regions: int) -> CentroidTable:
+    """CentroidTable of compact ids ``seg`` [..., H, W] (0 = background),
+    batched over any leading axes — the plain version of kernel K7.  Each
+    digit column is summed on its own, as in ``region_props``; ids outside
+    [0, R+1) are dropped."""
+    R1 = max_regions + 1
+    H, W = seg.shape[-2:]
+    lead = seg.shape[:-2]
+    ids = seg.reshape(-1, H * W)
+    B = ids.shape[0]
+    bins = _bins(ids, R1)
+    n = B * R1
+    area = _binned_sum(bins, torch.ones_like(bins), n)
+    sr_hi, sr_lo, sc_hi, sc_lo = (
+        _binned_sum(bins, d, n) for d in _pixel_digits(B, H, W, seg.device)
+    )
+
+    def shaped(t):
+        return t.to(torch.int32).reshape(lead + (R1,))
+
+    return CentroidTable(
+        area=shaped(area), sr_hi=shaped(sr_hi), sr_lo=shaped(sr_lo),
+        sc_hi=shaped(sc_hi), sc_lo=shaped(sc_lo),
     )
 
 

@@ -1,15 +1,15 @@
-"""K4, K5 and K6: the region-table and table-lookup kernels' wrappers and
-their dispatch.
+"""K4, K5, K6 and K7: the region-table, table-lookup and centroid-table
+kernels' wrappers and their dispatch.
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/regionprops_tiles.py``
 (``region_counts_mxu``, ``region_sums_mxu``, ``region_table_mxu``,
-``table_lookup_mxu`` and their ``*_auto`` dispatch).  The TPU built these
+``table_lookup_mxu``, ``centroid_sums_mxu`` and their ``*_auto`` dispatch).  The TPU built these
 tables from one-hot int8 matmuls with base-128 digit splits and two passes
 (the second over the transposed plane for the column extremes).  Here
-``csrc/counts.cu`` (K4) and ``csrc/table.cu`` (K5) keep shared-memory
-histograms with atomics, and ``csrc/lookup.cu`` (K6) is a bounds-checked
-gather; their outputs equal the plain versions in ``ops.regionprops`` and
-``table_lookup`` exactly.
+``csrc/counts.cu`` (K4), ``csrc/table.cu`` (K5) and ``csrc/centroid.cu``
+(K7) keep shared-memory histograms with atomics, and ``csrc/lookup.cu`` (K6)
+is a bounds-checked gather; their outputs equal the plain versions in
+``ops.regionprops`` and ``table_lookup`` exactly.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ import torch
 from particle_col_image_segmentation_tpu_torch import _kernels
 from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
 from particle_col_image_segmentation_tpu_torch.ops.regionprops import (
+    CentroidTable,
     RegionTable,
+    centroid_sums,
     region_counts,
     region_props,
     region_sums,
@@ -37,6 +39,8 @@ __all__ = [
     "table_lookup",
     "table_lookup_cuda",
     "table_lookup_auto",
+    "centroid_sums_cuda",
+    "centroid_sums_auto",
 ]
 
 
@@ -222,3 +226,41 @@ def table_lookup_auto(seg: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if use_kernel(seg, table):
         return table_lookup_cuda(seg, table)
     return table_lookup(seg, table)
+
+
+def centroid_sums_cuda(seg: torch.Tensor, max_regions: int) -> CentroidTable:
+    """K7: the CentroidTable of contiguous CUDA int32 ids, [H,W] or [B,H,W].
+    Equal to ``ops.regionprops.centroid_sums`` on every row."""
+    _kernels.require_cuda("centroid_sums_cuda", seg)
+    if seg.dtype != torch.int32:
+        raise ValueError(f"centroid_sums_cuda: expected int32 ids, got {seg.dtype}")
+    if seg.ndim not in (2, 3) or seg.numel() == 0:
+        raise ValueError(
+            f"centroid_sums_cuda: expected non-empty [H,W] or [B,H,W] ids, got {tuple(seg.shape)}"
+        )
+    if seg.shape[-2] * seg.shape[-1] >= 2**31 or not 0 <= max_regions < 2**31 - 1:
+        raise ValueError("centroid_sums_cuda: sizes exceed int32 indices")
+    B = seg.shape[0] if seg.ndim == 3 else 1
+    H, W = seg.shape[-2:]
+    R1 = max_regions + 1
+    # area | sr_hi | sr_lo | sc_hi | sc_lo, one buffer
+    cols = torch.empty((5,) + seg.shape[:-2] + (R1,), dtype=torch.int32, device=seg.device)
+    lib = _kernels.library()
+    with torch.cuda.device(seg.device):
+        err = lib.pcis_centroid_sums(
+            seg.data_ptr(), cols.data_ptr(), B, H, W, R1, _kernels.stream_of(seg),
+        )
+    _kernels.check(err, "centroid_sums_cuda")
+    centroid_sums_cuda.launches += 1
+    area, sr_hi, sr_lo, sc_hi, sc_lo = cols.unbind(0)
+    return CentroidTable(area=area, sr_hi=sr_hi, sr_lo=sr_lo, sc_hi=sc_hi, sc_lo=sc_lo)
+
+
+centroid_sums_cuda.launches = 0
+
+
+def centroid_sums_auto(seg: torch.Tensor, max_regions: int) -> CentroidTable:
+    """K7 for a CUDA tensor, the plain table for a CPU tensor."""
+    if use_kernel(seg):
+        return centroid_sums_cuda(seg, max_regions)
+    return centroid_sums(seg, max_regions)

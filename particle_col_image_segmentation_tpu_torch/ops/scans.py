@@ -1,7 +1,9 @@
-"""Segmented min scans along one axis — the plain CCL's propagation step.
+"""Segmented scans along one axis — the plain CCL's propagation step and the
+plain local maxima's plateau flood.
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/scans.py``
-(``seg_min_scan``, ``seg_min_scan_bidi``, ``_flip_same``).  Where JAX runs an
+(``seg_min_scan``, ``seg_min_scan_bidi``, ``seg_or_scan_bidi``,
+``_flip_same``).  Where JAX runs an
 associative scan over (value, boundary) pairs, this uses one ``cummin`` over
 int64 keys: ``key = value - segment_number·2³²``.  Segment numbers grow along
 the axis, so every key of an earlier segment exceeds every key of the
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["seg_min_scan", "seg_min_scan_bidi"]
+__all__ = ["seg_min_scan", "seg_min_scan_bidi", "seg_or_scan_bidi"]
 
 
 def seg_min_scan(vals: torch.Tensor, boundary: torch.Tensor, axis: int) -> torch.Tensor:
@@ -39,6 +41,12 @@ def seg_min_scan_bidi(vals: torch.Tensor, same_prev: torch.Tensor, axis: int) ->
         (axis,),
     )
     return torch.minimum(fwd, rev)
+
+
+def seg_or_scan_bidi(vals: torch.Tensor, same_prev: torch.Tensor, axis: int) -> torch.Tensor:
+    """OR of a bool ``vals`` over each element's whole segment: a segment
+    holds a True exactly when the min of ``~vals`` over it is 0."""
+    return seg_min_scan_bidi((~vals).to(torch.int32), same_prev, axis) == 0
 
 
 def _flip_same(same_prev: torch.Tensor, axis: int) -> torch.Tensor:

@@ -1,0 +1,218 @@
+"""Marker watershed by two-phase minimax flooding (plain version and dispatch).
+
+Counterpart of ``particle_col_image_segmentation_tpu/ops/watershed.py``
+(``_offsets``, ``_shifted``, ``claim_candidates``, ``fold_claim``,
+``watershed``, ``watershed_auto``); see that module for the derivation.
+
+  1. costs: every masked pixel's minimax distance to the seeds — min over
+     paths of the largest relief on the path — by Jacobi relaxation;
+  2. labels: with the costs fixed, every masked non-seed pixel takes the
+     least claim (level distance, entry img, claimer img, marker id) over its
+     optimal edges (n → p is optimal iff max(cost[n], img[p]) == cost[p]),
+     recomputed from scratch from its neighbours' states each step.
+
+Both phases have a unique fixpoint, so the plain Jacobi loop here, the JAX
+package's XLA loop and band sweeps, and the port's CUDA tile passes
+(``ops.watershed_tiles``, K10 and K11) give the same labels bit for bit.
+The plain loop is the XLA loop step for step, so even a plane that runs out
+of ``max_iters`` gets the JAX package's labels and ``converged`` flag.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
+from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
+    _BIG_LAB,
+    _INF,
+    watershed_cuda,
+)
+
+__all__ = [
+    "watershed", "watershed_auto", "minimax_costs", "claim_labels",
+    "claim_candidates", "fold_claim",
+]
+
+
+def _offsets(connectivity: int):
+    offsets = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    if connectivity == 2:
+        offsets += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    return offsets
+
+
+def _shifted(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
+    """``out[..., r, c] = x[..., r - dy, c - dx]``, ``fill`` where that lies
+    outside the plane."""
+    H, W = x.shape[-2:]
+    out = torch.full_like(x, fill)
+    out[..., max(0, dy):H - max(0, -dy), max(0, dx):W - max(0, -dx)] = (
+        x[..., max(0, -dy):H - max(0, dy), max(0, -dx):W - max(0, dx)]
+    )
+    return out
+
+
+def claim_candidates(cost, img, lab, dist, eimg, dy, dx):
+    """The phase-2 claim of the neighbour at offset (−dy, −dx) of every pixel,
+    as (level distance, entry img, claimer img, label); (BIG, INF, INF, BIG)
+    where that edge is not optimal or the neighbour holds no label."""
+    nc = _shifted(cost, dy, dx, _INF)
+    nim = _shifted(img, dy, dx, _INF)
+    nl = _shifted(lab, dy, dx, _BIG_LAB)
+    nd = _shifted(dist, dy, dx, _BIG_LAB)
+    ne = _shifted(eimg, dy, dx, _INF)
+    valid = (torch.maximum(nc, img) == cost) & (nl != _BIG_LAB)
+    reset = nc < cost  # strictly uphill crossing: a new flooding level
+    big = torch.full_like(nd, _BIG_LAB)
+    inf = torch.full_like(nim, _INF)
+    cd = torch.where(
+        valid,
+        torch.where(reset, 0, torch.where(nd < _BIG_LAB, nd + 1, big)),
+        big,
+    )
+    ce = torch.where(valid, torch.where(reset, nim, ne), inf)
+    cs = torch.where(valid, nim, inf)
+    cl = torch.where(valid, nl, big)
+    return cd, ce, cs, cl
+
+
+def fold_claim(best, cand):
+    """Lexicographic (d, eimg, simg, lab) min of two claim sets."""
+    bd, be, bs, bl = best
+    cd, ce, cs, cl = cand
+    take = (
+        (cd < bd)
+        | ((cd == bd) & (ce < be))
+        | ((cd == bd) & (ce == be) & (cs < bs))
+        | ((cd == bd) & (ce == be) & (cs == bs) & (cl < bl))
+    )
+    return (
+        torch.where(take, cd, bd),
+        torch.where(take, ce, be),
+        torch.where(take, cs, bs),
+        torch.where(take, cl, bl),
+    )
+
+
+def _inputs(image, markers, mask):
+    """(img f32, lab0 i32, m bool, seeded bool), all [..., H, W]."""
+    img = image.to(torch.float32)
+    lab0 = markers.to(torch.int32)
+    m = torch.ones(image.shape, dtype=torch.bool, device=image.device) if mask is None \
+        else mask.to(torch.bool)
+    return img, lab0, m, (lab0 > 0) & m
+
+
+def _check_args(connectivity: int, tunnel_basins: bool) -> None:
+    if tunnel_basins:
+        raise NotImplementedError(
+            "watershed(tunnel_basins=True) is not ported yet (ROADMAP.md, "
+            "Queue 1: tunnel_basins)"
+        )
+    if connectivity not in (1, 2):
+        raise ValueError(f"watershed: connectivity must be 1 or 2, got {connectivity}")
+
+
+def minimax_costs(img, m, seeded, connectivity: int = 1, max_iters: int = 1024):
+    """Phase 1 (plain Jacobi): every masked pixel's minimax distance to the
+    seeds; +INF outside the mask and where no seed reaches.  Returns (cost,
+    per-plane bool still changing when the loop stopped)."""
+    inf = torch.tensor(_INF, dtype=torch.float32, device=img.device)
+    cost0 = torch.where(seeded, img, inf)
+    cost = cost0
+    changed = torch.ones(img.shape[:-2], dtype=torch.bool, device=img.device)
+    i = 0
+    while i < max_iters and bool(changed.any()):
+        best = cost
+        for dy, dx in _offsets(connectivity):
+            best = torch.minimum(best, torch.maximum(_shifted(cost, dy, dx, _INF), img))
+        new = torch.where(seeded, cost0, torch.where(m, best, inf))
+        changed = (new != cost).flatten(-2).any(-1)
+        cost = new
+        i += 1
+    return cost, changed
+
+
+def claim_labels(cost, img, lab0, m, seeded, connectivity: int = 1, max_iters: int = 1024):
+    """Phase 2 (plain Jacobi): with ``cost`` fixed, relax the claims from
+    the seeds.  Returns (watershed labels — 0 outside the mask and where no
+    seed reaches —, per-plane bool still changing when the loop stopped)."""
+    inf = torch.tensor(_INF, dtype=torch.float32, device=img.device)
+    big = torch.full(img.shape, _BIG_LAB, dtype=torch.int32, device=img.device)
+    lab = torch.where(seeded, lab0, big)
+    dist = torch.where(seeded, 0, big)
+    eimg = torch.where(seeded, -inf, inf)
+    changed = torch.ones(img.shape[:-2], dtype=torch.bool, device=img.device)
+    i = 0
+    while i < max_iters and bool(changed.any()):
+        best = (big, torch.full_like(img, _INF), torch.full_like(img, _INF), big)
+        for dy, dx in _offsets(connectivity):
+            best = fold_claim(best, claim_candidates(cost, img, lab, dist, eimg, dy, dx))
+        bd, be, _, bl = best
+        new_l = torch.where(seeded, lab0, torch.where(m, bl, big))
+        new_d = torch.where(seeded, 0, torch.where(m, bd, big))
+        new_e = torch.where(seeded, -inf, torch.where(m, be, inf))
+        changed = ((new_l != lab) | (new_d != dist) | (new_e != eimg)).flatten(-2).any(-1)
+        lab, dist, eimg = new_l, new_d, new_e
+        i += 1
+    reached = m & (cost < inf) & (lab != _BIG_LAB)
+    return torch.where(reached, lab, 0), changed
+
+
+def watershed(
+    image: torch.Tensor,
+    markers: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    connectivity: int = 1,
+    max_iters: int = 1024,
+    with_flag: bool = False,
+    tunnel_basins: bool = False,
+):
+    """Flood ``markers`` over the relief ``image`` within ``mask`` (plain
+    Jacobi loops).
+
+    Args:
+      image: [..., H, W] relief; leading axes are planes flooded together,
+        each with its own result.
+      markers: [..., H, W] integer marker labels (> 0 seeds, 0 elsewhere).
+      mask: optional [..., H, W] bool; pixels outside stay 0.
+      connectivity: 1 (4 neighbours) or 2 (8).
+      max_iters: bound on the Jacobi steps of each phase.
+      with_flag: also return a per-plane bool ``converged`` (batch shape);
+        False means a phase ran out of ``max_iters`` with that plane still
+        changing, and its labels are not valid.
+      tunnel_basins: not ported; True raises NotImplementedError.
+
+    Returns [..., H, W] int32 labels.
+    """
+    _check_args(connectivity, tunnel_basins)
+    img, lab0, m, seeded = _inputs(image, markers, mask)
+    cost, c_changed = minimax_costs(img, m, seeded, connectivity, max_iters)
+    out, l_changed = claim_labels(cost, img, lab0, m, seeded, connectivity, max_iters)
+    if with_flag:
+        return out, ~(c_changed | l_changed)
+    return out
+
+
+def watershed_auto(
+    image: torch.Tensor,
+    markers: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    connectivity: int = 1,
+    with_flag: bool = False,
+    max_iters: int = 1024,
+    tunnel_basins: bool = False,
+):
+    """K10 + K11 for CUDA tensors (``max_iters`` bounds the passes of each
+    phase), the plain Jacobi loops for CPU tensors (``max_iters`` bounds
+    their steps).  The labels are the same wherever both converge."""
+    _check_args(connectivity, tunnel_basins)
+    tensors = [image, markers] + ([] if mask is None else [mask])
+    if use_kernel(*tensors):
+        return watershed_cuda(image, markers, mask, connectivity=connectivity,
+                              max_iters=max_iters, with_flag=with_flag)
+    return watershed(image, markers, mask, connectivity=connectivity,
+                     max_iters=max_iters, with_flag=with_flag)

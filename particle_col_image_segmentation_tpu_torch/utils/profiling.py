@@ -9,7 +9,7 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
-from particle_col_image_segmentation_tpu.utils.logging import get_logger
+from particle_col_image_segmentation_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("profile")
 

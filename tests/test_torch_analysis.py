@@ -28,6 +28,7 @@ from particle_col_image_segmentation_tpu.labels import analysis as jax_analysis
 from particle_col_image_segmentation_tpu.models import experiment as jax_experiment
 from particle_col_image_segmentation_tpu.oracle import reference_pipeline as rp
 from particle_col_image_segmentation_tpu_torch.cli import main as torch_cli
+from particle_col_image_segmentation_tpu_torch.config import config_from_fields
 from particle_col_image_segmentation_tpu_torch.labels import analysis as torch_analysis
 from particle_col_image_segmentation_tpu_torch.models import experiment as torch_experiment
 from particle_col_image_segmentation_tpu_torch.models import single_channel as torch_single
@@ -36,6 +37,7 @@ import parity
 from fixtures import synthetic_label_plane
 
 CFG = AnalysisConfig(max_regions=4096)
+TCFG = config_from_fields(CFG)  # the port's own config, same fields
 CPU = torch.device("cpu")
 # The suite runs in several pytest-xdist workers that share the host's cores,
 # and every worker collects this module.  One intra-op thread a worker keeps
@@ -91,7 +93,7 @@ def test_analyze_plane_device_matches_jax(cell_types, compute_merge):
     img = _plane(cell_types, seed=5)
     img[::9, ::7] = 1  # salt for the median filter to clean
     got = torch_analysis.analyze_plane_device(
-        torch.from_numpy(img), cell_types, CFG, compute_merge=compute_merge)
+        torch.from_numpy(img), cell_types, TCFG, compute_merge=compute_merge)
     want = jax_analysis.analyze_plane_device(
         jnp.asarray(img), cell_types, CFG, compute_merge=compute_merge)
     assert_device_outs_equal(got, want)
@@ -103,11 +105,11 @@ def test_analyze_plane_device_matches_jax(cell_types, compute_merge):
 @pytest.mark.parametrize("cell_types", [SINGLE, THREE], ids=["one-strain", "three-strain"])
 def test_analyze_planes_device_matches_jax_and_single_planes(cell_types):
     imgs = np.stack([_plane(cell_types, seed=20 + b, shape=(96, 112)) for b in range(3)])
-    got = torch_analysis.analyze_planes_device(torch.from_numpy(imgs), cell_types, CFG)
+    got = torch_analysis.analyze_planes_device(torch.from_numpy(imgs), cell_types, TCFG)
     want = jax_analysis.analyze_planes_device(jnp.asarray(imgs), cell_types, CFG)
     assert_device_outs_equal(got, want)
     for b in range(3):
-        one = torch_analysis.analyze_plane_device(torch.from_numpy(imgs[b]), cell_types, CFG)
+        one = torch_analysis.analyze_plane_device(torch.from_numpy(imgs[b]), cell_types, TCFG)
         assert_device_outs_equal(torch_analysis.split_plane_device_out(got, b), one)
 
 
@@ -116,8 +118,8 @@ def test_stage_merge_of_one_plane_matches_jax():
     raw K2 roots under every row's truncated centroid, empty rows included."""
     img = _plane(THREE, seed=7)
     strain_vals = (1, 2, 3)
-    den, _, _, table, _, _ = torch_analysis._stage_segment(torch.from_numpy(img), CFG, True, 4)
-    g_ctx, conv = torch_analysis._stage_merge(den, table, CFG, strain_vals)
+    den, _, _, table, _, _ = torch_analysis._stage_segment(torch.from_numpy(img), TCFG, True, 4)
+    g_ctx, conv = torch_analysis._stage_merge(den, table, TCFG, strain_vals)
     jden, _, _, jtable, _, _ = jax_analysis._stage_segment(
         jnp.asarray(img), cfg=CFG, denoise=True, particle_val=4)
     want, wconv = jax_analysis._stage_merge(jden, jtable, cfg=CFG, strain_vals=strain_vals)
@@ -128,7 +130,7 @@ def test_stage_merge_of_one_plane_matches_jax():
 
 def test_analyze_undenoised_plane_matches_jax():
     img = _plane(THREE, seed=31)
-    got = torch_analysis.analyze_plane_device(torch.from_numpy(img), THREE, CFG, denoise=False)
+    got = torch_analysis.analyze_plane_device(torch.from_numpy(img), THREE, TCFG, denoise=False)
     want = jax_analysis.analyze_plane_device(jnp.asarray(img), THREE, CFG, denoise=False)
     assert_device_outs_equal(got, want)
 
@@ -147,7 +149,7 @@ def test_dapi_dedup_matches_jax_and_oracle_at_one_in_ten():
     other[1, 1] = 1  # overlap 1
     dapi[1:3, 9:14] = 1  # area 10
     other[2, 9:11] = 1  # overlap 2
-    got, conv = torch_analysis.dapi_dedup_device(torch.from_numpy(dapi), torch.from_numpy(other), CFG)
+    got, conv = torch_analysis.dapi_dedup_device(torch.from_numpy(dapi), torch.from_numpy(other), TCFG)
     want, wconv = jax_analysis.dapi_dedup_device(jnp.asarray(dapi), jnp.asarray(other), CFG)
     assert bool(conv) and bool(wconv)
     assert got.dtype == torch.uint8
@@ -176,16 +178,17 @@ def test_analyze_plane_errors_match_jax():
     img = np.random.default_rng(0).integers(1, 4, (64, 64)).astype(np.uint8)  # speckle
     tiny = AnalysisConfig(max_regions=8)
     messages = []
-    for analyze in (torch_single.analyze_plane, jax_analyze_plane):
+    for analyze, cfg in ((torch_single.analyze_plane, config_from_fields(tiny)),
+                         (jax_analyze_plane, tiny)):
         with pytest.raises(ValueError, match="components > max_regions=8") as e:
-            analyze(img, dict(SINGLE), tiny, denoise=False)
+            analyze(img, dict(SINGLE), cfg, denoise=False)
         messages.append(str(e.value))
     assert messages[0] == messages[1]
     plane = _plane(SINGLE, seed=3, shape=(64, 64))
-    out = torch_analysis.analyze_plane_device(torch.from_numpy(plane), SINGLE, CFG,
+    out = torch_analysis.analyze_plane_device(torch.from_numpy(plane), SINGLE, TCFG,
                                               compute_merge=False)
     with pytest.raises(ValueError, match="compute_merge=False"):
-        torch_single.analyze_plane(plane, dict(SINGLE), CFG, merged=True, device_out=out)
+        torch_single.analyze_plane(plane, dict(SINGLE), TCFG, merged=True, device_out=out)
 
 
 # ---- folder flows: CSVs byte-identical to the JAX package's ----------------
@@ -252,7 +255,7 @@ def test_run_analysis_csvs_byte_identical_to_jax(tmp_path, tree, batch_planes, n
     tree(tmp_path / "torch")
     jax_experiment.run_analysis(str(tmp_path / "jax"), CFG, make_figures=False,
                                 batch_planes=batch_planes)
-    torch_experiment.run_analysis(str(tmp_path / "torch"), CFG, make_figures=False,
+    torch_experiment.run_analysis(str(tmp_path / "torch"), TCFG, make_figures=False,
                                   device=CPU, batch_planes=batch_planes)
     want, got = _csvs(tmp_path / "jax"), _csvs(tmp_path / "torch")
     assert sorted(got) == sorted(want) and len(want) == n_csvs
@@ -274,11 +277,11 @@ def test_run_analysis_load_fn_reads_every_plane(tmp_path):
             from particle_col_image_segmentation_tpu.io.hdf5 import load_h5_plane
 
             planes[str(dst)] = load_h5_plane(os.path.join(d, f))
-    torch_experiment.run_analysis(str(tmp_path / "h5"), CFG, make_figures=False, device=CPU)
+    torch_experiment.run_analysis(str(tmp_path / "h5"), TCFG, make_figures=False, device=CPU)
     for batch_planes in (1, 2):
         for f in (tmp_path / "stub").rglob("*.csv"):
             f.unlink()
-        torch_experiment.run_analysis(str(tmp_path / "stub"), CFG, make_figures=False,
+        torch_experiment.run_analysis(str(tmp_path / "stub"), TCFG, make_figures=False,
                                       device=CPU, batch_planes=batch_planes,
                                       load_fn=planes.__getitem__)
         assert _csvs(tmp_path / "stub") == _csvs(tmp_path / "h5")
@@ -294,7 +297,7 @@ def test_batched_provider_bound_on_channel_trees(tmp_path):
         sub = tmp_path / f"t{i}"
         _three_channel_tree(sub)
     folders = get_h5_files_recursively(str(tmp_path))
-    outs = torch_experiment._BatchedDeviceOuts(folders, CFG, 2, CPU)
+    outs = torch_experiment._BatchedDeviceOuts(folders, TCFG, 2, CPU)
     assert outs.peak_live == 0
     got = 0
     for folder, files in folders.items():
@@ -322,12 +325,15 @@ def test_cli_analyze_csvs_byte_identical_to_jax(tmp_path, capsys):
 
 
 def test_analysis_modules_import_no_jax():
-    """Import each module of this slice in a fresh interpreter, run the
-    analysis graph on the CPU, and check that jax was never loaded."""
+    """Import each module of this slice and of the refine slice in a fresh
+    interpreter, run the analysis graph on the CPU, and check that neither
+    jax nor the JAX package was ever loaded."""
     modules = [
         "ops.regionprops", "ops.regionprops_tiles", "ops.edt", "ops.edt_tiles",
         "ops.morphology", "ops.fill_tiles", "labels.analysis",
         "models.single_channel", "models.multichannel", "models.experiment", "cli",
+        "ops.watershed", "ops.watershed_tiles", "ops.pairwise", "models.refine",
+        "oracle.reference_pipeline", "report.csvio", "io.discovery", "utils.manifest",
     ]
     code = (
         "import importlib, sys\n"
@@ -335,13 +341,15 @@ def test_analysis_modules_import_no_jax():
         f"for m in {modules!r}:\n"
         "    importlib.import_module('particle_col_image_segmentation_tpu_torch.' + m)\n"
         "    assert 'jax' not in sys.modules, m\n"
+        "    assert 'particle_col_image_segmentation_tpu' not in sys.modules, m\n"
         "from particle_col_image_segmentation_tpu_torch import AnalysisConfig\n"
         "from particle_col_image_segmentation_tpu_torch.labels.analysis import analyze_plane_device\n"
         "img = np.random.default_rng(0).integers(1, 4, (48, 40)).astype(np.uint8)\n"
         "ct = ((1, '3D05'), (2, 'Particle'), (3, 'Background'))\n"
         "out = analyze_plane_device(torch.from_numpy(img), ct, AnalysisConfig(max_regions=1024))\n"
         "assert bool(out.converged) and int(out.num) > 0\n"
-        "print(sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')))\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'particle_col_image_segmentation_tpu')))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -23,12 +23,14 @@ from particle_col_image_segmentation_tpu.config import AnalysisConfig
 from particle_col_image_segmentation_tpu.models import batch as jax_batch
 from particle_col_image_segmentation_tpu.utils.manifest import RunManifest
 from particle_col_image_segmentation_tpu_torch.cli import main as torch_cli
+from particle_col_image_segmentation_tpu_torch.config import config_from_fields
 from particle_col_image_segmentation_tpu_torch.io.loader import batched_device_iterator
 from particle_col_image_segmentation_tpu_torch.models import batch as torch_batch
 
 from fixtures import synthetic_label_plane
 
 CFG = AnalysisConfig(max_regions=4096)
+TCFG = config_from_fields(CFG)  # the port's own config, same fields
 CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,7 +54,7 @@ def _assert_stats_equal(got, want):
 def test_fused_segment_batch_matches_jax(cell_vals):
     imgs = np.stack(list(_planes().values()))
     imgs[:, ::11, ::13] = 1  # salt
-    got = torch_batch.fused_segment_batch(torch.from_numpy(imgs), CFG, 2, cell_vals)
+    got = torch_batch.fused_segment_batch(torch.from_numpy(imgs), TCFG, 2, cell_vals)
     want = jax_batch.fused_segment_batch(jnp.asarray(imgs), CFG, 2, cell_vals)
     names = ["seg", "num", "areas", "classes", "particle_px", "cell_px",
              "class_px", "converged"]
@@ -73,11 +75,11 @@ def test_run_batch_matches_jax_and_resumes(tmp_path):
     kw = dict(batch_size=2, particle_val=2, cell_vals=(1,))
     want = dict(jax_batch.run_batch(list(planes), planes.__getitem__, CFG, **kw))
     manifest = RunManifest(str(tmp_path / "m.jsonl"))
-    got = dict(torch_batch.run_batch(list(planes), planes.__getitem__, CFG,
+    got = dict(torch_batch.run_batch(list(planes), planes.__getitem__, TCFG,
                                      device=CPU, manifest=manifest, **kw))
     _assert_stats_equal(got, want)
     assert all(manifest.is_done(p) for p in planes)
-    again = list(torch_batch.run_batch(list(planes), planes.__getitem__, CFG,
+    again = list(torch_batch.run_batch(list(planes), planes.__getitem__, TCFG,
                                        device=CPU, manifest=manifest, **kw))
     assert again == []
 
@@ -88,12 +90,12 @@ def test_run_batch_overflow_matches_jax_and_is_retried(tmp_path):
     tiny = AnalysisConfig(max_regions=8)
     want = dict(jax_batch.run_batch(["p"], lambda k: plane, tiny, batch_size=1))
     manifest = RunManifest(str(tmp_path / "m.jsonl"))
-    got = dict(torch_batch.run_batch(["p"], lambda k: plane, tiny, device=CPU,
+    got = dict(torch_batch.run_batch(["p"], lambda k: plane, config_from_fields(tiny), device=CPU,
                                      batch_size=1, manifest=manifest))
     _assert_stats_equal(got, want)
     assert got["p"].overflow and got["p"].num_regions > 8
     assert not manifest.is_done("p")
-    (_, s2), = torch_batch.run_batch(["p"], lambda k: plane, CFG, device=CPU,
+    (_, s2), = torch_batch.run_batch(["p"], lambda k: plane, TCFG, device=CPU,
                                      batch_size=1, manifest=manifest)
     assert not s2.overflow and manifest.is_done("p")
 
@@ -108,16 +110,16 @@ def test_run_batch_skips_failed_decode_with_path_alignment(tmp_path):
 
     want = dict(jax_batch.run_batch(list(planes), load, CFG, batch_size=2))
     manifest = RunManifest(str(tmp_path / "m.jsonl"))
-    got = dict(torch_batch.run_batch(list(planes), load, CFG, device=CPU,
+    got = dict(torch_batch.run_batch(list(planes), load, TCFG, device=CPU,
                                      batch_size=2, manifest=manifest))
     assert set(got) == {"plane0", "plane2"}
     _assert_stats_equal(got, want)
     assert manifest.is_done("plane0") and not manifest.is_done("plane1")
-    again = dict(torch_batch.run_batch(list(planes), planes.__getitem__, CFG,
+    again = dict(torch_batch.run_batch(list(planes), planes.__getitem__, TCFG,
                                        device=CPU, batch_size=2, manifest=manifest))
     assert set(again) == {"plane1"}
     with pytest.raises(OSError, match="truncated"):
-        list(torch_batch.run_batch(list(planes), load, CFG, device=CPU,
+        list(torch_batch.run_batch(list(planes), load, TCFG, device=CPU,
                                    batch_size=2, on_error="raise"))
 
 
@@ -128,7 +130,7 @@ def test_run_batch_empty_cell_vals_matches_jax():
     )
     kw = dict(batch_size=1, particle_val=1, cell_vals=())
     want = dict(jax_batch.run_batch(["p"], lambda k: plane, CFG, **kw))
-    got = dict(torch_batch.run_batch(["p"], lambda k: plane, CFG, device=CPU, **kw))
+    got = dict(torch_batch.run_batch(["p"], lambda k: plane, TCFG, device=CPU, **kw))
     _assert_stats_equal(got, want)
     assert got["p"].cell_px == 0 and got["p"].particle_px > 0
 
@@ -205,7 +207,7 @@ def test_cuda_device_without_cuda_raises(tmp_path):
         pytest.skip("this machine has CUDA")
     plane = synthetic_label_plane(seed=1, shape=(32, 32))
     with pytest.raises(RuntimeError):
-        list(torch_batch.run_batch(["p"], lambda k: plane, CFG,
+        list(torch_batch.run_batch(["p"], lambda k: plane, TCFG,
                                    device=torch.device("cuda"), batch_size=1))
     _h5_tree(tmp_path / "exp")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -214,7 +216,8 @@ def test_cuda_device_without_cuda_raises(tmp_path):
 
 def test_port_imports_no_jax():
     """Import every module of the port, run the fused pass on the CPU, and
-    check that jax was never loaded (a fresh interpreter, not this one)."""
+    check that neither jax nor the JAX package was ever loaded (a fresh
+    interpreter, not this one)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import numpy as np, torch\n"
@@ -226,7 +229,8 @@ def test_port_imports_no_jax():
         "imgs = np.random.default_rng(0).integers(0, 4, (2, 40, 48)).astype(np.uint8)\n"
         "out = fused_segment_batch(torch.from_numpy(imgs), port.AnalysisConfig(max_regions=4096))\n"
         "assert bool(out[-1].all()) and int(out[1].min()) > 0\n"
-        "print(sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')))\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'particle_col_image_segmentation_tpu')))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

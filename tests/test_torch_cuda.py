@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels K1-K6, K8 and K9 against their plain
-PyTorch versions, on the card.  Every test here needs a Hopper card and skips where there is
+"""The hand-written CUDA kernels K1-K11 against their plain PyTorch versions,
+on the card.  Every test here needs a Hopper card and skips where there is
 none; on one, run them with
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -31,6 +31,23 @@ from particle_col_image_segmentation_tpu_torch.ops import (
     region_table_cuda,
     table_lookup,
     table_lookup_cuda,
+)
+
+from particle_col_image_segmentation_tpu_torch.ops import (
+    centroid_sums,
+    centroid_sums_auto,
+    centroid_sums_cuda,
+    edt_sq_exact,
+    edt_sq_exact_auto,
+    local_maxima,
+    local_maxima_auto,
+    watershed,
+    watershed_auto,
+    watershed_cuda,
+)
+from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
+    watershed_cost_pass_cuda,
+    watershed_label_pass_cuda,
 )
 
 from fixtures import random_class_plane, synthetic_label_plane
@@ -243,3 +260,103 @@ def test_new_wrappers_check_their_inputs(dev):
         particle_fill_step_cuda(i, 2, 1, 20, 4, 400)
     with pytest.raises(ValueError, match="class values"):
         particle_fill_step_cuda(x, 300, 1, 20, 4, 400)
+
+
+# ---- K7, K10/K11 and K2's plateau use (the refine slice) ----
+
+
+@pytest.mark.parametrize("max_regions", [4095, 30000, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_centroid_kernel(dev, shape, max_regions):
+    seg = np.random.default_rng(3).integers(-3, 5000, shape).astype(np.int32)
+    seg[..., : shape[-2] // 2, :] = 0  # a hot background bin
+    x = torch.from_numpy(seg).to(dev)
+    before = centroid_sums_cuda.launches
+    _equal(centroid_sums_cuda(x, max_regions), centroid_sums(x, max_regions))
+    assert centroid_sums_cuda.launches == before + 1
+    _equal(centroid_sums_auto(x, max_regions), centroid_sums(x, max_regions))
+
+
+def _relief(n, pairs, seed):
+    """The bench's touching-cell relief (as ``test_torch_watershed``, which
+    this file does not import: it needs no JAX)."""
+    from scipy import ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    m = np.zeros((n, n), bool)
+    yy, xx = np.mgrid[:n, :n]
+    for _ in range(pairs):
+        cy, cx = rng.integers(40, n - 40, 2)
+        r2 = int(rng.integers(150, 400))
+        m |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r2
+        m |= (yy - cy) ** 2 + (xx - cx - int(1.5 * np.sqrt(r2))) ** 2 <= r2
+    dist = ndi.distance_transform_edt(m)
+    return (1.0 - dist / max(1.0, dist.max())).astype(np.float32)
+
+
+def _relief_case(n, quantized, seed=0):
+    """(relief, markers, mask): markers are the labelled 3×3 maxima of the
+    mask's EDT, the 16-level quantization is the bench's."""
+    from scipy import ndimage as ndi
+
+    prob = _relief(n, max(1, n * n // 8192), seed)
+    mask = prob < 0.5
+    d = ndi.distance_transform_edt(mask)
+    mk = ndi.label((d == ndi.maximum_filter(d, 3)) & mask)[0].astype(np.int32)
+    if quantized:
+        prob = (np.round(prob * 15.0) / 15.0).astype(np.float32)
+    return prob, mk, mask
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_watershed_kernels(dev, quantized, connectivity):
+    planes = [_relief_case(256, quantized, seed) for seed in (0, 1)]
+    img, mk, mask = (torch.from_numpy(np.stack(t)).to(dev) for t in zip(*planes))
+    k10, k11 = watershed_cost_pass_cuda.launches, watershed_label_pass_cuda.launches
+    got, gconv = watershed_cuda(img, mk, mask, connectivity=connectivity, with_flag=True)
+    p1, p2 = watershed_cuda.last_passes
+    assert watershed_cost_pass_cuda.launches == k10 + p1 >= k10 + 1
+    assert watershed_label_pass_cuda.launches == k11 + p2 >= k11 + 1
+    want, wconv = watershed(img, mk, mask, connectivity=connectivity, with_flag=True)
+    assert gconv.all() and wconv.all()
+    _equal([got], [want])
+    _equal([watershed_auto(img, mk, mask, connectivity=connectivity)], [want])
+
+
+def test_watershed_kernels_odd_shape_unreachable_mask_and_budget(dev):
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.random((3, 97, 130)).astype(np.float32)).to(dev)
+    mk = torch.zeros((3, 97, 130), dtype=torch.int32, device=dev)
+    mk[:, 5, 5], mk[:, 90, 120], mk[1, 50, 2] = 1, 2, 3
+    mask = torch.ones((3, 97, 130), dtype=torch.bool, device=dev)
+    mask[:, :, 60:63] = False
+    mask[2, 40:60, 80:100] = False
+    mask[2, 45:55, 85:95] = True  # unreachable
+    for connectivity in (1, 2):
+        got, gconv = watershed_cuda(img, mk, mask, connectivity=connectivity, with_flag=True)
+        want, wconv = watershed(img, mk, mask, connectivity=connectivity, with_flag=True)
+        assert gconv.all() and wconv.all()
+        _equal([got], [want])
+        assert int(got[2, 45:55, 85:95].abs().sum()) == 0
+    _, short = watershed_cuda(img, mk, mask, max_iters=1, with_flag=True)
+    assert not short.any()  # every plane needs more than one pass
+
+
+def test_local_maxima_and_exact_edt_kernels(dev):
+    prob = torch.from_numpy(np.stack([_relief(256, 8, s) for s in (0, 1)])).to(dev)
+    feature = prob >= 0.5
+    dsq = edt_sq_exact_auto(feature)
+    _equal([dsq], [edt_sq_exact(feature)])
+    for connectivity in (1, 2):
+        before = ccl_cuda.launches
+        got, conv = local_maxima_auto(dsq, connectivity, with_flag=True)
+        assert ccl_cuda.launches == before + 1 and conv.all()
+        _equal([got], [local_maxima(dsq, connectivity)])
+        u8 = dsq.clamp(max=255).to(torch.uint8)
+        _equal([local_maxima_auto(u8, connectivity)], [local_maxima(u8, connectivity)])
+    deep = torch.zeros((1, 300, 200), dtype=torch.bool, device=dev)
+    deep[0, 5, 7] = True  # the exact fallback
+    _equal([edt_sq_exact_auto(deep)], [edt_sq_exact(deep)])
+    with pytest.raises(ValueError, match="uint8 or int32"):
+        local_maxima_auto(dsq.to(torch.float32))

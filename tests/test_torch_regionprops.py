@@ -305,3 +305,51 @@ def test_table_auto_takes_plain_on_cpu_and_wrappers_refuse_cpu():
             fn(seg_t, img_t, max_regions)
     with pytest.raises(ValueError, match="CUDA"):
         table_lookup_cuda(seg_t, torch.zeros(4, dtype=torch.int32))
+
+
+# ---- the centroid table (K7's plain version) ----
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (3, 64, 128)], ids=["plane", "batch"])
+def test_centroid_sums_matches_jax_scatter_and_mxu(shape):
+    """Ids in [-3, R+9), negative and past-capacity ids included (dropped
+    by every path); the five columns compared by name, exactly."""
+    import jax
+
+    from particle_col_image_segmentation_tpu.ops.regionprops import (
+        centroid_sums as jax_centroid_sums,
+    )
+    from particle_col_image_segmentation_tpu.ops.regionprops_tiles import centroid_sums_mxu
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import centroid_sums
+
+    max_regions = 699
+    seg = np.random.default_rng(9).integers(-3, max_regions + 10, shape).astype(np.int32)
+    seg[..., :8, :] = 0  # a hot background bin
+    got = centroid_sums(torch.from_numpy(seg), max_regions)
+    if len(shape) == 3:
+        scatter = jax.vmap(lambda s: jax_centroid_sums(s, max_regions))(jnp.asarray(seg))
+    else:
+        scatter = jax_centroid_sums(jnp.asarray(seg), max_regions)
+    mxu = centroid_sums_mxu(jnp.asarray(seg), max_regions, rows_per_chunk=8, interpret=True)
+    for name in got._fields:
+        col = getattr(got, name)
+        assert col.dtype == torch.int32 and col.shape == shape[:-2] + (max_regions + 1,)
+        np.testing.assert_array_equal(col.numpy(), np.asarray(getattr(scatter, name)), name)
+        np.testing.assert_array_equal(col.numpy(), np.asarray(getattr(mxu, name)), name)
+    assert int(got.area.sum()) == int(((seg >= 0) & (seg <= max_regions)).sum())
+
+
+def test_centroid_auto_takes_plain_on_cpu_and_wrapper_refuses_cpu():
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import centroid_sums
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import (
+        centroid_sums_auto,
+        centroid_sums_cuda,
+    )
+
+    seg = torch.from_numpy(np.random.default_rng(10).integers(0, 50, (3, 97, 130)).astype(np.int32))
+    before = centroid_sums_cuda.launches
+    got, want = centroid_sums_auto(seg, 63), centroid_sums(seg, 63)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert centroid_sums_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        centroid_sums_cuda(seg, 63)

@@ -17,7 +17,13 @@ nonzero and no result line is printed):
      sums (both K4 wrappers: class tables and the dedup's clamped sums),
      table overflow (max_regions=8), out-of-range lookup ids, EDT caps
      0..32 on sparse, full and empty masks (cap > H included), fill steps
-     with and without particles; and the refine slice on the 2048² relief
+     with and without particles; K2's adversarial inputs (``k2_inputs``:
+     one value, a serpentine crossing every tile, checkerboards, 1-px
+     stripes, binary noise, int32 extremes, widths 1-129), each equal to
+     scipy's min-index labels (``scipy_min_index``) and, where the plain
+     fixpoint converges in 256 rounds, to it; K1 at sizes 3-9 on [3,2,5]
+     and planes around its 32 x 64 tile, past num_classes, and off a
+     16-byte boundary; and the refine slice on the 2048² relief
      (480 touching cell pairs, plane b rolled by 17·b columns): the exact
      EDT (K9 probe, and a plane that forces the exact fallback), local
      maxima through K2 (connectivity 1 and 2), each watershed phase — K10's
@@ -34,6 +40,9 @@ nonzero and no result line is printed):
   5. times — the fused pass on a device-resident [32,2048,2048] batch and
      K1-K4 at that shape; K5 and K8 at [8,2048,2048] (R+1 = 16385, cap 20),
      K9 at [16,2048,2048] (cap 2, the merge contexts), K6 at [2048,2048];
+     K2 on its three callers' inputs — [32,2048,2048] uint8 den,
+     [16,2048,2048] uint8 merge contexts, [8,2048,2048] int32 EDT² — by
+     CUDA events, with torch.profiler's local / merge / flatten split;
      analyze_planes_device on a device-resident [8,2048,2048] batch — each
      through the kernels and through the plain versions, by CUDA events (no
      thresholds); K7 at [8,2048,2048] (R = 4096) beside one ``index_add_``
@@ -138,6 +147,67 @@ def scipy_labels(den):
     rank = np.empty(n, np.int64)
     rank[np.argsort(first)] = np.arange(1, n + 1)
     return rank[lab - 1], n
+
+
+def scipy_min_index(img, background=None, connectivity: int = 8):
+    """K2's contract from scipy, independent of the port: every pixel the
+    minimum linear index of its component of equal values (8- or
+    4-connected, one scipy.ndimage.label per value; a component's first
+    pixel in raster order is its minimum), pixels equal to ``background``
+    -1.  ``img`` is [H, W] or [B, H, W]."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    out = np.full(img.shape, -1, np.int32)
+    structure = np.ones((3, 3), int) if connectivity == 8 else None
+    for b in np.ndindex(img.shape[:-2]):
+        plane, dst = img[b], out[b]
+        for v in np.unique(plane):
+            if background is not None and v == background:
+                continue
+            part, k = ndi.label(plane == v, structure=structure)
+            ids, first = np.unique(part.ravel(), return_index=True)
+            lut = np.zeros(k + 1, np.int32)
+            lut[ids[ids > 0]] = first[ids > 0]
+            on = part > 0
+            dst[on] = lut[part[on]]
+    return out
+
+
+def k2_inputs(n: int, seed: int = 11):
+    """K2's adversarial inputs at n² (case, values, background, connectivity):
+    one value everywhere; a serpentine of 1-px rows joined at alternate ends,
+    crossing every tile; checkerboards at both connectivities; 1-px stripes;
+    50 % binary noise with background 0 and None; int32 values at INT32_MIN
+    and INT32_MAX with background INT32_MIN; planes 1, 31, 33, 63, 65 and
+    129 px wide (and tall), a majority class spanning each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:n, :n]
+    yield f"single value [{n},{n}]", np.full((n, n), 3, np.uint8), None, 8
+    serp = np.zeros((n, n), np.uint8)
+    serp[::2] = 1
+    serp[1::4, -1] = serp[3::4, 0] = 1
+    for conn in (8, 4):
+        yield f"serpentine [{n},{n}]", serp, 0, conn
+        yield f"checkerboard [{n},{n}]", ((yy + xx) % 2).astype(np.uint8), None, conn
+    yield f"2-px checkerboard [{n},{n}]", ((yy // 2 + xx // 2) % 2).astype(np.uint8), 0, 8
+    yield f"1-px stripes across [{n},{n}]", (yy % 2).astype(np.uint8), None, 8
+    yield f"1-px stripes down [{n},{n}]", (xx % 2).astype(np.uint8), 0, 4
+    del yy, xx
+    noise = (rng.random((2, n, n)) < 0.5).astype(np.uint8)
+    for bg in (0, None):
+        for conn in (8, 4):
+            yield f"50 % binary noise [2,{n},{n}]", noise, bg, conn
+    extremes = np.array([-(2**31), 2**31 - 1, -1, 0, 7], np.int64)
+    ext = extremes[rng.choice(5, (2, n, n), p=[0.2, 0.4, 0.1, 0.2, 0.1])].astype(np.int32)
+    for conn in (8, 4):
+        yield f"int32 extremes [2,{n},{n}]", ext, -(2**31), conn
+    for w in (1, 31, 33, 63, 65, 129):
+        maj = np.where(rng.random((n, w)) < 0.7, 1, rng.integers(0, 3, (n, w))).astype(np.uint8)
+        yield f"width {w} [{n},{w}]", maj, None, 8
+        yield f"height {w} [{w},{n}]", np.ascontiguousarray(maj.T), 0, 4
 
 
 def refine_relief(n: int = H, pairs: int = 480, seed: int = 0):
@@ -317,6 +387,32 @@ def profile_refine(x, rcfg, card: str) -> None:
         f"(idle {100 * (1 - busy / wall):.1f} %) over 3 calls")
     for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:14]:
         log(f"phase 7 profile:   {t:8.3f} ms {100 * t / total:5.1f} %  {name[:90]}")
+
+
+def k2_split(x, reps: int = 5) -> dict:
+    """Device ms a call of each K2 phase on x (torch.profiler over reps
+    calls): local (ccl_local), merge (ccl_merge_rows, ccl_merge_cols) and
+    flatten (ccl_roots, ccl_flatten)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from particle_col_image_segmentation_tpu_torch.ops import ccl_cuda
+
+    ccl_cuda(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ccl_cuda(x)
+        torch.cuda.synchronize()
+    split = {"local": 0.0, "merge": 0.0, "flatten": 0.0}
+    for s, e, name in device_intervals(prof):
+        for phase, kernels in (("local", ("ccl_local",)), ("merge", ("ccl_merge",)),
+                               ("flatten", ("ccl_roots", "ccl_flatten"))):
+            if any(k in name for k in kernels):
+                split[phase] += (e - s) / (1e3 * reps)
+    if not all(split.values()):
+        raise AssertionError(f"phase 5: the K2 trace lacks a phase: {split}")
+    return split
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -503,6 +599,33 @@ def main() -> int:
                 list(compact_labels(raw, MAX_REGIONS)))
     vals = x4.to(torch.int32)
     compare("K2", "int32 values", [ccl_cuda(vals)], [connected_components(vals)])
+    # K2's adversarial inputs: judged by scipy's labels, and by the plain
+    # fixpoint too where that converges within 256 rounds
+    t0 = time.perf_counter()
+    for case, img, bg, conn in k2_inputs(H):
+        case = f"{case} background={bg} connectivity={conn}"
+        x = torch.from_numpy(img).to(dev)
+        got = ccl_cuda(x, background=bg, connectivity=conn)
+        compare("K2", f"{case} vs scipy", [got.cpu()],
+                [torch.from_numpy(scipy_min_index(img, bg, conn))])
+        if img.dtype == np.uint8:
+            want, conv = connected_components(x, background=bg, connectivity=conn,
+                                              max_iters=256, with_flag=True)
+            if bool(conv.all()):
+                compare("K2", f"{case} vs plain", [got], [want])
+    log(f"phase 3 K2 adversarial inputs: {time.perf_counter() - t0:.1f} s")
+    for size in (3, 5, 7, 9):
+        for shape in ((3, 2, 5), (2, 63, 31), (2, 65, 33), (2, 129, 65), (1, 150, 112)):
+            xs = torch.from_numpy(rng.integers(0, 10, shape).astype(np.uint8)).to(dev)
+            for k in (8, 3):
+                compare("K1", f"size {size} num_classes {k} {list(shape)}",
+                        [median_label_filter_cuda(xs, size, k)], [median_label_filter(xs, size, k)])
+        compare("K1", f"size {size} [2,{H},{W}] bench planes",
+                [median_label_filter_cuda(x4[:2], size, 8)], [median_label_filter(x4[:2], size, 8)])
+    shifted = torch.empty(2 * H * W + 1, dtype=torch.uint8, device=dev)[1:].view(2, H, W)
+    shifted.copy_(x4[:2])  # off a 16-byte boundary: every tile reflects
+    compare("K1", f"[2,{H},{W}] off a 16-byte boundary", [median_label_filter_cuda(shifted, 5, 8)],
+            [median_label_filter(x4[:2], 5, 8)])
     table("[4,2048,2048] int32 values", seg4, den4.to(torch.int32) * 4099 - 16384)
     big = torch.zeros((2, 512, 512), dtype=torch.int32, device=dev)
     big_vals = torch.full((2, 512, 512), 16383, dtype=torch.int32, device=dev)
@@ -739,7 +862,17 @@ def main() -> int:
     for k in ms:
         log(f"phase 5 times [{card}]: {k} kernel {ms[k]:.3f} ms, plain "
             f"{plain_ms[k]:.3f} ms at {shapes[k]}")
-    del den, raw, seg
+    # K2 on each of its callers' inputs, with the split by phase
+    r = acfg.merge_disk_radius
+    ctx_u8 = (edt_sq_cuda(ctx16, r) <= r * r).to(torch.uint8)
+    for name, x in ((f"den [{BATCH},{H},{W}] uint8", den),
+                    (f"merge contexts [16,{H},{W}] uint8", ctx_u8),
+                    (f"EDT² [{REFINE_PLANES},{H},{W}] int32", dsq8)):
+        t = time_ms(lambda x=x: ccl_cuda(x), reps=10)
+        split = k2_split(x)
+        log(f"phase 5 times [{card}]: K2 on {name}: {t:.3f} ms (CUDA events); "
+            f"torch.profiler: " + ", ".join(f"{p} {v:.3f}" for p, v in split.items()) + " ms")
+    del den, raw, seg, ctx_u8
 
     def plain_analyze(imgs):
         """analyze_planes_device (one-strain 3D05 map, merge on) through

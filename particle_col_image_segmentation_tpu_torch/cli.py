@@ -7,7 +7,8 @@
             (refine_boundaries parity): refined labels and per-cell CSV
 
 Files and output lines match the JAX package's verbs byte for byte.
-``--device`` is required: the port never picks a device on its own.
+``--device`` defaults to ``cuda`` (the hand-written kernels; Hopper cards
+only); ``--device cpu`` runs the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ from particle_col_image_segmentation_tpu_torch.config import AnalysisConfig, Ref
 
 def _add_device_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument(
-        "--device", required=True,
-        help="torch device to run on: cuda, cuda:N (the kernels; Hopper "
-        "cards only) or cpu (the plain PyTorch versions)",
+        "--device", default="cuda",
+        help="torch device to run on: cuda (the default), cuda:N (the "
+        "kernels; Hopper cards only) or cpu (the plain PyTorch versions)",
     )
 
 

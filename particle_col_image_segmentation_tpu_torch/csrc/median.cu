@@ -5,26 +5,39 @@
 // Replaces: particle_col_image_segmentation_tpu/ops/filters_tiles.py
 //   _median_kernel (launched by median_label_filter_pallas).
 //
-// Bound on this card: memory. Each pixel is read once and written once
-// (2 bytes/px); the window work is ~size^2 integer adds per output pixel,
-// far below the ALU rate at that traffic.  The TPU kernel pre-reflected rows
-// in HBM and corrected wrapped columns with rolls; here a block stages a
-// 32x32 output tile plus a `half`-pixel halo in shared memory, reflecting
-// indices as it loads, so the plane is read once with no padded copy.
-//
 // Median by counts: median = #{v < K-1 : count(window <= v) < half_rank}.
-// The K-1 <= 7 threshold counts ride packed fields of one 64-bit register
-// (field width = bit length of size^2, so no field carries into the next),
-// and a 256-entry shared table maps a pixel value to its packed indicator
-// word, so one window pixel costs one shared load and one 64-bit add.
+// The K-1 <= 7 threshold counts ride packed fields of one 64-bit word, each
+// one bit wider than size^2 needs (at most 7 x 8 bits).  The indicator word
+// of a value x is `ones` (a 1 in every field) with the fields below x
+// cleared.  The spare top bit of each field reads all K-1 comparisons at
+// once: adding 2^bits - half_rank to every field sets it exactly where
+// count >= half_rank, and no field carries into the next, so the median is
+// K-1 minus a popcount.
+//
+// Bound on this card: memory, 2 bytes a pixel; what holds the kernel back
+// is shared-memory traffic and the block's barriers.  A direct window sum
+// costs 2*size^2 shared loads a pixel (a byte and a table word per window
+// pixel).  So a block stages a 32-wide, 64-row output tile plus its
+// `half`-pixel halo once, each staged pixel mapped to its indicator word;
+// sums each column's `size` words by a window sliding down 8 rows (two
+// loads a step); and adds `size` column sums across: about size + 3 shared
+// loads an output pixel.  Interior tiles are staged with 16-byte loads,
+// copied to shared memory as they are and mapped to words by consecutive
+// threads (no bank conflicts); only tiles that touch the plane's edge
+// reflect their indices (scipy 'reflect', periodic, so any halo works on
+// planes narrower than it).  The plane is read once, with no padded copy.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;     // output tile edge
-constexpr int kRowsPerPass = 8;  // blockDim.y; each thread covers 4 rows
+constexpr int kTileW = 32;   // output tile width: one column a lane
+constexpr int kTileH = 64;   // output tile height
+constexpr int kRows = 8;     // blockDim.y
+constexpr int kThreads = kTileW * kRows;
+constexpr int kRun = 8;      // rows of one sliding column sum
+constexpr int kChunk = 16;   // bytes of a vector load
 
 // scipy 'reflect' (numpy 'symmetric'): -1 -> 0, -2 -> 1, n -> n-1; periodic
 // with period 2n, so any halo works even on planes narrower than it.
@@ -35,51 +48,79 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return i < n ? i : p - 1 - i;
 }
 
-template <int HALF>
-__global__ void median_kernel(const uint8_t* __restrict__ in,
-                              uint8_t* __restrict__ out, int H, int W,
-                              int num_classes, int bits) {
-  constexpr int SIZE = 2 * HALF + 1;
-  constexpr int SW = kTile + 2 * HALF;
-  __shared__ uint8_t tile[SW][SW];
-  __shared__ unsigned long long le_word[256];
+// The packed indicator word of a pixel value x: field v holds (x <= v).
+__device__ __forceinline__ unsigned long long indicator(int x, int nthr, int fw,
+                                                         unsigned long long ones) {
+  return x < nthr ? ones & (~0ull << (fw * x)) : 0ull;
+}
 
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int nthreads = kTile * kRowsPerPass;
+template <int HALF>
+__global__ void __launch_bounds__(kThreads)
+median_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int H, int W,
+              int num_classes, int fw, unsigned long long ones,
+              unsigned long long add, unsigned long long guard, int aligned) {
+  constexpr int SIZE = 2 * HALF + 1;
+  constexpr int SW = kTileW + 2 * HALF;  // staged columns
+  constexpr int SH = kTileH + 2 * HALF;  // staged rows
+  __shared__ unsigned long long word[SH * SW];  // indicator word a staged pixel
+  // SIZE words down a column; before that, an interior tile's staged bytes
+  __shared__ __align__(16) unsigned long long colsum[kTileH * SW];
+  static_assert(SH * 4 * kChunk <= kTileH * SW * 8, "staged bytes fit in colsum");
+
+  const int tid = threadIdx.y * kTileW + threadIdx.x;
   const int nthr = num_classes - 1;  // thresholds v = 0 .. K-2
-  for (int x = tid; x < 256; x += nthreads) {
-    unsigned long long w = 0;
-    for (int v = x; v < nthr; ++v) w |= 1ull << (bits * v);
-    le_word[x] = w;  // field v holds (x <= v)
-  }
 
   const long long plane = (long long)H * W;
   const uint8_t* src = in + blockIdx.z * plane;
-  uint8_t* dst = out + blockIdx.z * plane;
-  const int r0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.x * kTile;
-  for (int i = tid; i < SW * SW; i += nthreads) {
-    int rr = reflect(r0 - HALF + i / SW, H);
-    int cc = reflect(c0 - HALF + i % SW, W);
-    tile[i / SW][i % SW] = src[(long long)rr * W + cc];
+  const int r0 = blockIdx.y * kTileH;
+  const int c0 = blockIdx.x * kTileW;
+  if (aligned && r0 >= HALF && r0 + kTileH + HALF <= H && c0 >= kChunk &&
+      c0 + kTileW + kChunk <= W) {
+    // interior: a staged row lies in the four 16-byte chunks c0-16 .. c0+47,
+    // copied as they are (consecutive threads, consecutive chunks), then
+    // mapped to words (consecutive threads, consecutive words)
+    uint4* bytes = reinterpret_cast<uint4*>(colsum);
+    for (int j = tid; j < SH * 4; j += kThreads)
+      bytes[j] = *reinterpret_cast<const uint4*>(
+          src + (long long)(r0 - HALF + (j >> 2)) * W + c0 - kChunk + kChunk * (j & 3));
+    __syncthreads();
+    const uint8_t* b8 = reinterpret_cast<const uint8_t*>(colsum);
+    for (int i = tid; i < SH * SW; i += kThreads)
+      word[i] = indicator(b8[(i / SW) * 4 * kChunk + kChunk - HALF + i % SW], nthr, fw, ones);
+  } else {
+    for (int i = tid; i < SH * SW; i += kThreads) {
+      const int rr = reflect(r0 - HALF + i / SW, H);
+      const int cc = reflect(c0 - HALF + i % SW, W);
+      word[i] = indicator(src[(long long)rr * W + cc], nthr, fw, ones);
+    }
   }
   __syncthreads();
 
-  const int half_rank = SIZE * SIZE / 2 + 1;
-  const unsigned long long fmask = (1ull << bits) - 1;
+  // column sums: a window of SIZE words sliding down kRun rows (fields never
+  // borrow: each holds a count at least as large as what leaves it)
+  for (int j = tid; j < SW * (kTileH / kRun); j += kThreads) {
+    const int x = j % SW, y0 = (j / SW) * kRun;
+    unsigned long long acc = 0;
+#pragma unroll
+    for (int dy = 0; dy < SIZE; ++dy) acc += word[(y0 + dy) * SW + x];
+    colsum[y0 * SW + x] = acc;
+#pragma unroll
+    for (int k = 1; k < kRun; ++k) {
+      acc += word[(y0 + k + SIZE - 1) * SW + x] - word[(y0 + k - 1) * SW + x];
+      colsum[(y0 + k) * SW + x] = acc;
+    }
+  }
+  __syncthreads();
+
+  uint8_t* dst = out + blockIdx.z * plane;
   const int tx = threadIdx.x;
-  for (int ty = threadIdx.y; ty < kTile; ty += kRowsPerPass) {
+  for (int ty = threadIdx.y; ty < kTileH; ty += kRows) {
     const int r = r0 + ty, c = c0 + tx;
     if (r >= H || c >= W) continue;
     unsigned long long acc = 0;
 #pragma unroll
-    for (int dy = 0; dy < SIZE; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < SIZE; ++dx) acc += le_word[tile[ty + dy][tx + dx]];
-    int med = 0;
-    for (int v = 0; v < nthr; ++v)
-      med += (int)(((acc >> (bits * v)) & fmask) < (unsigned long long)half_rank);
-    dst[(long long)r * W + c] = (uint8_t)med;
+    for (int dx = 0; dx < SIZE; ++dx) acc += colsum[ty * SW + tx + dx];
+    dst[(long long)r * W + c] = (uint8_t)(nthr - __popcll((acc + add) & guard));
   }
 }
 
@@ -87,22 +128,33 @@ __global__ void median_kernel(const uint8_t* __restrict__ in,
 
 extern "C" int pcis_median_u8(const void* in, void* out, int B, int H, int W,
                               int size, int num_classes, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || (H + kTile - 1) / kTile > 65535)
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || (H + kTileH - 1) / kTileH > 65535)
     return (int)cudaErrorInvalidValue;
   if (size % 2 == 0 || size < 3 || size > 9 || num_classes < 1 ||
       num_classes > 8)
     return (int)cudaErrorInvalidValue;
-  const int bits = 32 - __builtin_clz(size * size);  // bit length of size^2
-  dim3 block(kTile, kRowsPerPass);
-  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
+  // fields of bits + 1: bits = bit length of size^2 holds any window count,
+  // the top bit is the guard that `add` sets where count >= half_rank
+  const int bits = 32 - __builtin_clz(size * size);
+  const int fw = bits + 1, half_rank = size * size / 2 + 1;
+  unsigned long long ones = 0, add = 0, guard = 0;
+  for (int v = 0; v < num_classes - 1; ++v) {
+    ones |= 1ull << (fw * v);
+    add |= (unsigned long long)((1 << bits) - half_rank) << (fw * v);
+    guard |= 1ull << (fw * v + bits);
+  }
+  // 16-byte loads need every row start on a 16-byte boundary
+  const int aligned = W % kChunk == 0 && (uintptr_t)in % kChunk == 0;
+  dim3 block(kTileW, kRows);
+  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   cudaStream_t s = (cudaStream_t)stream;
   const uint8_t* i8 = (const uint8_t*)in;
   uint8_t* o8 = (uint8_t*)out;
   switch (size / 2) {
-    case 1: median_kernel<1><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, bits); break;
-    case 2: median_kernel<2><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, bits); break;
-    case 3: median_kernel<3><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, bits); break;
-    default: median_kernel<4><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, bits); break;
+    case 1: median_kernel<1><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, fw, ones, add, guard, aligned); break;
+    case 2: median_kernel<2><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, fw, ones, add, guard, aligned); break;
+    case 3: median_kernel<3><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, fw, ones, add, guard, aligned); break;
+    default: median_kernel<4><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, fw, ones, add, guard, aligned); break;
   }
   return (int)cudaGetLastError();
 }

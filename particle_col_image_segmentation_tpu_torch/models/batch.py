@@ -136,14 +136,15 @@ def run_batch(
     load_fn: Callable[[str], np.ndarray],
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     *,
-    device: torch.device,
+    device: torch.device = "cuda",
     batch_size: int = 4,
     particle_val: int = 2,
     cell_vals: Tuple[int, ...] = (1,),
     manifest=None,
     on_error: str = "skip",
 ) -> Iterator[Tuple[str, PlaneStats]]:
-    """Stream per-plane stats for every path on ``device``; skips
+    """Stream per-plane stats for every path on ``device`` (default the
+    card, ``cuda``; ``"cpu"`` runs the plain versions); skips
     manifest-completed units.
 
     By default a plane whose decode raises is logged and skipped — one

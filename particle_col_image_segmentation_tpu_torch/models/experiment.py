@@ -432,11 +432,12 @@ def run_analysis(
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     make_figures: bool = True,
     *,
-    device,
+    device="cuda",
     batch_planes: int = 1,
     load_fn: LoadFn = load_h5_plane,
 ) -> None:
-    """Top-level entry point (reference main, :1126-1134) on one torch ``device``.
+    """Top-level entry point (reference main, :1126-1134) on one torch ``device``
+    (default the card, ``cuda``; ``"cpu"`` runs the plain versions).
     ``batch_planes`` > 1 batches same-shape planes from the whole tree into
     single device launches (CLI ``analyze --batch-planes``; byte-identical
     CSVs).  ``load_fn`` reads one plane from a discovered path (default: the

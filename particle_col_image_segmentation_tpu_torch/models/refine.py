@@ -96,9 +96,10 @@ def _host_table(table):
 
 
 def refine_boundaries(probabilities: np.ndarray, cfg: RefineConfig = RefineConfig(),
-                      max_regions: int = 4095, *, device) -> RefineResult:
+                      max_regions: int = 4095, *, device="cuda") -> RefineResult:
     """Full refinement of one plane of an Ilastik probability export on
-    ``device``.
+    ``device`` (default the card, ``cuda``; ``"cpu"`` runs the plain
+    versions).
 
     Accepts the raw export with channels on either end — [C,H,W] or [H,W,C]
     — or an [H,W] boundary map.  The channel axis is whichever end is small
@@ -164,10 +165,10 @@ def _extract_boundary_channel(arr: np.ndarray, cfg: RefineConfig, ndim: int):
 
 
 def refine_boundaries_stack(probabilities: np.ndarray, cfg: RefineConfig = RefineConfig(),
-                            max_regions: int = 4095, *, device) -> List[RefineResult]:
+                            max_regions: int = 4095, *, device="cuda") -> List[RefineResult]:
     """Refine a whole probability STACK — [Z, H, W], [Z, C, H, W] or
-    [Z, H, W, C] — in one batched pass on ``device``.  Each plane's result
-    equals ``refine_boundaries`` on that plane."""
+    [Z, H, W, C] — in one batched pass on ``device`` (default ``cuda``).
+    Each plane's result equals ``refine_boundaries`` on that plane."""
     probs = np.asarray(probabilities)
     _reject_channel_last_plane(probs)
     arr = _extract_boundary_channel(probs, cfg, ndim=3)

@@ -71,9 +71,11 @@ def _as_static(cell_types: Dict[int, str]) -> Tuple[Tuple[int, str], ...]:
 
 def as_plane(img, device=None) -> torch.Tensor:
     """A label plane as a tensor on ``device`` (a tensor stays where it is
-    when ``device`` is None; a NumPy plane goes to the CPU)."""
+    when ``device`` is None; a NumPy plane goes to the card, ``cuda``)."""
     if not isinstance(img, torch.Tensor):
         img = torch.from_numpy(np.ascontiguousarray(img))
+        if device is None:
+            device = "cuda"
     return img if device is None else img.to(device)
 
 
@@ -90,10 +92,11 @@ def analyze_plane(
 
     Matches oracle/reference get_cell_positions_and_areas on the denoised
     plane, plus recreate_particle_area.  ``img`` is a NumPy plane or a
-    tensor; it runs on ``device`` (default: where a tensor lies, the CPU for
-    NumPy).  ``denoise=False`` analyzes the plane as-is (reference re-analysis
-    paths).  Pass ``device_out`` to reuse an already-computed device result
-    (e.g. from a batched run).
+    tensor; it runs on ``device`` (default: where a tensor lies, ``cuda`` for
+    NumPy; pass ``device="cpu"`` for the plain versions).  ``denoise=False``
+    analyzes the plane as-is (reference re-analysis paths).  Pass
+    ``device_out`` to reuse an already-computed device result (e.g. from a
+    batched run).
     """
     ct = _as_static(cell_types)
     if device_out is None:

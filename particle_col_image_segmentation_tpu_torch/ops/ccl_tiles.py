@@ -52,9 +52,12 @@ def ccl_cuda(
         raise ValueError(f"ccl_cuda: background {background} is not an int32")
     lab = torch.empty(img.shape, dtype=torch.int32, device=img.device)
     lib = _kernels.library()
+    scratch_len = lib.pcis_ccl_scratch_len(B, H, W)  # the tile-root bit mask
+    scratch = torch.empty(scratch_len, dtype=torch.int32, device=img.device)
     with torch.cuda.device(img.device):
         err = getattr(lib, fn)(
-            img.data_ptr(), lab.data_ptr(), B, H, W, connectivity, int(has_bg),
+            img.data_ptr(), lab.data_ptr(), scratch.data_ptr(), scratch_len,
+            B, H, W, connectivity, int(has_bg),
             int(background) if has_bg else 0, _kernels.stream_of(img),
         )
     _kernels.check(err, "ccl_cuda")

@@ -11,6 +11,7 @@ compared on valid rows, plus ``area`` on every row (the JAX scatter path
 holds segment-max identities on empty rows, the port zeros).
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -164,7 +165,8 @@ def test_dapi_dedup_matches_jax_and_oracle_at_one_in_ten():
 ])
 def test_analyze_plane_passes_the_oracle_parity_checks(monkeypatch, seed, cell_types):
     """tests/parity.py's assertion body, run on the port's analyze_plane."""
-    monkeypatch.setattr(parity, "analyze_plane", torch_single.analyze_plane)
+    monkeypatch.setattr(parity, "analyze_plane",
+                        functools.partial(torch_single.analyze_plane, device="cpu"))
     img = synthetic_label_plane(seed=seed, cell_types=cell_types, shape=(160, 160))
     ours = parity.assert_plane_parity(img, cell_types, CFG)
     assert isinstance(ours, torch_single.PlaneAnalysis)
@@ -178,7 +180,8 @@ def test_analyze_plane_errors_match_jax():
     img = np.random.default_rng(0).integers(1, 4, (64, 64)).astype(np.uint8)  # speckle
     tiny = AnalysisConfig(max_regions=8)
     messages = []
-    for analyze, cfg in ((torch_single.analyze_plane, config_from_fields(tiny)),
+    for analyze, cfg in ((functools.partial(torch_single.analyze_plane, device="cpu"),
+                          config_from_fields(tiny)),
                          (jax_analyze_plane, tiny)):
         with pytest.raises(ValueError, match="components > max_regions=8") as e:
             analyze(img, dict(SINGLE), cfg, denoise=False)

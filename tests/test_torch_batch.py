@@ -214,6 +214,37 @@ def test_cuda_device_without_cuda_raises(tmp_path):
         torch_cli(["batch", str(tmp_path / "exp"), "--device", "cuda"])
 
 
+def test_entry_points_default_to_the_card():
+    """run_batch, run_analysis and refine_boundaries(_stack) run on ``cuda``
+    unless the caller asks for the CPU; analyze_plane sends a NumPy plane
+    there when it is given no device."""
+    import inspect
+
+    from particle_col_image_segmentation_tpu_torch.models import experiment, refine, single_channel
+
+    for fn in (torch_batch.run_batch, experiment.run_analysis, refine.refine_boundaries,
+               refine.refine_boundaries_stack):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    plane = synthetic_label_plane(seed=1, shape=(64, 64))
+    assert single_channel.as_plane(torch.from_numpy(plane)).device.type == "cpu"
+    assert single_channel.as_plane(plane, "cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert single_channel.as_plane(plane).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            single_channel.as_plane(plane)
+
+
+@pytest.mark.parametrize("verb", ["analyze", "batch", "refine"])
+def test_cli_without_device_asks_for_cuda(tmp_path, verb):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    _h5_tree(tmp_path / "exp")
+    target = str(tmp_path / ("exp" if verb != "refine" else "missing.h5"))
+    with pytest.raises(RuntimeError, match="--device cuda: CUDA is not available"):
+        torch_cli([verb, target])
+
+
 def test_port_imports_no_jax():
     """Import every module of the port, run the fused pass on the CPU, and
     check that neither jax nor the JAX package was ever loaded (a fresh

@@ -30,6 +30,8 @@ from particle_col_image_segmentation_tpu_torch.ops.ccl_tiles import (
 )
 
 from fixtures import random_class_plane, synthetic_label_plane
+from chip_smoke import scipy_min_index
+from test_torch_cuda import ODD_WIDTHS, ccl_plane
 
 
 def _case(case):
@@ -131,3 +133,38 @@ def test_auto_takes_plain_on_cpu_and_wrappers_refuse_cpu():
         ccl_cuda(img)
     with pytest.raises(ValueError, match="CUDA"):
         compact_labels_cuda(raw, 4096)
+
+
+@pytest.mark.parametrize("connectivity", [8, 4])
+@pytest.mark.parametrize("case", ["single", "serpentine", "checker", "checker2", "stripes_h",
+                                  "stripes_v", "noise", "int32_extremes"])
+def test_plain_ccl_on_k2_adversarial_inputs_matches_jax(case, connectivity):
+    """The inputs K2's card tests and chip_smoke.py judge it on, at 96²:
+    the plain fixpoint equals the JAX one and the scipy-derived min-index
+    labels.  int32 extremes lie outside [0, num_classes), where both
+    fixpoints link runs but no other neighbours (any two equal values link
+    in K2), so there only the two packages are held together."""
+    img, background = ccl_plane(case, 96, 96, seed=1)
+    got, conv = connected_components(torch.from_numpy(img), background=background,
+                                     connectivity=connectivity, max_iters=4096, with_flag=True)
+    want, wconv = jax_ccl.connected_components(
+        jnp.asarray(img), background=background, connectivity=connectivity,
+        max_iters=4096, with_flag=True,
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert bool(conv) and bool(wconv)
+    if case != "int32_extremes":
+        np.testing.assert_array_equal(got.numpy(), scipy_min_index(img, background, connectivity))
+
+
+@pytest.mark.parametrize("W", ODD_WIDTHS)
+def test_plain_ccl_odd_widths_matches_jax_and_scipy(W):
+    for case in ("majority", "serpentine", "noise_bg0"):
+        img, background = ccl_plane(case, 70, W, seed=W)
+        for connectivity in (8, 4):
+            got = connected_components(torch.from_numpy(img), background=background,
+                                       connectivity=connectivity, max_iters=4096).numpy()
+            want = jax_ccl.connected_components(jnp.asarray(img), background=background,
+                                                connectivity=connectivity, max_iters=4096)
+            np.testing.assert_array_equal(got, np.asarray(want))
+            np.testing.assert_array_equal(got, scipy_min_index(img, background, connectivity))

@@ -50,6 +50,7 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
     watershed_label_pass_cuda,
 )
 
+from chip_smoke import scipy_min_index
 from fixtures import random_class_plane, synthetic_label_plane
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +107,97 @@ def test_ccl_and_compact_kernels(dev, shape, background, connectivity):
     _equal([raw], [want])
     _equal(compact_labels_cuda(raw, 16383), compact_labels(raw, 16383))
     assert (ccl_cuda.launches, compact_labels_cuda.launches) == (before[0] + 1, before[1] + 1)
+
+
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+CCL_CASES = ["single", "serpentine", "checker", "checker2", "stripes_h", "stripes_v",
+             "noise_bg0", "noise", "int32_extremes", "majority"]
+ODD_WIDTHS = [1, 31, 33, 63, 65, 129]
+
+
+def ccl_plane(case, H, W, seed=0):
+    """An adversarial K2 input and its background: one value everywhere; a
+    serpentine of 1-px rows joined at alternate ends (crosses every tile);
+    checkerboards of 1-px and 2-px squares (diagonal-only links); 1-px
+    stripes either way; 50 % binary noise with background 0 or None; int32
+    values at the extremes with background INT32_MIN; a majority class
+    spanning the plane with noise in it."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:H, :W]
+    if case == "single":
+        return np.full((H, W), 3, np.uint8), None
+    if case == "serpentine":
+        img = np.zeros((H, W), np.uint8)
+        img[::2] = 1
+        for i in range(1, H, 2):
+            img[i, W - 1 if (i // 2) % 2 == 0 else 0] = 1
+        return img, 0
+    if case == "checker":
+        return ((yy + xx) % 2).astype(np.uint8), None
+    if case == "checker2":
+        return ((yy // 2 + xx // 2) % 2).astype(np.uint8), 0
+    if case == "stripes_h":
+        return (yy % 2).astype(np.uint8), None
+    if case == "stripes_v":
+        return (xx % 2).astype(np.uint8), 0
+    if case in ("noise_bg0", "noise"):
+        return (rng.random((H, W)) < 0.5).astype(np.uint8), 0 if case == "noise_bg0" else None
+    if case == "int32_extremes":
+        vals = np.array([INT32_MIN, INT32_MAX, -1, 0, 7], np.int64)
+        img = vals[rng.choice(5, (H, W), p=[0.2, 0.4, 0.1, 0.2, 0.1])]
+        return img.astype(np.int32), INT32_MIN
+    if case == "majority":
+        return np.where(rng.random((H, W)) < 0.7, 1, rng.integers(0, 3, (H, W))).astype(np.uint8), None
+    raise ValueError(case)
+
+
+def _check_ccl(dev, img, background, connectivity):
+    """K2 against the scipy-derived labels, and against the plain fixpoint
+    where that converges."""
+    x = torch.from_numpy(img).to(dev)
+    got = ccl_cuda(x, background=background, connectivity=connectivity)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), scipy_min_index(img, background, connectivity))
+    want, conv = connected_components(x, background=background, connectivity=connectivity,
+                                      max_iters=4096, num_classes=8, with_flag=True)
+    if img.dtype == np.uint8 and bool(conv.all()):
+        _equal([got], [want])
+
+
+@pytest.mark.parametrize("connectivity", [8, 4])
+@pytest.mark.parametrize("case", CCL_CASES)
+def test_ccl_kernel_adversarial(dev, case, connectivity):
+    img, background = ccl_plane(case, 150, 161, seed=len(case))
+    _check_ccl(dev, img, background, connectivity)
+    _check_ccl(dev, np.stack([img, img[::-1, ::-1].copy()]), background, connectivity)
+
+
+@pytest.mark.parametrize("connectivity", [8, 4])
+@pytest.mark.parametrize("W", ODD_WIDTHS)
+def test_ccl_kernel_odd_widths(dev, W, connectivity):
+    for case in ("majority", "serpentine", "noise_bg0"):
+        img, background = ccl_plane(case, 130, W, seed=W)
+        _check_ccl(dev, img, background, connectivity)
+        _check_ccl(dev, np.ascontiguousarray(img.T), background, connectivity)
+
+
+MEDIAN_SHAPES = [(3, 2, 5), (2, 63, 31), (2, 64, 32), (65, 33), (2, 129, 48), (2, 150, 112),
+                 (1, 70, 65), (1, 200, 1)]
+
+
+@pytest.mark.parametrize("size", [3, 5, 7, 9])
+@pytest.mark.parametrize("shape", MEDIAN_SHAPES)
+def test_median_kernel_tile_edges(dev, shape, size):
+    """Planes around the 32 x 64 tile and narrower than the halo; values past
+    num_classes; a view off a 16-byte boundary (the reflecting path)."""
+    img = np.random.default_rng(size).integers(0, 10, shape).astype(np.uint8)
+    x = torch.from_numpy(img).to(dev)
+    for k in (8, 3, 1):
+        _equal([median_label_filter_cuda(x, size, k)], [median_label_filter(x, size, k)])
+    buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)
+    off = buf[1:].view(shape)
+    off.copy_(x)
+    _equal([median_label_filter_cuda(off, size, 8)], [median_label_filter(x, size, 8)])
 
 
 def test_ccl_kernel_int32_values_and_spiral(dev):

@@ -31,14 +31,25 @@ nonzero and no result line is printed):
      [2,2048,2048] (connectivity 1 and 2), an unreachable masked island and
      a random [3,97,130] relief, a one-pass budget that must report
      unconverged, and K7 on the [8,2048,2048] watershed labels, [3,97,130]
-     ids past R, a 2-D plane and R+1 = 30001 (three id tiles);
+     ids past R, a 2-D plane and R+1 = 30001 (three id tiles); K3 on raw
+     that is not CCL output (``k3_inputs``: forward references, non-root
+     targets, values past the plane, INT32_MIN/MAX, 1x1 planes, widths
+     1-129, H*W not a multiple of 4 or of its 4096-px tile, a view off a
+     16-byte boundary, B = 64) and both K4 wrappers on ``k4_inputs`` (one
+     id over a 2048² plane at 255, every pixel its own id, ids < 0 and
+     > R, R+1 = 40000, int32 sums that saturate, odd H*W, views off a
+     16-byte boundary);
   4. batch path — run_batch over 40 bench planes in batches of 32 (the last
      one short and padded), max_regions=16383: every plane converged, no
      overflow, particle_px equal to scipy's median count; plane 0's labels
      equal to scipy's; planes 0-3 equal to the plain path on the card; K1-K4
      launched (launch counts reset just before the run);
-  5. times — the fused pass on a device-resident [32,2048,2048] batch and
-     K1-K4 at that shape; K5 and K8 at [8,2048,2048] (R+1 = 16385, cap 20),
+  5. times — the fused pass on a device-resident [32,2048,2048] batch (and
+     its peak device memory) and K1-K4 at that shape, K3 and K4 beside
+     their library yardsticks (one sorted torch.unique with inverse, whose
+     ids are checked against K3's once; two torch.bincount) and K3's
+     torch.profiler split (bits / scan / ranks); K5 and K8 at [8,2048,2048]
+     (R+1 = 16385, cap 20),
      K9 at [16,2048,2048] (cap 2, the merge contexts), K6 at [2048,2048];
      K2 on its three callers' inputs — [32,2048,2048] uint8 den,
      [16,2048,2048] uint8 merge contexts, [8,2048,2048] int32 EDT² — by
@@ -208,6 +219,98 @@ def k2_inputs(n: int, seed: int = 11):
         maj = np.where(rng.random((n, w)) < 0.7, 1, rng.integers(0, 3, (n, w))).astype(np.uint8)
         yield f"width {w} [{n},{w}]", maj, None, 8
         yield f"height {w} [{w},{n}]", np.ascontiguousarray(maj.T), 0, 4
+
+
+def k3_raw(shape, seed: int, lo: int = -5, roots: float = 0.3):
+    """K3 input that is not CCL output: int32 in [lo, H*W+5) with forward
+    references, non-root targets and values past the plane; a share
+    ``roots`` of pixels point at themselves."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = shape[-2] * shape[-1]
+    raw = rng.integers(lo, n + 5, shape, dtype=np.int64)
+    own = np.broadcast_to(np.arange(n).reshape(shape[-2:]), shape)
+    return np.where(rng.random(shape) < roots, own, raw).astype(np.int32)
+
+
+def k3_inputs(seed: int = 21):
+    """K3's edge inputs (case, int32 raw, whether to pass the view x[1:]):
+    random raw at several shapes, INT32_MIN/INT32_MAX, 1x1 planes, widths
+    1-129, planes of H*W not a multiple of 4 or of the 4096-px tile (one of
+    2049 x 2047, thousands of tiles deep), a view off a 16-byte boundary,
+    and B = 64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yield "random [2,97,130]", k3_raw((2, 97, 130), seed), False
+    ext = k3_raw((2, 64, 80), seed + 1)
+    pick = rng.random(ext.shape)
+    ext[pick < 0.2] = -(2**31)
+    ext[(pick >= 0.2) & (pick < 0.4)] = 2**31 - 1
+    yield "INT32_MIN and INT32_MAX [2,64,80]", ext, False
+    yield "1x1 planes [64,1,1]", rng.integers(-2, 3, (64, 1, 1)).astype(np.int32), False
+    for w in (1, 2, 3, 5, 31, 32, 33, 63, 64, 65, 127, 128, 129):
+        yield f"width {w} [2,33,{w}]", k3_raw((2, 33, w), seed + w), False
+    yield "H*W = 4095 [3,45,91]", k3_raw((3, 45, 91), seed + 2), False
+    yield "H*W = 4097 [2,241,17]", k3_raw((2, 241, 17), seed + 3), False
+    yield "H*W = 2049*2047 [2,2049,2047]", k3_raw((2, 2049, 2047), seed + 4, roots=0.05), False
+    yield "view x[1:] of [5,33,65] (off 16 bytes)", k3_raw((5, 33, 65), seed + 5), True
+    yield "B = 64 [64,17,19]", k3_raw((64, 17, 19), seed + 6), False
+
+
+def k4_inputs(seed: int = 23):
+    """K4's edge inputs (case, int32 ids, uint8 or int32 values, max_regions,
+    whether to pass views off a 16-byte boundary): one id over a whole 2048²
+    plane at 255 (the hot bin, the widest 32-bit run sums); every pixel its
+    own id; ids negative and >= R+1; R+1 = 40000 (several id tiles); int32
+    values at ±2^31 that saturate; uint8 planes of odd H*W; views off a
+    16-byte boundary."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yield ("one id at 255 [2048,2048]", np.ones((2048, 2048), np.int32),
+           np.full((2048, 2048), 255, np.uint8), 16383, False)
+    yield ("every pixel its own id [150,200]", np.arange(30000, dtype=np.int32).reshape(150, 200),
+           rng.integers(0, 256, (150, 200)).astype(np.uint8), 30000, False)
+    blocks = (np.arange(97)[:, None] // 5 * 40 + np.arange(131)[None, :] // 4).astype(np.int32)
+    for vals in (rng.integers(0, 256, (3, 97, 131)).astype(np.uint8),
+                 rng.integers(-(2**31), 2**31, (3, 97, 131), dtype=np.int64).astype(np.int32)):
+        ids = np.where(rng.random((3, 97, 131)) < 0.1,
+                       rng.integers(-5, 800, (3, 97, 131)), blocks[None] - 5).astype(np.int32)
+        yield f"ids -5..799, R=700, {vals.dtype} values [3,97,131]", ids, vals, 700, False
+    wide = rng.integers(0, 40010, (2, 256, 256)).astype(np.int32)
+    yield ("R+1 = 40000 [2,256,256] uint8", wide,
+           rng.integers(0, 256, wide.shape).astype(np.uint8), 39999, False)
+    yield ("R+1 = 40000 [2,256,256] int32", wide,
+           rng.integers(-1000, 1000, wide.shape).astype(np.int32), 39999, False)
+    sat = np.zeros((2, 512, 512), np.int32)
+    sat[:, :, 400:] = 1
+    sat[:, 300:, :] = 2
+    sv = np.full((2, 512, 512), 2**31 - 1, np.int32)
+    sv[1] = -(2**31)
+    sv[:, 300:, :] = rng.integers(-(2**31), 2**31, (2, 212, 512), dtype=np.int64)
+    yield "int32 values at ±2^31, saturating [2,512,512]", sat, sv, 4, False
+    odd_ids = np.broadcast_to(blocks[:, :129], (3, 97, 129)).copy()  # H*W = 12513, odd
+    odd_ids[1] += 7
+    yield ("uint8 odd H*W [3,97,129]", odd_ids,
+           rng.integers(0, 256, odd_ids.shape).astype(np.uint8), 2000, False)
+    yield ("views off 16 bytes [3,97,129] uint8", odd_ids,
+           rng.integers(0, 256, odd_ids.shape).astype(np.uint8), 2000, True)
+    yield ("views off 16 bytes [3,97,129] int32", odd_ids,
+           rng.integers(-5000, 5000, odd_ids.shape).astype(np.int32), 2000, True)
+
+
+def off16(x):
+    """A contiguous copy of card tensor x whose data starts 4 bytes past a
+    16-byte boundary (the slice [1:] of a flat buffer)."""
+    import torch
+
+    step = 4 // x.element_size()
+    buf = torch.empty(x.numel() + step, dtype=x.dtype, device=x.device)
+    view = buf[step:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def refine_relief(n: int = H, pairs: int = 480, seed: int = 0):
@@ -389,29 +492,34 @@ def profile_refine(x, rcfg, card: str) -> None:
         log(f"phase 7 profile:   {t:8.3f} ms {100 * t / total:5.1f} %  {name[:90]}")
 
 
-def k2_split(x, reps: int = 5) -> dict:
-    """Device ms a call of each K2 phase on x (torch.profiler over reps
-    calls): local (ccl_local), merge (ccl_merge_rows, ccl_merge_cols) and
-    flatten (ccl_roots, ccl_flatten)."""
+K2_PHASES = (("local", ("ccl_local",)), ("merge", ("ccl_merge",)),
+             ("flatten", ("ccl_roots", "ccl_flatten")))
+K3_PHASES = (("bits", ("compact_bits",)), ("scan", ("scan_tiles",)),
+             ("ranks", ("compact_ranks",)))
+
+
+def kernel_split(fn, phases, reps: int = 5) -> dict:
+    """Device ms a call of each phase of a kernel (torch.profiler over reps
+    calls of fn): phases are (name, substrings of its CUDA kernels' names),
+    K2_PHASES — local (ccl_local), merge (ccl_merge_rows, ccl_merge_cols)
+    and flatten (ccl_roots, ccl_flatten) — or K3_PHASES — bits
+    (compact_bits), scan (scan_tiles) and ranks (compact_ranks)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from particle_col_image_segmentation_tpu_torch.ops import ccl_cuda
-
-    ccl_cuda(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            ccl_cuda(x)
+            fn()
         torch.cuda.synchronize()
-    split = {"local": 0.0, "merge": 0.0, "flatten": 0.0}
+    split = {phase: 0.0 for phase, _ in phases}
     for s, e, name in device_intervals(prof):
-        for phase, kernels in (("local", ("ccl_local",)), ("merge", ("ccl_merge",)),
-                               ("flatten", ("ccl_roots", "ccl_flatten"))):
+        for phase, kernels in phases:
             if any(k in name for k in kernels):
                 split[phase] += (e - s) / (1e3 * reps)
     if not all(split.values()):
-        raise AssertionError(f"phase 5: the K2 trace lacks a phase: {split}")
+        raise AssertionError(f"phase 5: the trace lacks a phase: {split}")
     return split
 
 
@@ -645,6 +753,22 @@ def main() -> int:
             list(region_sums_cuda(seg, den.to(torch.int32), 8)),
             list(region_sums(seg, den.to(torch.int32), 8)))
     fill("[4,2048,2048] no particle pixels", torch.where(den4 == 2, 3, den4), 2, 1, 20, 4, 400)
+    # K3's and K4's edge inputs: raw that is not CCL output, odd shapes, views
+    # off a 16-byte boundary; both K4 wrappers on each
+    for case, raw_np, sliced in k3_inputs():
+        xr = torch.from_numpy(raw_np).to(dev)
+        xr = xr[1:] if sliced else xr
+        compare("K3", case, list(compact_labels_cuda(xr, MAX_REGIONS)),
+                list(compact_labels(xr, MAX_REGIONS)))
+    for case, seg_np, val_np, mr, shifted in k4_inputs():
+        st, vt = torch.from_numpy(seg_np).to(dev), torch.from_numpy(val_np).to(dev)
+        if shifted:
+            st, vt = off16(st), off16(vt)
+        compare("K4", f"{case} max_regions={mr}", list(region_counts_cuda(st, vt, mr)),
+                list(region_counts(st, vt, mr)))
+        compare("K4", f"region_sums {case} max_regions={mr}", list(region_sums_cuda(st, vt, mr)),
+                list(region_sums(st, vt, mr)))
+    del xr, st, vt
 
     R1 = ANALYZE_REGIONS + 1
     ids = seg4.clone()
@@ -821,7 +945,15 @@ def main() -> int:
     # ---- phase 5: times ----------------------------------------------------
     xb = torch.from_numpy(np.stack(planes[:BATCH])).to(dev)
     mp = BATCH * H * W / 1e6
+    torch.cuda.synchronize()
+    smoke_peak = torch.cuda.max_memory_allocated(dev)  # before the fused pass's own window
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     fused_ms = time_ms(lambda: fused_segment_batch(xb, cfg), reps=5, warmup=2)
+    fused_peak = torch.cuda.max_memory_allocated(dev)
+    log(f"phase 5 fused pass peak device memory [{card}]: {fused_peak / 2**30:.3f} GiB, "
+        f"{(fused_peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held before "
+        f"it ([{BATCH},{H},{W}] input on the card)")
     plain_fused_ms = time_ms(lambda: plain_fused(xb), reps=1, warmup=1)
     den = median_label_filter_cuda(xb, 5, 8)
     raw = ccl_cuda(den)
@@ -852,6 +984,30 @@ def main() -> int:
         "K8": time_ms(lambda: particle_fill_step(den8, *fill_args), reps=2),
         "K9": time_ms(lambda: edt_sq(ctx16, acfg.merge_disk_radius), reps=2),
     }
+    # library yardsticks (timed here, used nowhere in the port): one sorted
+    # torch.unique with inverse for K3, two torch.bincount calls (area, then
+    # the float64-weighted value sums, exact) for K4; the keys are built
+    # outside the events
+    keyed = raw.to(torch.int64) + H * W * torch.arange(BATCH, device=dev).view(-1, 1, 1)
+    library_ms = {"K3": time_ms(lambda: torch.unique(keyed, sorted=True, return_inverse=True),
+                                reps=3)}
+    _, inv = torch.unique(keyed, sorted=True, return_inverse=True)
+    seg_k, num_k = compact_labels_cuda(raw, MAX_REGIONS)
+    before_plane = (torch.cumsum(num_k, 0) - num_k).view(-1, 1, 1)  # uniques of earlier planes
+    if not torch.equal((inv - before_plane + 1).to(torch.int32), seg_k):
+        raise AssertionError("phase 5: torch.unique's inverse differs from K3's ids")
+    del keyed, inv, seg_k
+    R1m = MAX_REGIONS + 1
+    bins4 = (seg.to(torch.int64) + R1m * torch.arange(BATCH, device=dev).view(-1, 1, 1)).reshape(-1)
+    wts4 = den.reshape(-1).to(torch.float64)
+    library_ms["K4"] = time_ms(lambda: (torch.bincount(bins4, minlength=BATCH * R1m),
+                                        torch.bincount(bins4, weights=wts4, minlength=BATCH * R1m)),
+                               reps=3)
+    lib_area = torch.bincount(bins4, minlength=BATCH * R1m).view(BATCH, R1m)
+    if not torch.equal(lib_area.to(torch.int32), region_counts_cuda(seg, den, MAX_REGIONS)[0]):
+        raise AssertionError("phase 5: torch.bincount's areas differ from K4's")
+    del bins4, wts4, lib_area
+    library_note = {"K3": "one torch.unique", "K4": "two torch.bincount"}
     shapes = {k: f"[{BATCH},{H},{W}]" for k in ("K1", "K2", "K3", "K4")}
     shapes.update(K5=f"[8,{H},{W}] R+1={R1}", K6=f"[{H},{W}] R={R1}",
                   K8=f"[8,{H},{W}] cap {fill_args[2]}",
@@ -860,8 +1016,12 @@ def main() -> int:
         f"{fused_ms:.3f} ms = {mp / fused_ms * 1e3:.1f} MP/s; plain "
         f"{plain_fused_ms:.3f} ms = {mp / plain_fused_ms * 1e3:.1f} MP/s")
     for k in ms:
+        lib = f", {library_note[k]} {library_ms[k]:.3f} ms" if k in library_ms else ""
         log(f"phase 5 times [{card}]: {k} kernel {ms[k]:.3f} ms, plain "
-            f"{plain_ms[k]:.3f} ms at {shapes[k]}")
+            f"{plain_ms[k]:.3f} ms{lib} at {shapes[k]}")
+    split = kernel_split(lambda: compact_labels_cuda(raw, MAX_REGIONS), K3_PHASES)
+    log(f"phase 5 times [{card}]: K3 on raw [{BATCH},{H},{W}]: torch.profiler: "
+        + ", ".join(f"{p} {v:.3f}" for p, v in split.items()) + " ms")
     # K2 on each of its callers' inputs, with the split by phase
     r = acfg.merge_disk_radius
     ctx_u8 = (edt_sq_cuda(ctx16, r) <= r * r).to(torch.uint8)
@@ -869,7 +1029,7 @@ def main() -> int:
                     (f"merge contexts [16,{H},{W}] uint8", ctx_u8),
                     (f"EDT² [{REFINE_PLANES},{H},{W}] int32", dsq8)):
         t = time_ms(lambda x=x: ccl_cuda(x), reps=10)
-        split = k2_split(x)
+        split = kernel_split(lambda x=x: ccl_cuda(x), K2_PHASES)
         log(f"phase 5 times [{card}]: K2 on {name}: {t:.3f} ms (CUDA events); "
             f"torch.profiler: " + ", ".join(f"{p} {v:.3f}" for p, v in split.items()) + " ms")
     del den, raw, seg, ctx_u8
@@ -932,7 +1092,8 @@ def main() -> int:
     bins = (labels8.reshape(REFINE_PLANES, -1).to(torch.int64)
             + R1r * torch.arange(REFINE_PLANES, device=dev)[:, None]).reshape(-1)
     lib_table = torch.zeros((REFINE_PLANES * R1r, 5), dtype=torch.int32, device=dev)
-    library_ms = {"K7": time_ms(lambda: lib_table.index_add_(0, bins, digits), reps=5)}
+    library_ms["K7"] = time_ms(lambda: lib_table.index_add_(0, bins, digits), reps=5)
+    library_note["K7"] = "one index_add_"
     del pix, rows, cols, digits, bins, lib_table
     ms["K10"] = time_ms(lambda: minimax_costs_cuda(x8r, mask8, seeded8), reps=5)
     cost8, _, passes_k10 = minimax_costs_cuda(x8r, mask8, seeded8)
@@ -945,7 +1106,7 @@ def main() -> int:
                   K10=f"[{REFINE_PLANES},{H},{W}] relief, {passes_k10} passes",
                   K11=f"[{REFINE_PLANES},{H},{W}] relief, {passes_k11} passes")
     for k in ("K7", "K10", "K11"):
-        lib = f", one index_add_ {library_ms[k]:.3f} ms" if k in library_ms else ""
+        lib = f", {library_note[k]} {library_ms[k]:.3f} ms" if k in library_ms else ""
         log(f"phase 5 times [{card}]: {k} kernel {ms[k]:.3f} ms, plain "
             f"{plain_ms[k]:.3f} ms{lib} at {shapes[k]}")
 
@@ -972,7 +1133,7 @@ def main() -> int:
         f"{refine_ms:.3f} ms = {rmp / refine_ms * 1e3:.1f} MP/s; plain "
         f"{plain_refine_ms:.3f} ms = {rmp / plain_refine_ms * 1e3:.1f} MP/s")
     log(f"phase 5 peak device memory: "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        f"{max(smoke_peak, torch.cuda.max_memory_allocated(dev)) / 2**30:.2f} GiB")
 
     # ---- phase 6: the analyze path -----------------------------------------
     seed_of = {}  # placeholder .h5 path -> index into planes

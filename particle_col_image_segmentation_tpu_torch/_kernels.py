@@ -36,8 +36,8 @@ _SIGNATURES = {
     "pcis_ccl_scratch_len": (_L, [_I, _I, _I]),
     "pcis_ccl_u8": (_I, [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
     "pcis_ccl_i32": (_I, [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
-    "pcis_compact_partial_len": (_L, [_I, _I, _I]),
-    "pcis_compact": (_I, [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
+    "pcis_compact_scratch_len": (_L, [_I, _I, _I]),
+    "pcis_compact": (_I, [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "pcis_region_counts": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "pcis_region_table": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "pcis_table_lookup": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),

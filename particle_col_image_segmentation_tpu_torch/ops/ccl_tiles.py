@@ -81,13 +81,13 @@ def compact_labels_cuda(raw: torch.Tensor, max_regions: int):
     lib = _kernels.library()
     seg = torch.empty_like(raw)
     num = torch.empty(B, dtype=torch.int32, device=raw.device)
-    prefix = torch.empty_like(raw)
-    partial_len = lib.pcis_compact_partial_len(B, H, W)
-    partial = torch.empty(partial_len, dtype=torch.int32, device=raw.device)
+    # the root bits with their in-tile word prefixes, then the tile counts
+    scratch_len = lib.pcis_compact_scratch_len(B, H, W)
+    scratch = torch.empty(scratch_len, dtype=torch.int64, device=raw.device)
     with torch.cuda.device(raw.device):
         err = lib.pcis_compact(
-            raw.data_ptr(), seg.data_ptr(), num.data_ptr(), prefix.data_ptr(),
-            partial.data_ptr(), partial_len, B, H, W, _kernels.stream_of(raw),
+            raw.data_ptr(), seg.data_ptr(), num.data_ptr(), scratch.data_ptr(),
+            scratch_len, B, H, W, _kernels.stream_of(raw),
         )
     _kernels.check(err, "compact_labels_cuda")
     compact_labels_cuda.launches += 1

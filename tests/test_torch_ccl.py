@@ -30,7 +30,7 @@ from particle_col_image_segmentation_tpu_torch.ops.ccl_tiles import (
 )
 
 from fixtures import random_class_plane, synthetic_label_plane
-from chip_smoke import scipy_min_index
+from chip_smoke import k3_raw, scipy_min_index
 from test_torch_cuda import ODD_WIDTHS, ccl_plane
 
 
@@ -80,6 +80,31 @@ def test_compact_labels_batched_matches_jax(case):
     seg_s, num_s = jax_ccl.compact_labels_sweeps(raw_j, 4096, tile=8, interpret=True)
     np.testing.assert_array_equal(seg.numpy(), np.asarray(seg_s))
     np.testing.assert_array_equal(num.numpy(), np.asarray(num_s))
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 53), (3, 16, 17), (1, 1, 1), (5, 9, 1), (64, 3, 5)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compact_labels_on_raw_that_is_not_ccl_output_matches_jax(shape, seed):
+    """K3's contract beyond CCL output: raw in [-5, H*W+5) with forward
+    references, non-root targets, values past the plane, -1 background and
+    int32 extremes, against the JAX compact_labels plane by plane.  The
+    JAX band sweeps propagate a root's rank through its component, so they
+    hold only for CCL output (test_compact_labels_batched_matches_jax)."""
+    raw = k3_raw(shape, seed=seed)
+    pick = np.random.default_rng(seed).random(shape)
+    raw[pick < 0.05] = -(2**31)
+    raw[(pick >= 0.05) & (pick < 0.1)] = 2**31 - 1
+    raw[(pick >= 0.1) & (pick < 0.15)] = -1
+    seg, num = compact_labels(torch.from_numpy(raw), 4096)
+    seg_j, num_j = jax.vmap(lambda r: jax_ccl.compact_labels(r, 4096))(jnp.asarray(raw))
+    np.testing.assert_array_equal(seg.numpy(), np.asarray(seg_j))
+    np.testing.assert_array_equal(num.numpy(), np.asarray(num_j))
+    flat = raw.reshape(shape[0], -1)
+    roots = flat == np.arange(flat.shape[1])
+    assert num.tolist() == roots.sum(1).tolist()
+    seg2, num2 = compact_labels(torch.from_numpy(raw[0]), 4096)
+    np.testing.assert_array_equal(seg2.numpy(), seg.numpy()[0])
+    assert int(num2) == int(num[0])
 
 
 def test_max_iters_flag_per_plane():

@@ -50,7 +50,7 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
     watershed_label_pass_cuda,
 )
 
-from chip_smoke import scipy_min_index
+from chip_smoke import k3_inputs, k3_raw, k4_inputs, off16, scipy_min_index
 from fixtures import random_class_plane, synthetic_label_plane
 
 pytestmark = pytest.mark.cuda
@@ -74,11 +74,11 @@ def _planes(shape, seed):
     return img
 
 
-def _equal(got, want):
+def _equal(got, want, case=""):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        assert g.shape == w.shape and g.dtype == w.dtype
-        assert torch.equal(g, w)
+        assert g.shape == w.shape and g.dtype == w.dtype, case
+        assert torch.equal(g, w), case
 
 
 @pytest.mark.parametrize("size", [3, 5, 7, 9])
@@ -232,6 +232,39 @@ def test_region_counts_kernel_drops_and_saturates(dev):
     big_vals = torch.full((2, 512, 512), 16383, dtype=torch.int32, device=dev)
     big_vals[1] = -16384
     _equal(region_counts_cuda(big, big_vals, 4), region_counts(big, big_vals, 4))
+
+
+def test_compact_kernel_edges(dev):
+    """K3 on chip_smoke.k3_inputs: raw that is not CCL output (forward
+    references, non-root targets, values past the plane, int32 extremes),
+    odd shapes, a view off a 16-byte boundary, and B = 64; each 3-D case
+    also as its first plane alone."""
+    for case, raw, sliced in k3_inputs():
+        x = torch.from_numpy(raw).to(dev)
+        if sliced:
+            x = x[1:]
+            assert x.data_ptr() % 16, case
+        _equal(compact_labels_cuda(x, 16383), compact_labels(x, 16383), case)
+        _equal(compact_labels_cuda(x[0], 16383), compact_labels(x[0], 16383), case)
+
+
+def test_compact_kernel_every_width(dev):
+    for w in range(1, 130):
+        x = torch.from_numpy(k3_raw((2, 37, w), seed=w)).to(dev)
+        _equal(compact_labels_cuda(x, 16383), compact_labels(x, 16383), f"width {w}")
+
+
+def test_counts_kernel_edges(dev):
+    """Both K4 wrappers on chip_smoke.k4_inputs: the hot bin, distinct ids,
+    dropped ids, several id tiles, saturating int32 sums, odd plane sizes
+    and views off a 16-byte boundary."""
+    for case, seg, vals, max_regions, shifted in k4_inputs():
+        s, v = torch.from_numpy(seg).to(dev), torch.from_numpy(vals).to(dev)
+        if shifted:
+            s, v = off16(s), off16(v)
+            assert s.data_ptr() % 16 and v.data_ptr() % 16, case
+        _equal(region_counts_cuda(s, v, max_regions), region_counts(s, v, max_regions), case)
+        _equal(region_sums_cuda(s, v, max_regions), region_sums(s, v, max_regions), case)
 
 
 def test_wrappers_check_their_inputs(dev):

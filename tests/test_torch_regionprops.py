@@ -97,6 +97,48 @@ def test_saturating_sum_matches_mxu():
     assert cls[0, 1] == 16383 and cls[1, 1] == -16384
 
 
+@pytest.mark.parametrize("wrapper", ["counts", "sums"])
+def test_one_hot_bin_matches_mxu(wrapper):
+    """K4's hot bin: one id over whole uint8 planes at 255 (and one plane of
+    id 0 at 0), through both plain wrappers against the MXU kernel."""
+    from particle_col_image_segmentation_tpu.ops.regionprops_tiles import region_sums_mxu
+
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import region_sums
+
+    seg = np.ones((2, 256, 384), np.int32)
+    seg[1] = 0
+    img = np.full(seg.shape, 255, np.uint8)
+    img[1] = 0
+    plain, mxu = ((region_counts, region_counts_mxu) if wrapper == "counts"
+                  else (region_sums, region_sums_mxu))
+    area, col = plain(torch.from_numpy(seg), torch.from_numpy(img), 8)
+    a1, c1 = mxu(jnp.asarray(seg), jnp.asarray(img), 8, rows_per_chunk=64, interpret=True)
+    np.testing.assert_array_equal(area.numpy(), np.asarray(a1))
+    np.testing.assert_array_equal(col.numpy(), np.asarray(c1))
+    assert area[0, 1] == area[1, 0] == 256 * 384
+    assert col[0, 1] == (255 if wrapper == "counts" else 255 * 256 * 384)
+
+
+def test_saturating_region_sums_match_mxu():
+    """region_sums saturates Σvals to the int32 range, as region_sums_mxu's
+    _recombine_saturating does: 16383 and -16384 over 160000 px."""
+    from particle_col_image_segmentation_tpu.ops.regionprops_tiles import region_sums_mxu
+
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import region_sums
+
+    seg = np.zeros((2, 320, 512), np.int32)
+    seg[:, :, 500:] = 1
+    vals = np.full((2, 320, 512), 16383, np.int32)
+    vals[1] = -16384
+    area, vsum = region_sums(torch.from_numpy(seg), torch.from_numpy(vals), 4)
+    a1, v1 = region_sums_mxu(jnp.asarray(seg), jnp.asarray(vals), 4, rows_per_chunk=64,
+                             interpret=True)
+    np.testing.assert_array_equal(area.numpy(), np.asarray(a1))
+    np.testing.assert_array_equal(vsum.numpy(), np.asarray(v1))
+    assert vsum[0, 0] == I32_MAX and vsum[1, 0] == I32_MIN
+    assert vsum[0, 1] == 16383 * 320 * 12 and vsum[1, 1] == -16384 * 320 * 12
+
+
 def test_auto_takes_plain_on_cpu_and_wrapper_refuses_cpu():
     seg, img, max_regions = _case(0, 8, seed=8)
     seg_t, img_t = torch.from_numpy(seg), torch.from_numpy(img.astype(np.uint8))

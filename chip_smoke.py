@@ -28,9 +28,12 @@ nonzero and no result line is printed):
      EDT (K9 probe, and a plane that forces the exact fallback), local
      maxima through K2 (connectivity 1 and 2), each watershed phase — K10's
      costs and K11's labels — on smooth and 16-level reliefs at
-     [2,2048,2048] (connectivity 1 and 2), an unreachable masked island and
-     a random [3,97,130] relief, a one-pass budget that must report
-     unconverged, and K7 on the [8,2048,2048] watershed labels, [3,97,130]
+     [2,2048,2048] (connectivity 1 and 2), an unreachable masked island, a
+     random [3,97,130] relief, a serpentine corridor (``ws_corridor``: tiles
+     go quiet and wake again) and a batch of a few- and a many-pass plane
+     (``ws_mixed``), and budgets of 1, 2, need − 1 and need passes
+     (``ws_budgets``: planes that report converged equal plain, one pass
+     converges none), and K7 on the [8,2048,2048] watershed labels, [3,97,130]
      ids past R, a 2-D plane and R+1 = 30001 (three id tiles); K3 on raw
      that is not CCL output (``k3_inputs``: forward references, non-root
      targets, values past the plane, INT32_MIN/MAX, 1x1 planes, widths
@@ -49,7 +52,7 @@ nonzero and no result line is printed):
      their library yardsticks (one sorted torch.unique with inverse, whose
      ids are checked against K3's once; two torch.bincount) and K3's
      torch.profiler split (bits / scan / ranks); K5 and K8 at [8,2048,2048]
-     (R+1 = 16385, cap 20),
+     (R+1 = 16385, cap 20) and at [1,2048,2048],
      K9 at [16,2048,2048] (cap 2, the merge contexts), K6 at [2048,2048];
      K2 on its three callers' inputs — [32,2048,2048] uint8 den,
      [16,2048,2048] uint8 merge contexts, [8,2048,2048] int32 EDT² — by
@@ -58,7 +61,9 @@ nonzero and no result line is printed):
      through the kernels and through the plain versions, by CUDA events (no
      thresholds); K7 at [8,2048,2048] (R = 4096) beside one ``index_add_``
      of its five digit columns; each watershed phase on the [8,2048,2048]
-     relief (its passes, one host sync each, inside the events);
+     relief (its whole pass loop inside the events; its passes, launches,
+     host syncs, the device time of its passes by torch.profiler, and the
+     tiles each pass ran);
      refine_plane_device on that relief, kernels and plain, on the card;
   6. analyze path — run_analysis over a folder tree of 2048² bench planes
      (8 single-file 3D05 folders, batched 8 at a time, and one 3D05+6B07
@@ -75,7 +80,8 @@ nonzero and no result line is printed):
      the card: K2, K3, K7, K9, K10 and K11 launched (counts reset just
      before the run), labels, cell counts, areas and centroids equal to the
      plain run on the card; the stack CSV of a [2,1024,1024] crop equal to
-     the plain CPU run's byte for byte; the passes of each watershed phase.
+     the plain CPU run's byte for byte; the passes, launches and host syncs
+     of each watershed phase.
 The line before the last is the per-kernel JSON record (``launches`` sums
 the batch, analyze and refine paths' runs, ``bound_ms`` is the bytes each
 function must move over 3.35 TB/s); the last line is {"ok": true, ...}.
@@ -336,6 +342,77 @@ def refine_relief(n: int = H, pairs: int = 480, seed: int = 0):
     return (1.0 - dist / max(1.0, dist.max())).astype(np.float32)
 
 
+def ws_corridor(h: int = 128, w: int = 192, pitch: int = 4, seed: int = 12):
+    """A serpentine corridor for the watershed, (img, markers, mask) as numpy
+    [h, w]: 1-px rows every ``pitch`` rows joined at alternate ends, on a
+    random relief, a seed at each end.  The flood crosses every 32-px tile
+    row 32 / pitch times, so a tile goes quiet and wakes again, and each
+    phase needs many passes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((h, w), bool)
+    rows = list(range(1, h - pitch, pitch))
+    for i, r in enumerate(rows):
+        mask[r, 1:w - 1] = True
+        if i + 1 < len(rows):
+            c = w - 2 if i % 2 == 0 else 1
+            mask[r:r + pitch + 1, c] = True
+    mk = np.zeros((h, w), np.int32)
+    mk[rows[0], 1] = 1
+    mk[rows[-1], w - 2 if (len(rows) - 1) % 2 == 0 else 1] = 2
+    return rng.random((h, w)).astype(np.float32), mk, mask
+
+
+def ws_mixed(h: int = 128, w: int = 192, seed: int = 13):
+    """[2, h, w] planes whose phases need very different pass counts: plane 0
+    a random relief seeded every 16 px (a few passes), plane 1
+    ``ws_corridor`` (many).  Returns (img, markers, mask) as numpy."""
+    import numpy as np
+
+    img0 = np.random.default_rng(seed).random((h, w)).astype(np.float32)
+    mk0 = np.zeros((h, w), np.int32)
+    ys, xs = np.meshgrid(np.arange(8, h, 16), np.arange(8, w, 16), indexing="ij")
+    mk0[ys, xs] = np.arange(1, ys.size + 1).reshape(ys.shape)
+    img1, mk1, mask1 = ws_corridor(h, w)
+    return (np.stack([img0, img1]), np.stack([mk0, mk1]),
+            np.stack([np.ones((h, w), bool), mask1]))
+
+
+def ws_budgets(img, mk, m, conn: int, want):
+    """The watershed kernels under budgets of 1, 2, need − 1 and need passes
+    a phase (need: the larger phase's passes without a budget), held to the
+    loop's rules: no phase counts more passes than its budget, a phase that
+    reports a plane still changing used its whole budget, every plane that
+    reports converged has ``want``'s labels, and one pass converges no
+    plane.  Returns [(budget, (passes), [converged])]."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import watershed_cuda
+
+    watershed_cuda(img, mk, m, connectivity=conn)
+    need = max(watershed_cuda.last_passes)
+    out = []
+    for budget in sorted({1, 2, max(1, need - 1), need}):
+        got, conv = watershed_cuda(img, mk, m, connectivity=conn, max_iters=budget,
+                                   with_flag=True)
+        logs = watershed_cuda.last_logs
+        torch.cuda.synchronize()
+        for log in logs:
+            if log.passes > budget or log.launches > budget:
+                raise AssertionError(f"budget {budget}: a phase ran {log}")
+        if not bool(conv.all()) and max(log.passes for log in logs) != budget:
+            raise AssertionError(f"budget {budget}: a plane stopped early: {logs}")
+        for z in conv.nonzero().flatten().tolist():
+            if not torch.equal(got[z], want[z]):
+                raise AssertionError(f"budget {budget}: plane {z} reports converged "
+                                     "with labels that differ from plain")
+        if budget == 1 and bool(conv.any()):
+            raise AssertionError("a one-pass budget reported a converged plane")
+        out.append((budget, watershed_cuda.last_passes, conv.tolist()))
+    return out
+
+
 def make_tree(root: str, singles) -> dict:
     """A folder tree of empty placeholder .h5 files (discovery reads names
     only): one single-file 3D05 folder per index in ``singles``, and one
@@ -460,23 +537,51 @@ def profile_phase(planes, cfg, dev, card: str) -> None:
         log(f"phase 7 profile:   {t:8.4f} s {n:6d}x  {name[:90]}")
 
 
+def idle_within(intervals, start: float, end: float) -> float:
+    """µs of [start, end] in which the device ran none of the intervals."""
+    clipped = [(max(s, start), min(e, end), n) for s, e, n in intervals if e > start and s < end]
+    return (end - start) - busy_us(clipped)
+
+
 def profile_refine(x, rcfg, card: str) -> None:
     """``--profile``: torch.profiler over three ``refine_plane_device`` calls
-    on the device-resident relief x: device ms per call of each kernel, and
-    the device's busy share of the calls' wall time."""
+    on the device-resident relief x: device ms per call of each kernel, the
+    device's busy share of the calls' wall time, and where the idle time
+    falls: inside each watershed phase's host call (``minimax_costs_cuda``,
+    ``claim_labels_cuda``, spanned by a ``record_function`` for the trace
+    only) — and of that, between its first pass's start and its last
+    pass's end — or elsewhere (the EDT certificate, K2, K3, K7 and the
+    glue)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from particle_col_image_segmentation_tpu_torch.models.refine import refine_plane_device
+    from particle_col_image_segmentation_tpu_torch.ops import watershed_tiles
+
+    spans = {"minimax_costs_cuda": "cost_pass", "claim_labels_cuda": "label_pass"}
+    originals = {fn: getattr(watershed_tiles, fn) for fn in spans}
+
+    def spanned(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
 
     refine_plane_device(x, rcfg, REFINE_REGIONS)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            refine_plane_device(x, rcfg, REFINE_REGIONS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    for fn in spans:
+        setattr(watershed_tiles, fn, spanned(fn, originals[fn]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                refine_plane_device(x, rcfg, REFINE_REGIONS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for fn, orig in originals.items():
+            setattr(watershed_tiles, fn, orig)
     intervals = device_intervals(prof)
     if not intervals:
         raise AssertionError("phase 7: the refine trace holds no device activity")
@@ -490,6 +595,32 @@ def profile_refine(x, rcfg, card: str) -> None:
         f"(idle {100 * (1 - busy / wall):.1f} %) over 3 calls")
     for name, t in sorted(per_name.items(), key=lambda kv: -kv[1])[:14]:
         log(f"phase 7 profile:   {t:8.3f} ms {100 * t / total:5.1f} %  {name[:90]}")
+    idle_ms = (wall - busy) * 1e3 / 3
+    inside = 0.0
+    for fn, kernel in spans.items():
+        windows = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name == fn and e.device_type == DeviceType.CPU]
+        if len(windows) != 3:
+            raise AssertionError(f"phase 7: {len(windows)} {fn} spans in the refine trace")
+        span_ms = idle_ms_a = loop_ms = before = between = after = 0.0
+        for a, b in windows:
+            passes = [(s, e) for s, e, n in intervals if kernel in n and a <= s < b]
+            first, last = min(s for s, _ in passes), max(e for _, e in passes)
+            span_ms += (b - a) / 3e3
+            idle_ms_a += idle_within(intervals, a, b) / 3e3
+            loop_ms += (last - first) / 3e3
+            before += idle_within(intervals, a, first) / 3e3
+            between += idle_within(intervals, first, last) / 3e3
+            after += idle_within(intervals, last, b) / 3e3
+        inside += idle_ms_a
+        log(f"phase 7 profile [{card}]: refine idle inside {fn}: {idle_ms_a:.3f} ms of its "
+            f"{span_ms:.3f} ms host call, a call: {before:.3f} before its first pass starts, "
+            f"{between:.3f} between its first pass's start and its last pass's end "
+            f"({loop_ms:.3f} ms), {after:.3f} after its last pass ends (read-back, return)")
+    log(f"phase 7 profile [{card}]: refine idle {idle_ms:.3f} ms a call: "
+        f"{inside:.3f} inside the two watershed phases' host calls, "
+        f"{idle_ms - inside:.3f} elsewhere (EDT certificate, K2, K3, K7, glue, "
+        f"the calls' own host work)")
 
 
 K2_PHASES = (("local", ("ccl_local",)), ("merge", ("ccl_merge",)),
@@ -818,20 +949,22 @@ def main() -> int:
                                     REFINE_REGIONS)
     seeded8 = (mk8 > 0) & mask8
 
-    def ws_phases(case: str, img, mk, m, conn: int):
+    def ws_phases(case: str, img, mk, m, conn: int, plain_iters: int = 1024):
         """Each watershed phase, kernels against plain; returns the labels."""
         seeded = (mk > 0) & m
-        cost_k, busy_k, p1 = minimax_costs_cuda(img, m, seeded, conn)
-        cost_p, busy_p = minimax_costs(img, m, seeded, conn)
+        cost_k, busy_k, log1 = minimax_costs_cuda(img, m, seeded, conn)
+        cost_p, busy_p = minimax_costs(img, m, seeded, conn, plain_iters)
         if busy_k.any() or busy_p.any():
             raise AssertionError(f"phase 1 did not converge on {case}")
-        compare("K10", f"{case} connectivity={conn} ({p1} passes)", [cost_k], [cost_p])
-        lab_k, busy_k, p2 = claim_labels_cuda(cost_k, img, mk, m, seeded, conn)
-        lab_p, busy_p = claim_labels(cost_p, img, mk, m, seeded, conn)
+        compare("K10", f"{case} connectivity={conn} ({log1.passes} passes, {log1.syncs} "
+                f"host syncs)", [cost_k], [cost_p])
+        lab_k, busy_k, log2 = claim_labels_cuda(cost_k, img, mk, m, seeded, conn)
+        lab_p, busy_p = claim_labels(cost_p, img, mk, m, seeded, conn, plain_iters)
         if busy_k.any() or busy_p.any():
             raise AssertionError(f"phase 2 did not converge on {case}")
-        compare("K11", f"{case} connectivity={conn} ({p2} passes)", [lab_k], [lab_p])
-        return lab_k
+        compare("K11", f"{case} connectivity={conn} ({log2.passes} passes, {log2.syncs} "
+                f"host syncs)", [lab_k], [lab_p])
+        return lab_k, log1, log2
 
     for name, imgs in (("smooth relief", x8r[:2]), ("16-level relief", torch.from_numpy(q2).to(dev))):
         for conn in (1, 2):
@@ -840,7 +973,7 @@ def main() -> int:
     island_m[:, 100:300, 100:103] = island_m[:, 100:300, 297:300] = False
     island_m[:, 100:103, 100:300] = island_m[:, 297:300, 100:300] = False
     island_mk[:, 100:300, 100:300] = 0  # no seed inside the walled square
-    lab = ws_phases("unreachable island", x8r[:2], island_mk, island_m, 1)
+    lab = ws_phases("unreachable island", x8r[:2], island_mk, island_m, 1)[0]
     if int(lab[:, 103:297, 103:297].abs().sum()) != 0 or int(island_m[:, 103:297, 103:297].sum()) == 0:
         raise AssertionError("the unreachable island was flooded (or holds no mask)")
     rng3 = np.random.default_rng(9)
@@ -851,12 +984,26 @@ def main() -> int:
     m3[:, :, 60:63] = False
     for conn in (1, 2):
         ws_phases("odd [3,97,130] random relief", img3, mk3, m3, conn)
-    need = minimax_costs_cuda(x8r[:2], mask8[:2], seeded8[:2])[2]
-    _, conv1 = watershed_cuda(x8r[:2], mk8[:2], mask8[:2], max_iters=1, with_flag=True)
-    if conv1.any() or need < 2:
-        raise AssertionError("a one-pass budget reported a converged plane")
-    log(f"phase 3 K10/K11: a one-pass budget reports converged {conv1.tolist()} on "
-        f"planes whose phase 1 needs {need} passes")
+    # the serpentine corridor (a tile goes quiet and wakes again) and a batch
+    # whose planes need a few and many passes (the per-plane early exit),
+    # then the budgets 1, 2, need - 1 and need on it and on the relief
+    for name, arrays in (("serpentine corridor [1,128,192]", [a[None] for a in ws_corridor()]),
+                         ("mixed pass counts [2,128,192]", ws_mixed())):
+        wimg, wmk, wm = (torch.from_numpy(a).to(dev) for a in arrays)
+        for conn in (1, 2):
+            want, log1, log2 = ws_phases(name, wimg, wmk, wm, conn, plain_iters=1 << 14)
+            if min(log1.passes, log2.passes) <= 12:
+                raise AssertionError(f"{name}: a phase needed only {log1.passes}, "
+                                     f"{log2.passes} passes")
+            log(f"phase 3 K10/K11 {name} connectivity={conn}: tiles run a pass "
+                f"{list(log1.tiles)} (phase 1), {list(log2.tiles)} (phase 2)")
+            for budget, passes, conv in ws_budgets(wimg, wmk, wm, conn, want):
+                log(f"phase 3 K10/K11 {name} connectivity={conn} budget {budget}: passes "
+                    f"{passes}, converged {conv}, converged planes == plain")
+    want = watershed(x8r[:2], mk8[:2], mask8[:2])
+    for budget, passes, conv in ws_budgets(x8r[:2], mk8[:2], mask8[:2], 1, want):
+        log(f"phase 3 K10/K11 [2,{H},{W}] relief budget {budget}: passes {passes}, "
+            f"converged {conv}, converged planes == plain")
     labels8 = watershed_auto(x8r, mk8, mask8)
     compare("K7", f"[{REFINE_PLANES},{H},{W}] watershed labels R={REFINE_REGIONS + 1}",
             list(centroid_sums_cuda(labels8, REFINE_REGIONS)),
@@ -1019,6 +1166,13 @@ def main() -> int:
         lib = f", {library_note[k]} {library_ms[k]:.3f} ms" if k in library_ms else ""
         log(f"phase 5 times [{card}]: {k} kernel {ms[k]:.3f} ms, plain "
             f"{plain_ms[k]:.3f} ms{lib} at {shapes[k]}")
+    # K5 and K8 also run at B = 1 on the analyze path (a multi-channel
+    # folder's planes, one strain at a time): their time at that shape
+    seg1, den1 = seg8[:1].contiguous(), den8[:1].contiguous()
+    log(f"phase 5 times [{card}]: at [1,{H},{W}]: K5 kernel "
+        f"{time_ms(lambda: region_table_cuda(seg1, den1, ANALYZE_REGIONS), reps=10):.3f} ms, "
+        f"K8 kernel {time_ms(lambda: particle_fill_step_cuda(den1, *fill_args), reps=10):.3f} ms")
+    del seg1, den1
     split = kernel_split(lambda: compact_labels_cuda(raw, MAX_REGIONS), K3_PHASES)
     log(f"phase 5 times [{card}]: K3 on raw [{BATCH},{H},{W}]: torch.profiler: "
         + ", ".join(f"{p} {v:.3f}" for p, v in split.items()) + " ms")
@@ -1095,20 +1249,32 @@ def main() -> int:
     library_ms["K7"] = time_ms(lambda: lib_table.index_add_(0, bins, digits), reps=5)
     library_note["K7"] = "one index_add_"
     del pix, rows, cols, digits, bins, lib_table
-    ms["K10"] = time_ms(lambda: minimax_costs_cuda(x8r, mask8, seeded8), reps=5)
-    cost8, _, passes_k10 = minimax_costs_cuda(x8r, mask8, seeded8)
+    # each watershed phase: its whole pass loop inside the events (chunks of
+    # passes, one host sync a chunk), and the device time of its passes
+    ws_fn = {"K10": lambda: minimax_costs_cuda(x8r, mask8, seeded8)}
+    ms["K10"] = time_ms(ws_fn["K10"], reps=5)
+    cost8, _, ws_log = minimax_costs_cuda(x8r, mask8, seeded8)
+    ws_log = {"K10": ws_log}
     plain_ms["K10"] = time_ms(lambda: minimax_costs(x8r, mask8, seeded8), reps=1, warmup=0)
-    ms["K11"] = time_ms(lambda: claim_labels_cuda(cost8, x8r, mk8, mask8, seeded8), reps=5)
-    passes_k11 = claim_labels_cuda(cost8, x8r, mk8, mask8, seeded8)[2]
+    ws_fn["K11"] = lambda: claim_labels_cuda(cost8, x8r, mk8, mask8, seeded8)
+    ms["K11"] = time_ms(ws_fn["K11"], reps=5)
+    ws_log["K11"] = ws_fn["K11"]()[2]
     plain_ms["K11"] = time_ms(lambda: claim_labels(cost8, x8r, mk8, mask8, seeded8),
                               reps=1, warmup=0)
     shapes.update(K7=f"[{REFINE_PLANES},{H},{W}] R={R1r}",
-                  K10=f"[{REFINE_PLANES},{H},{W}] relief, {passes_k10} passes",
-                  K11=f"[{REFINE_PLANES},{H},{W}] relief, {passes_k11} passes")
+                  K10=f"[{REFINE_PLANES},{H},{W}] relief, {ws_log['K10'].passes} passes",
+                  K11=f"[{REFINE_PLANES},{H},{W}] relief, {ws_log['K11'].passes} passes")
     for k in ("K7", "K10", "K11"):
         lib = f", {library_note[k]} {library_ms[k]:.3f} ms" if k in library_ms else ""
         log(f"phase 5 times [{card}]: {k} kernel {ms[k]:.3f} ms, plain "
             f"{plain_ms[k]:.3f} ms{lib} at {shapes[k]}")
+    for k, kernel in (("K10", "cost_pass"), ("K11", "label_pass")):
+        traced = kernel_split(ws_fn[k], (("passes", (kernel,)),))["passes"]
+        wl = ws_log[k]
+        log(f"phase 5 times [{card}]: {k} loop: {wl.passes} passes ({wl.launches} launched), "
+            f"{wl.syncs} host syncs, {traced:.3f} ms of device time in its passes "
+            f"(torch.profiler); tiles run a pass {list(wl.tiles)} (of "
+            f"{REFINE_PLANES * (H // 32) * (W // 32)})")
 
     def plain_refine(x):
         """refine_plane_device through the plain versions on x's device."""
@@ -1211,10 +1377,11 @@ def main() -> int:
     torch.cuda.synchronize()
     refine_s = time.perf_counter() - t0
     refine_launches = read_counts()
-    passes = watershed_cuda.last_passes
+    logs = watershed_cuda.last_logs
     log(f"phase 8 refine path: refine_boundaries_stack over [{REFINE_PLANES},{H},{W}]: "
-        f"{refine_s:.2f} s wall [{card}]; watershed passes: phase 1 {passes[0]}, "
-        f"phase 2 {passes[1]}; kernel launches {refine_launches}")
+        f"{refine_s:.2f} s wall [{card}]; watershed passes (launched, host syncs): phase 1 "
+        f"{logs[0].passes} ({logs[0].launches}, {logs[0].syncs}), phase 2 {logs[1].passes} "
+        f"({logs[1].launches}, {logs[1].syncs}); kernel launches {refine_launches}")
     for k in ("K2", "K3", "K7", "K9", "K10", "K11"):
         if refine_launches[k] <= 0:
             raise AssertionError(f"{k} was never launched on the refine path")
@@ -1252,8 +1419,12 @@ def main() -> int:
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded[:5]}")
+    # bytes a pixel: inputs read, outputs written.  K10 is a whole phase 1:
+    # img 4 + flags 1 in, cost 4 out; K11 a whole phase 2: cost 4 + img 4 +
+    # flags 1 + markers 4 in, labels 4 out (each phase builds its starting
+    # state on the card, so no starting plane is read)
     n_px = {"K1": 2, "K2": 5, "K3": 8, "K4": 5, "K5": 5, "K6": 8, "K7": 4, "K8": 2,
-            "K9": 5, "K10": 13, "K11": 17}  # bytes a pixel: inputs read, outputs written
+            "K9": 5, "K10": 9, "K11": 17}
     planes_of = {"K1": BATCH, "K2": BATCH, "K3": BATCH, "K4": BATCH, "K5": 8, "K6": 1,
                  "K7": REFINE_PLANES, "K8": 8, "K9": 16, "K10": REFINE_PLANES,
                  "K11": REFINE_PLANES}

@@ -44,8 +44,8 @@ _SIGNATURES = {
     "pcis_edt_sq": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     "pcis_particle_fill": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "pcis_centroid_sums": (_I, [_P, _P, _I, _I, _I, _I, _P]),
-    "pcis_watershed_cost": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "pcis_watershed_label": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "pcis_watershed_cost": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    "pcis_watershed_label": (_I, [_P] * 10 + [_I] * 5 + [_P]),
     "pcis_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -3,17 +3,24 @@ them.
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/watershed_tiles.py``
 (``watershed_sweeps`` and its ``_cost_kernel`` / ``_label_kernel`` band
-sweeps).  ``csrc/watershed.cu`` relaxes 32×32 tiles with a one-pixel halo in
-shared memory; the host repeats a phase's pass until no plane changed, then
-runs the other phase the same way.  Both phases have a unique fixpoint, so
-the labels equal the plain ``ops.watershed.watershed`` exactly wherever both
-report ``converged``.
+sweeps with their ``_need`` band skipping).  ``csrc/watershed.cu`` relaxes
+32×32 tiles with a one-pixel halo in shared memory.  The pass loop stays on
+the card: the host enqueues a phase's passes in chunks (8, 16, 32, … passes,
+never past ``max_iters``) and syncs once a chunk to read the per-pass,
+per-plane change flags.  Pass 1 runs every tile; a later pass runs, from a
+worklist the pass before built, only the live tiles (those with a pixel
+that can change) whose 3×3-tile neighbourhood changed in the pass before,
+so a plane that changed nothing runs no tile again and the passes enqueued
+past the fixpoint cost one idle wave each.  Both phases have a unique
+fixpoint, so the labels equal the plain ``ops.watershed.watershed`` exactly
+wherever both report ``converged``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from particle_col_image_segmentation_tpu_torch import _kernels
@@ -21,25 +28,48 @@ from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import as_planes
 
 __all__ = [
     "watershed_cuda", "minimax_costs_cuda", "claim_labels_cuda",
-    "watershed_cost_pass_cuda", "watershed_label_pass_cuda",
+    "watershed_cost_pass_cuda", "watershed_label_pass_cuda", "passes_from_history",
+    "PhaseLog",
 ]
 
 _INF = 3.4e38  # rounds to the float32 the kernels write as 3.4e38f
 _BIG_LAB = torch.iinfo(torch.int32).max
-_MASK_BIT = 1
-_SEED_BIT = 2
+_TILE = 32  # csrc/watershed.cu kTile
+_FIRST_CHUNK = 8
+_MAX_CHUNK = 64
 
 
-def watershed_cost_pass_cuda(img, flags, cost, changed, connectivity: int) -> None:
-    """K10: one phase-1 pass over [B, H, W] planes, ``cost`` relaxed in
-    place; ``changed[b]`` set to 1 for each plane b that changed (the caller
-    zeroes it first)."""
+class PhaseLog(NamedTuple):
+    """What one phase's loop did: ``passes`` as ``_run`` counts them (the
+    last is the first that changed no plane, or ``max_iters``), ``launches``
+    (passes enqueued, the chunks' tails past the fixpoint included),
+    ``syncs`` (host syncs, one a chunk) and ``tiles`` (the tiles each
+    launched pass ran, summed over planes; a plane has
+    ceil(H/32)·ceil(W/32))."""
+
+    passes: int
+    launches: int
+    syncs: int
+    tiles: tuple
+
+
+def watershed_cost_pass_cuda(img, flags, cost, prev_row, row, tiles, pass_no: int,
+                             connectivity: int) -> None:
+    """K10: pass ``pass_no`` (1, 2, …) of phase 1 over [B, H, W] planes,
+    ``cost`` relaxed in place; pass 1 writes the starting costs itself.
+    ``prev_row`` / ``row`` are the previous and this pass's int32 rows of
+    the history, B + 3 each, ``row`` zeroed by the caller: changed[b] = 1
+    where plane b changed, then the tiles run, the length of the next
+    pass's tile list and the count of this pass's list entries claimed.  ``tiles`` is the phase's int32
+    scratch, 4 a 32×32 tile (two tile lists, stamps that the caller zeroes
+    before pass 1, live bits)."""
     B, H, W = as_planes("watershed_cost_pass_cuda", cost)
     lib = _kernels.library()
     with torch.cuda.device(cost.device):
         err = lib.pcis_watershed_cost(
-            img.data_ptr(), flags.data_ptr(), cost.data_ptr(), changed.data_ptr(),
-            B, H, W, connectivity, _kernels.stream_of(cost),
+            img.data_ptr(), flags.data_ptr(), cost.data_ptr(), prev_row.data_ptr(),
+            row.data_ptr(), tiles.data_ptr(), pass_no, B, H, W, connectivity,
+            _kernels.stream_of(cost),
         )
     _kernels.check(err, "watershed_cost_pass_cuda")
     watershed_cost_pass_cuda.launches += 1
@@ -48,17 +78,20 @@ def watershed_cost_pass_cuda(img, flags, cost, changed, connectivity: int) -> No
 watershed_cost_pass_cuda.launches = 0
 
 
-def watershed_label_pass_cuda(cost, img, flags, lab, dist, eimg, changed,
-                              connectivity: int) -> None:
-    """K11: one phase-2 pass, (``lab``, ``dist``, ``eimg``) relaxed in place
-    against the converged ``cost``; ``changed`` as for K10."""
+def watershed_label_pass_cuda(cost, img, flags, markers, lab, dist, eimg, prev_row, row,
+                              tiles, pass_no: int, connectivity: int) -> None:
+    """K11: pass ``pass_no`` of phase 2, (``lab``, ``dist``, ``eimg``)
+    relaxed in place against the converged ``cost``; pass 1 writes the
+    starting state from ``flags`` and the int32 ``markers``.  Rows and
+    scratch as for K10."""
     B, H, W = as_planes("watershed_label_pass_cuda", lab)
     lib = _kernels.library()
     with torch.cuda.device(lab.device):
         err = lib.pcis_watershed_label(
-            cost.data_ptr(), img.data_ptr(), flags.data_ptr(), lab.data_ptr(),
-            dist.data_ptr(), eimg.data_ptr(), changed.data_ptr(), B, H, W,
-            connectivity, _kernels.stream_of(lab),
+            cost.data_ptr(), img.data_ptr(), flags.data_ptr(), markers.data_ptr(),
+            lab.data_ptr(), dist.data_ptr(), eimg.data_ptr(), prev_row.data_ptr(),
+            row.data_ptr(), tiles.data_ptr(), pass_no, B, H, W, connectivity,
+            _kernels.stream_of(lab),
         )
     _kernels.check(err, "watershed_label_pass_cuda")
     watershed_label_pass_cuda.launches += 1
@@ -67,59 +100,96 @@ def watershed_label_pass_cuda(cost, img, flags, lab, dist, eimg, changed,
 watershed_label_pass_cuda.launches = 0
 
 
-def _run(pass_fn, changed: torch.Tensor, max_iters: int) -> int:
-    """Repeat ``pass_fn`` until a pass changes no plane or ``max_iters``
-    passes ran; returns the pass count and leaves ``changed`` holding the
-    last pass's per-plane flags."""
+def passes_from_history(changed, max_iters: int):
+    """(passes, per-plane bool converged) from the per-pass change flags
+    ``changed`` [passes run, B] of a phase, or None while undecided.
+
+    A phase stops after the first pass that changed no plane, or after
+    ``max_iters`` passes; a plane has converged when it changed nothing in
+    that last pass.  Passes run past the stop (a chunk's tail, in which
+    every plane is idle) do not count."""
+    changed = np.asarray(changed) != 0
+    idle = np.flatnonzero(~changed.any(axis=1))
+    if idle.size:
+        passes = int(idle[0]) + 1
+    elif changed.shape[0] >= max_iters:
+        passes = max_iters
+    else:
+        return None
+    return passes, ~changed[passes - 1]
+
+
+def _run(pass_fn, B: int, H: int, W: int, device, max_iters: int):
+    """Enqueue passes ``pass_fn(prev_row, row, tiles, pass_no)`` in chunks
+    of 8, 16, 32, … (at most 64, never past ``max_iters``), reading the
+    chunk's rows once at its end, until ``passes_from_history`` decides.
+    Returns (per-plane bool converged on ``device``, PhaseLog)."""
     if max_iters < 1:
         raise ValueError(f"watershed: max_iters must be >= 1, got {max_iters}")
-    passes = 0
-    while passes < max_iters:
-        changed.zero_()
-        pass_fn()
-        passes += 1
-        if not bool(changed.any()):
-            break
-    return passes
+    n_tiles = B * -(-H // _TILE) * -(-W // _TILE)
+    tiles = torch.empty(4 * n_tiles, dtype=torch.int32, device=device)
+    tiles[2 * n_tiles:3 * n_tiles] = 0  # stamps
+    last = torch.zeros(B + 3, dtype=torch.int32, device=device)  # "pass 0"
+    history, tiles_run, syncs, done, chunk = [], [], 0, 0, _FIRST_CHUNK
+    while True:
+        n = min(chunk, max_iters - done)
+        rows = torch.zeros((n + 1, B + 3), dtype=torch.int32, device=device)
+        rows[0] = last
+        for j in range(n):
+            pass_fn(rows[j], rows[j + 1], tiles, done + j + 1)
+        host = rows[1:].cpu().numpy()  # the chunk's one host sync
+        syncs += 1
+        history.append(host[:, :B])
+        tiles_run.extend(host[:, B].tolist())
+        done += n
+        decided = passes_from_history(np.concatenate(history), max_iters)
+        if decided is not None:
+            passes, converged = decided
+            return (torch.from_numpy(converged).to(device),
+                    PhaseLog(passes, done, syncs, tuple(tiles_run)))
+        last = rows[n]
+        chunk = min(2 * chunk, _MAX_CHUNK)
 
 
 def _flags(m: torch.Tensor, seeded: torch.Tensor) -> torch.Tensor:
-    return (m.to(torch.uint8) * _MASK_BIT + seeded.to(torch.uint8) * _SEED_BIT).contiguous()
+    """uint8 flags of the kernels: bit 0 in the mask, bit 1 a seed."""
+    return m.view(torch.uint8) | (seeded.view(torch.uint8) << 1)
 
 
 def minimax_costs_cuda(img, m, seeded, connectivity: int = 1, max_iters: int = 1024):
     """Phase 1 on K10, for CUDA [B, H, W] float32 ``img`` and bool ``m`` and
-    ``seeded``: (cost, per-plane bool still changing, passes).  The costs
+    ``seeded``: (cost, per-plane bool still changing, PhaseLog).  The costs
     equal ``ops.watershed.minimax_costs``'s wherever both converge."""
     img = img.contiguous()
-    flags = _flags(m, seeded)
+    flags = _flags(m.contiguous(), seeded.contiguous())
     _kernels.require_cuda("minimax_costs_cuda", img, flags)
-    inf = torch.tensor(_INF, dtype=torch.float32, device=img.device)
-    cost = torch.where(seeded, img, inf).contiguous()
-    changed = torch.zeros(img.shape[0], dtype=torch.int32, device=img.device)
-    passes = _run(lambda: watershed_cost_pass_cuda(img, flags, cost, changed, connectivity),
-                  changed, max_iters)
-    return cost, changed != 0, passes
+    B, H, W = img.shape
+    cost = torch.empty_like(img)  # the first pass writes every pixel
+    converged, log = _run(
+        lambda *state: watershed_cost_pass_cuda(img, flags, cost, *state, connectivity),
+        B, H, W, img.device, max_iters)
+    return cost, ~converged, log
 
 
 def claim_labels_cuda(cost, img, lab0, m, seeded, connectivity: int = 1,
                       max_iters: int = 1024):
     """Phase 2 on K11 against a converged ``cost``: (labels, per-plane bool
-    still changing, passes), as ``ops.watershed.claim_labels``."""
+    still changing, PhaseLog), as ``ops.watershed.claim_labels``."""
     img = img.contiguous()
-    flags = _flags(m, seeded)
-    _kernels.require_cuda("claim_labels_cuda", cost, img, flags)
-    inf = torch.tensor(_INF, dtype=torch.float32, device=img.device)
-    big = torch.full(img.shape, _BIG_LAB, dtype=torch.int32, device=img.device)
-    lab = torch.where(seeded, lab0, big).contiguous()
-    dist = torch.where(seeded, 0, big).contiguous()
-    eimg = torch.where(seeded, -inf, inf).contiguous()
-    changed = torch.zeros(img.shape[0], dtype=torch.int32, device=img.device)
-    passes = _run(lambda: watershed_label_pass_cuda(cost, img, flags, lab, dist, eimg,
-                                                    changed, connectivity),
-                  changed, max_iters)
-    reached = m & (cost < inf) & (lab != _BIG_LAB)
-    return torch.where(reached, lab, 0), changed != 0, passes
+    markers = lab0.to(torch.int32).contiguous()
+    flags = _flags(m.contiguous(), seeded.contiguous())
+    _kernels.require_cuda("claim_labels_cuda", cost, img, flags, markers)
+    B, H, W = img.shape
+    # the first pass writes every pixel's starting state
+    lab = torch.empty(img.shape, dtype=torch.int32, device=img.device)
+    dist = torch.empty_like(lab)
+    eimg = torch.empty_like(img)
+    converged, log = _run(
+        lambda *state: watershed_label_pass_cuda(cost, img, flags, markers, lab, dist, eimg,
+                                                 *state, connectivity),
+        B, H, W, img.device, max_iters)
+    reached = m & (cost < _INF) & (lab != _BIG_LAB)
+    return torch.where(reached, lab, 0), ~converged, log
 
 
 def watershed_cuda(
@@ -134,10 +204,11 @@ def watershed_cuda(
 
     Same arguments and result as ``ops.watershed.watershed``, except that
     ``max_iters`` bounds the passes of each phase (one pass relaxes every
-    32×32 tile to its local fixpoint).  A plane still changing when a
-    phase's budget runs out reports ``converged`` False; phase 2 starts once
-    phase 1 has stopped on every plane.  The pass counts of the last call
-    are kept in ``watershed_cuda.last_passes`` as (phase 1, phase 2)."""
+    32×32 tile that may change to its local fixpoint).  A plane still
+    changing when a phase's budget runs out reports ``converged`` False;
+    phase 2 starts once phase 1 has stopped on every plane.  The pass counts
+    of the last call are kept in ``watershed_cuda.last_passes`` as (phase 1,
+    phase 2), and each phase's PhaseLog in ``watershed_cuda.last_logs``."""
     if connectivity not in (1, 2):
         raise ValueError(f"watershed_cuda: connectivity must be 1 or 2, got {connectivity}")
     for t in (markers, mask):
@@ -151,9 +222,11 @@ def watershed_cuda(
     m = (torch.ones_like(lab0, dtype=torch.bool) if mask is None
          else mask.to(torch.bool).reshape(B, H, W))
     seeded = (lab0 > 0) & m
-    cost, c_changed, p1 = minimax_costs_cuda(img, m, seeded, connectivity, max_iters)
-    out, l_changed, p2 = claim_labels_cuda(cost, img, lab0, m, seeded, connectivity, max_iters)
-    watershed_cuda.last_passes = (p1, p2)
+    cost, c_changed, log1 = minimax_costs_cuda(img, m, seeded, connectivity, max_iters)
+    out, l_changed, log2 = claim_labels_cuda(cost, img, lab0, m, seeded, connectivity,
+                                             max_iters)
+    watershed_cuda.last_passes = (log1.passes, log2.passes)
+    watershed_cuda.last_logs = (log1, log2)
     out = out.reshape(image.shape)
     if with_flag:
         return out, ~(c_changed | l_changed).reshape(image.shape[:-2])
@@ -161,3 +234,4 @@ def watershed_cuda(
 
 
 watershed_cuda.last_passes = (0, 0)
+watershed_cuda.last_logs = ()

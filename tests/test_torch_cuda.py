@@ -45,12 +45,24 @@ from particle_col_image_segmentation_tpu_torch.ops import (
     watershed_auto,
     watershed_cuda,
 )
+from particle_col_image_segmentation_tpu_torch.ops.watershed import claim_labels, minimax_costs
 from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
+    claim_labels_cuda,
+    minimax_costs_cuda,
     watershed_cost_pass_cuda,
     watershed_label_pass_cuda,
 )
 
-from chip_smoke import k3_inputs, k3_raw, k4_inputs, off16, scipy_min_index
+from chip_smoke import (
+    k3_inputs,
+    k3_raw,
+    k4_inputs,
+    off16,
+    scipy_min_index,
+    ws_budgets,
+    ws_corridor,
+    ws_mixed,
+)
 from fixtures import random_class_plane, synthetic_label_plane
 
 pytestmark = pytest.mark.cuda
@@ -436,17 +448,48 @@ def _relief_case(n, quantized, seed=0):
 @pytest.mark.parametrize("connectivity", [1, 2])
 @pytest.mark.parametrize("quantized", [False, True])
 def test_watershed_kernels(dev, quantized, connectivity):
+    """Each phase launches one kernel a pass it enqueues: the counted passes
+    and the idle tail of the last chunk (``PhaseLog.launches``), so the
+    launches are at least the passes; the host syncs once a chunk."""
     planes = [_relief_case(256, quantized, seed) for seed in (0, 1)]
     img, mk, mask = (torch.from_numpy(np.stack(t)).to(dev) for t in zip(*planes))
     k10, k11 = watershed_cost_pass_cuda.launches, watershed_label_pass_cuda.launches
     got, gconv = watershed_cuda(img, mk, mask, connectivity=connectivity, with_flag=True)
-    p1, p2 = watershed_cuda.last_passes
-    assert watershed_cost_pass_cuda.launches == k10 + p1 >= k10 + 1
-    assert watershed_label_pass_cuda.launches == k11 + p2 >= k11 + 1
+    log1, log2 = watershed_cuda.last_logs
+    assert watershed_cuda.last_passes == (log1.passes, log2.passes)
+    assert watershed_cost_pass_cuda.launches == k10 + log1.launches
+    assert watershed_label_pass_cuda.launches == k11 + log2.launches
+    for log in (log1, log2):
+        assert log.launches >= log.passes >= 1 and len(log.tiles) == log.launches
+        assert 1 <= log.syncs <= -(-log.launches // 4)  # one a chunk of >= 4 passes
     want, wconv = watershed(img, mk, mask, connectivity=connectivity, with_flag=True)
     assert gconv.all() and wconv.all()
     _equal([got], [want])
     _equal([watershed_auto(img, mk, mask, connectivity=connectivity)], [want])
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("case", ["corridor", "mixed"])
+def test_watershed_kernels_corridor_mixed_passes_and_budgets(dev, case, connectivity):
+    """The serpentine corridor (tiles go quiet and wake again) and a batch
+    whose planes need a few and many passes (the per-plane early exit):
+    each phase equal to plain, then the budgets 1, 2, need − 1 and need."""
+    arrays = ws_mixed() if case == "mixed" else [a[None] for a in ws_corridor()]
+    img, mk, mask = (torch.from_numpy(a).to(dev) for a in arrays)
+    seeded = (mk > 0) & mask
+    cost_k, busy_k, log1 = minimax_costs_cuda(img, mask, seeded, connectivity)
+    cost_p, busy_p = minimax_costs(img, mask, seeded, connectivity, max_iters=1 << 14)
+    assert not busy_k.any() and not busy_p.any() and log1.passes > 12
+    _equal([cost_k], [cost_p])
+    lab_k, busy_k, log2 = claim_labels_cuda(cost_k, img, mk, mask, seeded, connectivity)
+    lab_p, busy_p = claim_labels(cost_p, img, mk, mask, seeded, connectivity,
+                                 max_iters=1 << 14)
+    assert not busy_k.any() and not busy_p.any()
+    _equal([lab_k], [lab_p])
+    if case == "mixed":  # the seeded plane idles through most of the passes
+        assert min(log1.tiles[-4:]) <= log1.tiles[0] // 2
+    records = ws_budgets(img, mk, mask, connectivity, lab_p)
+    assert [b for b, *_ in records][:2] == [1, 2]
 
 
 def test_watershed_kernels_odd_shape_unreachable_mask_and_budget(dev):

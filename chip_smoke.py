@@ -41,7 +41,13 @@ nonzero and no result line is printed):
      16-byte boundary, B = 64) and both K4 wrappers on ``k4_inputs`` (one
      id over a 2048² plane at 255, every pixel its own id, ids < 0 and
      > R, R+1 = 40000, int32 sums that saturate, odd H*W, views off a
-     16-byte boundary);
+     16-byte boundary); K5 on ``k5_inputs`` (those, then runs meeting row
+     and plane ends at widths 1-130, B = 1 and 64, an id a pixel over
+     2048², ids sharing their low 12 bits); K8 on ``k8_inputs`` over both
+     routes (caps 0, 1, 2, 20, 32, 33, the largest one-kernel cap and the
+     one past it, particles at cap and cap + 1 from tile edges, dt2 > (cap + 1)²
+     with and without particles, no cell pixel, odd shapes, B = 1), each
+     cap's route checked;
   4. batch path — run_batch over 40 bench planes in batches of 32 (the last
      one short and padded), max_regions=16383: every plane converged, no
      overflow, particle_px equal to scipy's median count; plane 0's labels
@@ -52,7 +58,8 @@ nonzero and no result line is printed):
      their library yardsticks (one sorted torch.unique with inverse, whose
      ids are checked against K3's once; two torch.bincount) and K3's
      torch.profiler split (bits / scan / ranks); K5 and K8 at [8,2048,2048]
-     (R+1 = 16385, cap 20) and at [1,2048,2048],
+     (R+1 = 16385, cap 20) and at [1,2048,2048], by CUDA events and by
+     their device time a call under torch.profiler,
      K9 at [16,2048,2048] (cap 2, the merge contexts), K6 at [2048,2048];
      K2 on its three callers' inputs — [32,2048,2048] uint8 den,
      [16,2048,2048] uint8 merge contexts, [8,2048,2048] int32 EDT² — by
@@ -305,6 +312,85 @@ def k4_inputs(seed: int = 23):
            rng.integers(0, 256, odd_ids.shape).astype(np.uint8), 2000, True)
     yield ("views off 16 bytes [3,97,129] int32", odd_ids,
            rng.integers(-5000, 5000, odd_ids.shape).astype(np.int32), 2000, True)
+
+
+def k5_inputs(seed: int = 29):
+    """K5's edge inputs, in K4's form: ``k4_inputs`` (the hot bin at 2048²,
+    an id a pixel, dropped ids, R+1 = 40000, saturating int32 sums, odd H*W,
+    views off a 16-byte boundary), then runs that meet row and plane ends:
+    widths 1-130 (W % 16 != 0 mostly) of one id over the whole plane, of
+    row bands and of 4x3 blocks; B = 1 and B = 64; an id a pixel over a
+    2048² plane (every block's table overflows); ids that all share their
+    low 12 bits (long probe chains)."""
+    import numpy as np
+
+    yield from k4_inputs()
+    rng = np.random.default_rng(seed)
+    for w in (1, 2, 3, 5, 15, 16, 17, 31, 33, 63, 65, 127, 128, 129, 130):
+        shape = (2, 37, w)
+        yy, xx = np.mgrid[:37, :w]
+        vals = rng.integers(0, 256, shape).astype(np.uint8)
+        yield f"one id, width {w} [2,37,{w}]", np.full(shape, 3, np.int32), vals, 8, False
+        bands = np.broadcast_to((yy // 5 + 1).astype(np.int32), shape).copy()
+        bands[1, ::7] = 0
+        yield f"row bands, width {w} [2,37,{w}]", bands, vals, 16, False
+        blocks = np.ascontiguousarray(np.broadcast_to((yy // 4 * 40 + xx // 3).astype(np.int32), shape))
+        yield (f"4x3 blocks, width {w} [2,37,{w}] int32", blocks,
+               rng.integers(-(2**31), 2**31, shape, dtype=np.int64).astype(np.int32), 500, False)
+    one = (np.arange(97)[:, None] // 6 * 30 + np.arange(131)[None] // 9).astype(np.int32)[None]
+    yield "B = 1 [1,97,131]", one, rng.integers(0, 256, one.shape).astype(np.uint8), 600, False
+    many = rng.integers(-1, 40, (64, 17, 19)).astype(np.int32)
+    many[::3] = 5
+    yield "B = 64 [64,17,19]", many, rng.integers(0, 256, many.shape).astype(np.uint8), 30, False
+    yield ("an id a pixel [1,2048,2048]", np.arange(2048 * 2048, dtype=np.int32).reshape(1, 2048, 2048),
+           rng.integers(0, 256, (1, 2048, 2048)).astype(np.uint8), 2048 * 2048, False)
+    chains = (4096 * rng.integers(0, 24, (2, 300, 301)) + 7).astype(np.int32)
+    yield ("ids 4096 k + 7 [2,300,301]", chains,
+           rng.integers(0, 256, chains.shape).astype(np.uint8), 4096 * 24, False)
+
+
+def k8_inputs(max_cap: int, seed: int = 31):
+    """K8's edge inputs (case, uint8 planes, (particle_val, sval, cap, dt2,
+    dr2)) for both routes, the one-kernel route up to ``max_cap``: caps 0,
+    1, 2, 20, 32 and 33 (the window's column halo grows by a word past 32),
+    ``max_cap`` and ``max_cap + 1`` on sparse particles among dense cells;
+    particle pixels at exactly cap and cap + 1 from a 64-row or 128-column
+    tile edge, on either side; dt2 > (cap + 1)² (every cell
+    fills) with and without particles; T = (cap + 1)² − 1; a plane with no
+    cell pixel; odd shapes and B = 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def scatter(shape, p_particle, p_cell):
+        u = rng.random(shape)
+        return np.where(u < p_particle, 2, np.where(u < p_particle + p_cell, 1, 3)).astype(np.uint8)
+
+    for cap in (0, 1, 2, 20, 32, 33, max_cap, max_cap + 1):
+        big = cap > 64
+        shape = (1, 700, 1400) if big else (2, 150, 300)
+        x = scatter(shape, 2e-5 if big else 2e-3, 0.5)
+        for dt2, dr2 in ((4, cap * cap), (0, (cap + 1) ** 2 - 1), ((cap + 1) ** 2 + 1, -1)):
+            yield f"cap {cap} scattered {list(shape)}", x, (2, 1, cap, dt2, dr2)
+        if not big:
+            none = np.where(x == 2, 3, x)
+            yield f"cap {cap} no particle {list(shape)}", none, (2, 1, cap, (cap + 1) ** 2 + 1, 0)
+            yield f"cap {cap} no particle {list(shape)}", none, (2, 1, cap, 4, cap * cap)
+    for cap in (1, 2, 20, 32):
+        for at in (cap, cap + 1):  # distance from the tile edge
+            x = np.ones((1, 200, 300), np.uint8)
+            x[0, 63 + at, 10] = x[0, 64 - at, 200] = 2  # rows: below / above the 64-row edge
+            x[0, 150, 127 + at] = x[0, 20, 128 - at] = 2  # columns: across the 128-column edge
+            for dt2, dr2 in ((0, cap * cap), (0, (cap + 1) ** 2 - 1), (1, 0)):
+                yield (f"particles {at} px from tile edges, cap {cap} [1,200,300]", x,
+                       (2, 1, cap, dt2, dr2))
+    x = scatter((3, 97, 130), 0.01, 0.0)
+    yield "no cell pixel [3,97,130]", x, (2, 1, 20, 4, 400)
+    yield "no cell pixel [3,97,130]", x, (2, 1, 20, 500, 400)
+    for shape in ((1, 1, 1), (1, 65, 129), (1, 3, 250), (1, 250, 3), (3, 97, 130)):
+        x = scatter(shape, 0.02, 0.5)
+        for params in ((2, 1, 20, 4, 400), (2, 1, 5, 9, 4), (4, 2, 2, 4, 4), (1, 1, 3, 4, 9)):
+            yield f"odd {list(shape)}", x, params
 
 
 def off16(x):
@@ -629,23 +715,35 @@ K3_PHASES = (("bits", ("compact_bits",)), ("scan", ("scan_tiles",)),
              ("ranks", ("compact_ranks",)))
 
 
+def traced_calls(fn, reps: int) -> list:
+    """``device_intervals`` of reps fn() calls under torch.profiler, after
+    one untraced call.  The profiler now and then hands back a short
+    window's trace with no device activity at all; such a trace is taken
+    again, three times at most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        intervals = device_intervals(prof)
+        if intervals:
+            break
+    return intervals
+
+
 def kernel_split(fn, phases, reps: int = 5) -> dict:
     """Device ms a call of each phase of a kernel (torch.profiler over reps
     calls of fn): phases are (name, substrings of its CUDA kernels' names),
     K2_PHASES — local (ccl_local), merge (ccl_merge_rows, ccl_merge_cols)
     and flatten (ccl_roots, ccl_flatten) — or K3_PHASES — bits
     (compact_bits), scan (scan_tiles) and ranks (compact_ranks)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     split = {phase: 0.0 for phase, _ in phases}
-    for s, e, name in device_intervals(prof):
+    for s, e, name in traced_calls(fn, reps):
         for phase, kernels in phases:
             if any(k in name for k in kernels):
                 split[phase] += (e - s) / (1e3 * reps)
@@ -668,6 +766,16 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Device time of one fn() call: the union of its device activity under
+    torch.profiler over reps calls (memsets included), without the host's
+    launch gaps that CUDA events around a fast call also hold."""
+    intervals = traced_calls(fn, reps)
+    if not intervals:
+        raise AssertionError("the trace holds no device activity")
+    return busy_us(intervals) / reps / 1e3
 
 
 def main() -> int:
@@ -720,6 +828,7 @@ def main() -> int:
         edt_sq_exact_auto,
         local_maxima,
         local_maxima_auto,
+        max_fused_cap,
         median_label_filter,
         median_label_filter_cuda,
         particle_fill_step,
@@ -899,6 +1008,21 @@ def main() -> int:
                 list(region_counts(st, vt, mr)))
         compare("K4", f"region_sums {case} max_regions={mr}", list(region_sums_cuda(st, vt, mr)),
                 list(region_sums(st, vt, mr)))
+    # K5's edge inputs (K4's, then runs meeting row and plane ends, B = 1 and
+    # 64, tables that overflow) and K8's on both of its routes
+    for case, seg_np, val_np, mr, shifted in k5_inputs():
+        st, vt = torch.from_numpy(seg_np).to(dev), torch.from_numpy(val_np).to(dev)
+        if shifted:
+            st, vt = off16(st), off16(vt)
+        table(case, st, vt, mr)
+    fused_cap = max_fused_cap()
+    routes = {}
+    for case, x_np, params in k8_inputs(fused_cap):
+        fill(case, torch.from_numpy(x_np).to(dev), *params)
+        routes[params[2]] = particle_fill_step_cuda.last_route
+    if any((route == "fused") != (c <= fused_cap) for c, route in routes.items()):
+        raise AssertionError(f"K8 took a route other than its cap's: {routes}")
+    log(f"phase 3 K8 routes by cap (one kernel up to cap {fused_cap}): {routes}")
     del xr, st, vt
 
     R1 = ANALYZE_REGIONS + 1
@@ -1167,11 +1291,16 @@ def main() -> int:
         log(f"phase 5 times [{card}]: {k} kernel {ms[k]:.3f} ms, plain "
             f"{plain_ms[k]:.3f} ms{lib} at {shapes[k]}")
     # K5 and K8 also run at B = 1 on the analyze path (a multi-channel
-    # folder's planes, one strain at a time): their time at that shape
+    # folder's planes, one strain at a time): their time at that shape, and
+    # at both shapes their device time a call by torch.profiler (a fast call's
+    # CUDA events also hold the host's launch gaps)
     seg1, den1 = seg8[:1].contiguous(), den8[:1].contiguous()
-    log(f"phase 5 times [{card}]: at [1,{H},{W}]: K5 kernel "
-        f"{time_ms(lambda: region_table_cuda(seg1, den1, ANALYZE_REGIONS), reps=10):.3f} ms, "
-        f"K8 kernel {time_ms(lambda: particle_fill_step_cuda(den1, *fill_args), reps=10):.3f} ms")
+    for b, (sg, dn) in ((8, (seg8, den8)), (1, (seg1, den1))):
+        k5 = (lambda: region_table_cuda(sg, dn, ANALYZE_REGIONS))
+        k8 = (lambda: particle_fill_step_cuda(dn, *fill_args))
+        log(f"phase 5 times [{card}]: at [{b},{H},{W}]: K5 kernel {time_ms(k5, reps=10):.4f} ms "
+            f"(device {device_ms(k5):.4f}), K8 kernel {time_ms(k8, reps=10):.4f} ms (device "
+            f"{device_ms(k8):.4f}, route {particle_fill_step_cuda.last_route})")
     del seg1, den1
     split = kernel_split(lambda: compact_labels_cuda(raw, MAX_REGIONS), K3_PHASES)
     log(f"phase 5 times [{card}]: K3 on raw [{BATCH},{H},{W}]: torch.profiler: "

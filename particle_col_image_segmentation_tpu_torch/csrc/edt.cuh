@@ -1,4 +1,5 @@
-// Capped squared EDT device code shared by K9 (edt.cu) and K8 (fill.cu).
+// Capped squared EDT device code shared by K9 (edt.cu) and K8 (fill.cu; only
+// its route for caps past its one-kernel route's, which needs no distance).
 //
 // The transform (the same function as ops/edt.py's plain edt_sq):
 //   dh(r, c) = min(distance to the nearest feature pixel in row r, cap+1)

@@ -15,19 +15,36 @@
 //           rows, where every other column is 0 too.
 // Ids outside [0, R1) are dropped.
 //
-// Bound on this card: shared-memory atomics on a plane's few hot regions
-// (the background region holds most pixels).  The TPU accumulated one-hot
-// int8 matmuls on the MXU, plus a second pass over the transposed plane for
-// the column extremes; here each block privatises the bins of one id range
-// for one plane chunk in dynamic shared memory (44 B a bin: an int64 value
-// sum and nine int32 columns), the lanes of a warp that share a bin are
-// grouped with __match_any_sync and reduce with __reduce_*_sync, so a
-// uniform warp costs one shared atomic per column, and the extremes come
-// straight from atomicMin/atomicMax: no transposed pass.  At R1 = 16385
-// the 9 columns do not fit one block, so the id range is tiled over
-// blockIdx.z (4 tiles of 4097 bins); a warp with no id in its block's tile
-// skips all of it after one ballot.
+// Bound on this card: memory, 5 B a pixel for uint8 values (8 for int32),
+// plus the table.  The TPU accumulated one-hot int8 matmuls on the MXU and
+// ran a second pass over the transposed plane for the column extremes.
+// Here, as in K4 (counts.cu), a thread takes 16 consecutive pixels and adds
+// a whole run to the table where the id changes, not a pixel:
+//   - a run lies in one row: it breaks where the id changes and at every row
+//     end (the 16-px groups are aligned in the batch's flat index, so a
+//     group crosses rows where W % 16 != 0, and planes where H*W % 16 != 0).
+//     A run over columns [c0, c0 + n) of row r adds area n, n*(r >> 7) and
+//     n*(r & 127), the column digits summed in registers, and the extremes
+//     r, c0, r + 1, c0 + n;
+//   - each thread's last run goes through one __match_any_sync group a warp,
+//     so a region's interior costs one table update a warp per 512 px;
+//   - each pixel's id and value are read from device memory once, whatever
+//     R1 is: a block keeps a 4096-slot open-addressing table in shared
+//     memory keyed by id (a chunk of a bench plane holds a few hundred ids;
+//     compact ids are near-contiguous, so id & 4095 rarely collides).  A run
+//     whose id finds no slot within 8 probes adds straight to the output
+//     table with device atomics, so the result is exact for any input, an
+//     id a pixel included.  The block then flushes its occupied slots;
+//   - extremes are kept so that zero means "none": INT_MAX - min and
+//     max + 1, combined by max.  So one memset clears the whole output, and
+//     empty rows already read (0, 0, 0, 0);
+//   - one wave: about one 1024-thread block an SM over (chunks, planes), so
+//     a single plane fills the card too;
+//   - three launches a call: the memset, the table, and `finalize`, which
+//     decodes the minima, divides the class and writes `valid`.
+// Every column sum wraps mod 2^32 like the int32 table it lands in.
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,165 +52,307 @@
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kMaxBins = 5120;               // 5120 * 44 B = 225,280 B
-constexpr int kIntCols = 9;                  // area, 4 digit sums, 4 extremes
-constexpr int kBinBytes = 8 + 4 * kIntCols;  // + the int64 value sum
-constexpr long long kChunk = 1ll << 18;      // pixels per block
+constexpr int kRun = 16;         // pixels a thread takes at a time
+constexpr int kSlots = 4096;     // shared hash-table slots a block (a power of 2)
+constexpr int kProbes = 8;       // slots tried before a run goes to device memory
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;  // devices whose set-up is cached
+
+// Shared columns, kSlots each: the slot's id + 1 (0 = empty), area, the four
+// digit sums, then the four extremes in their zero-based encoding.
+enum { kKey, kArea, kSrh, kSrl, kSch, kScl, kMinR, kMinC, kMaxR, kMaxC, kIntCols };
+constexpr size_t kSmem = (size_t)kSlots * (8 + 4 * kIntCols);  // + int64 value sums
+
+// The columns one run (or a warp's merged runs of one id) adds to a row.
+struct Add {
+  int area, srh, srl, sch, scl;
+  unsigned long long v;  // value sum, two's complement
+  int ext[4];            // INT_MAX - min r, INT_MAX - min c, max r + 1, max c + 1
+};
+
+// The output: int32 cols [6, n] (area, sr_hi, sr_lo, sc_hi, sc_lo, class),
+// int32 bbox [n, 4], int64 vsum [n], bool valid [n]; n = B * R1.
+struct Out {
+  int* cols;
+  int* bbox;
+  unsigned long long* vsum;
+  bool* valid;
+  long long n;
+  int R1;
+};
+
+__device__ __forceinline__ void add_cols(int* a, long long stride, int* ext, int ext_stride,
+                                         unsigned long long* v, const Add& x) {
+  atomicAdd(a, x.area);
+  atomicAdd(a + stride, x.srh);
+  atomicAdd(a + 2 * stride, x.srl);
+  atomicAdd(a + 3 * stride, x.sch);
+  atomicAdd(a + 4 * stride, x.scl);
+  atomicAdd(v, x.v);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) atomicMax(ext + k * ext_stride, x.ext[k]);
+}
+
+// Add x at id `key` of the block's plane: its shared slot if it has or can
+// claim one, else the output row itself.
+__device__ __forceinline__ void add_run(int* s, unsigned long long* sv, const Out& o,
+                                        long long row0, int key, const Add& x) {
+  volatile int* keys = s;
+  int h = key & (kSlots - 1);
+  for (int probe = 0; probe < kProbes; ++probe) {
+    int k = keys[h];
+    if (k == 0) k = atomicCAS(s + h, 0, key + 1);  // 0: claimed here
+    if (k == 0 || k == key + 1) {
+      add_cols(s + kArea * kSlots + h, kSlots, s + kMinR * kSlots + h, kSlots, sv + h, x);
+      return;
+    }
+    h = (h + 1) & (kSlots - 1);
+  }
+  const long long g = row0 + key;
+  add_cols(o.cols + g, o.n, o.bbox + 4 * g, 1, o.vsum + g, x);
+}
+
+// The run of 16 px at flat index g (g % 16 == 0): ids, and values as 32-bit
+// words (four bytes a word for uint8, one value a word for int32).  Pixels
+// past the batch read id -1.  (K4's loader, counts.cu.)
+template <typename V>
+__device__ __forceinline__ void load_run(const int* __restrict__ seg, const V* __restrict__ val,
+                                         long long g, long long n, bool vec, int (&id)[kRun],
+                                         unsigned (&vw)[kRun * sizeof(V) / 4]) {
+  if (vec && g + kRun <= n) {
+    const int4* s4 = reinterpret_cast<const int4*>(seg + g);
+    const uint4* v4 = reinterpret_cast<const uint4*>(val + g);
+#pragma unroll
+    for (int i = 0; i < kRun / 4; ++i) {
+      const int4 a = __ldg(s4 + i);
+      id[4 * i] = a.x;
+      id[4 * i + 1] = a.y;
+      id[4 * i + 2] = a.z;
+      id[4 * i + 3] = a.w;
+    }
+#pragma unroll
+    for (int i = 0; i < kRun * (int)sizeof(V) / 16; ++i) {
+      const uint4 b = __ldg(v4 + i);
+      vw[4 * i] = b.x;
+      vw[4 * i + 1] = b.y;
+      vw[4 * i + 2] = b.z;
+      vw[4 * i + 3] = b.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) id[k] = g + k < n ? seg[g + k] : -1;
+  if constexpr (sizeof(V) == 1) {
+#pragma unroll
+    for (int i = 0; i < kRun / 4; ++i) {
+      unsigned w = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (g + 4 * i + k < n) w |= (unsigned)val[g + 4 * i + k] << (8 * k);
+      vw[i] = w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) vw[k] = g + k < n ? (unsigned)val[g + k] : 0u;
+  }
+}
 
 template <typename V>
-__global__ void table_kernel(const int* __restrict__ seg, const V* __restrict__ val,
-                             int* __restrict__ cols, int* __restrict__ ext,
-                             unsigned long long* __restrict__ vsum, int W,
-                             long long plane, long long n, int R1, int nbins) {
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* s_val = smem;
-  int* s = (int*)(smem + nbins);  // column k of bin i at s[k * nbins + i]
-  const int r0 = blockIdx.z * nbins;
-  const int nb = min(nbins, R1 - r0);
-  for (int i = threadIdx.x; i < nb; i += kThreads) {
-    s_val[i] = 0;
-#pragma unroll
-    for (int k = 0; k < 5; ++k) s[k * nbins + i] = 0;
-    s[5 * nbins + i] = INT_MAX;  // min r
-    s[6 * nbins + i] = INT_MAX;  // min c
-    s[7 * nbins + i] = -1;       // max r
-    s[8 * nbins + i] = -1;       // max c
-  }
+__device__ __forceinline__ long long value_at(const unsigned (&vw)[kRun * sizeof(V) / 4], int k) {
+  if constexpr (sizeof(V) == 1) return (vw[k >> 2] >> (8 * (k & 3))) & 0xff;
+  else return (long long)(int)vw[k];
+}
+
+// The current run of a thread: id (-1: none this launch counts), its row,
+// first column, length, column digit sums and value sum.
+struct Run {
+  int key, r, c0, n, sch, scl;
+  long long v;
+};
+
+__device__ __forceinline__ Add run_cols(const Run& u) {
+  Add x;
+  x.area = u.n;
+  x.srh = u.n * (u.r >> 7);
+  x.srl = u.n * (u.r & 127);
+  x.sch = u.sch;
+  x.scl = u.scl;
+  x.v = (unsigned long long)u.v;
+  x.ext[0] = INT_MAX - u.r;
+  x.ext[1] = INT_MAX - u.c0;
+  x.ext[2] = u.r + 1;
+  x.ext[3] = u.c0 + u.n;
+  return x;
+}
+
+// grid (chunks a plane, planes); block (x, b) takes flat pixels [lo, hi) of
+// plane b
+template <typename V>
+__global__ void __launch_bounds__(kThreads, 1) table_kernel(
+    const int* __restrict__ seg, const V* __restrict__ val, Out o, int W, long long plane,
+    long long chunk, bool vec) {
+  extern __shared__ __align__(16) unsigned long long smem[];
+  unsigned long long* sv = smem;  // value sums, then the int columns
+  int* s = reinterpret_cast<int*>(smem + kSlots);
+  uint4* all = reinterpret_cast<uint4*>(smem);
+  for (int i = threadIdx.x; i < (int)(kSmem / 16); i += kThreads) all[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
   const long long off = blockIdx.y * plane;
-  const long long start = blockIdx.x * kChunk;
-  const long long end = start + kChunk < plane ? start + kChunk : plane;
+  const long long lo = off + blockIdx.x * chunk;
+  const long long hi = off + ((blockIdx.x + 1) * chunk < plane ? (blockIdx.x + 1) * chunk : plane);
+  const long long n_all = (long long)gridDim.y * plane;
+  const long long G0 = lo / kRun, G1 = (hi + kRun - 1) / kRun;
+  const long long row0 = (long long)blockIdx.y * o.R1;
   const int lane = threadIdx.x & 31;
   // every thread of the block runs the same number of rounds, so whole
   // warps reach the warp intrinsics together
-  for (long long base = start; base < end; base += kThreads) {
-    const long long p = base + threadIdx.x;
-    int key = -1, r = 0, c = 0;  // key -1: no bin of this block
-    long long v = 0;
-    if (p < end) {
-      const int id = seg[off + p];
-      if (id >= r0 && id < r0 + nb) {
-        key = id - r0;
-        v = (long long)val[off + p];
-        r = (int)(p / W);
-        c = (int)(p - (long long)r * W);
+  for (long long base = G0; base < G1; base += kThreads) {
+    const long long G = base + threadIdx.x;
+    Run u{-1, 0, 0, 0, 0, 0, 0};
+    if (G < G1) {
+      int id[kRun];
+      unsigned vw[kRun * sizeof(V) / 4];
+      load_run<V>(seg, val, G * kRun, n_all, vec, id, vw);
+      // (r, c) of the group's first pixel in plane b, by floor division: a
+      // group that starts in the plane before has r < 0 there
+      const int p0 = (int)(G * kRun - off);  // in (-16, plane)
+      int r = p0 >= 0 ? (int)((unsigned)p0 / (unsigned)W)
+                      : -1 - (int)((unsigned)(-p0 - 1) / (unsigned)W);
+      int c = p0 - r * W;
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        const long long p = G * kRun + k;
+        const int kk = p >= lo && p < hi && id[k] >= 0 && id[k] < o.R1 ? id[k] : -1;
+        const long long v = value_at<V>(vw, k);
+        if (kk == u.key && c != 0) {  // same id, same row
+          ++u.n;
+          u.v += v;
+          u.sch += c >> 7;
+          u.scl += c & 127;
+        } else {
+          if (u.key >= 0) add_run(s, sv, o, row0, u.key, run_cols(u));
+          u = Run{kk, r, c, 1, c >> 7, c & 127, v};
+        }
+        if (++c == W) {
+          c = 0;
+          ++r;
+        }
       }
     }
-    if (!__ballot_sync(0xffffffffu, key >= 0)) continue;
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    const int srh = __reduce_add_sync(peers, r >> 7);
-    const int srl = __reduce_add_sync(peers, r & 127);
-    const int sch = __reduce_add_sync(peers, c >> 7);
-    const int scl = __reduce_add_sync(peers, c & 127);
-    // 16-bit value digits, so that 32-lane sums of int32 values fit an int
-    const int vlo = __reduce_add_sync(peers, (int)(v & 0xffff));
-    const int vhi = __reduce_add_sync(peers, (int)(v >> 16));
-    const int mnr = __reduce_min_sync(peers, r);
-    const int mnc = __reduce_min_sync(peers, c);
-    const int mxr = __reduce_max_sync(peers, r);
-    const int mxc = __reduce_max_sync(peers, c);
-    if (key >= 0 && lane == __ffs(peers) - 1) {
-      atomicAdd(&s[key], __popc(peers));
-      atomicAdd(&s[nbins + key], srh);
-      atomicAdd(&s[2 * nbins + key], srl);
-      atomicAdd(&s[3 * nbins + key], sch);
-      atomicAdd(&s[4 * nbins + key], scl);
-      atomicAdd(&s_val[key], (unsigned long long)((long long)vhi * 65536 + vlo));
-      atomicMin(&s[5 * nbins + key], mnr);
-      atomicMin(&s[6 * nbins + key], mnc);
-      atomicMax(&s[7 * nbins + key], mxr);
-      atomicMax(&s[8 * nbins + key], mxc);
+    // the last run: lanes with the same id add once, through their lowest lane
+    const unsigned peers = __match_any_sync(kFull, u.key);
+    const Add mine = run_cols(u);
+    Add x;
+    x.area = __reduce_add_sync(peers, mine.area);
+    x.srh = __reduce_add_sync(peers, mine.srh);
+    x.srl = __reduce_add_sync(peers, mine.srl);
+    x.sch = __reduce_add_sync(peers, mine.sch);
+    x.scl = __reduce_add_sync(peers, mine.scl);
+    if constexpr (sizeof(V) == 1) {
+      x.v = __reduce_add_sync(peers, (unsigned)u.v);  // <= 32 * 16 * 255
+    } else {  // |sum| < 2^35: 24-bit low digits and the signed rest, each fits 32 lanes
+      const unsigned lo24 = __reduce_add_sync(peers, (unsigned)(u.v & 0xffffff));
+      const int hi = __reduce_add_sync(peers, (int)(u.v >> 24));
+      x.v = (unsigned long long)((long long)hi * (1ll << 24) + lo24);
     }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x.ext[k] = __reduce_max_sync(peers, mine.ext[k]);
+    if (u.key >= 0 && lane == __ffs(peers) - 1) add_run(s, sv, o, row0, u.key, x);
   }
   __syncthreads();
-  const long long row = (long long)blockIdx.y * R1 + r0;
-  for (int i = threadIdx.x; i < nb; i += kThreads) {
-    if (!s[i]) continue;
-    const long long g = row + i;
+  for (int i = threadIdx.x; i < kSlots; i += kThreads) {
+    const int key = s[i];
+    if (!key) continue;
+    Add x;
+    x.area = s[kArea * kSlots + i];
+    x.srh = s[kSrh * kSlots + i];
+    x.srl = s[kSrl * kSlots + i];
+    x.sch = s[kSch * kSlots + i];
+    x.scl = s[kScl * kSlots + i];
+    x.v = sv[i];
 #pragma unroll
-    for (int k = 0; k < 5; ++k) atomicAdd(&cols[k * n + g], s[k * nbins + i]);
-    atomicAdd(&vsum[g], s_val[i]);
-    atomicMin(&ext[4 * g], s[5 * nbins + i]);
-    atomicMin(&ext[4 * g + 1], s[6 * nbins + i]);
-    atomicMax(&ext[4 * g + 2], s[7 * nbins + i]);
-    atomicMax(&ext[4 * g + 3], s[8 * nbins + i]);
+    for (int k = 0; k < 4; ++k) x.ext[k] = s[(kMinR + k) * kSlots + i];
+    const long long g = row0 + key - 1;
+    add_cols(o.cols + g, o.n, o.bbox + 4 * g, 1, o.vsum + g, x);
   }
 }
 
-__global__ void init_extremes(int* ext, long long n) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  ext[4 * g] = INT_MAX;
-  ext[4 * g + 1] = INT_MAX;
-  ext[4 * g + 2] = -1;
-  ext[4 * g + 3] = -1;
-}
-
-// class = floor(clamped sum / max(area, 1)); bbox half-open, zeros if empty
-__global__ void finalize(int* cols, int* ext, const unsigned long long* vsum,
-                         long long n) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const int a = cols[g];
-  long long sum = (long long)vsum[g];
+// class = floor(clamped sum / max(area, 1)); the minima decoded; valid.
+// Empty rows hold zeros already.  grid (ceil(R1 / 256), B)
+__global__ void finalize(Out o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= o.R1) return;
+  const long long g = (long long)blockIdx.y * o.R1 + i;
+  const int a = o.cols[g];
+  long long sum = (long long)o.vsum[g];
   sum = sum > INT_MAX ? INT_MAX : (sum < INT_MIN ? INT_MIN : sum);
   const long long d = a > 1 ? a : 1;
   long long q = sum / d;
   if (q * d != sum && sum < 0) --q;  // floor, as torch's floor division
-  cols[5 * n + g] = (int)q;
-  if (a == 0) {
-    ext[4 * g] = ext[4 * g + 1] = ext[4 * g + 2] = ext[4 * g + 3] = 0;
-  } else {
-    ext[4 * g + 2] += 1;
-    ext[4 * g + 3] += 1;
+  o.cols[5 * o.n + g] = (int)q;
+  if (a) {
+    o.bbox[4 * g] = INT_MAX - o.bbox[4 * g];
+    o.bbox[4 * g + 1] = INT_MAX - o.bbox[4 * g + 1];
   }
+  o.valid[g] = a > 0 && i > 0;
+}
+
+// The card's SM count, and the table kernel's shared-memory attribute set,
+// once a process for each device.
+template <typename V>
+cudaError_t sms_of(int* sms) {
+  static std::atomic<int> cached[kMaxDevices];  // 0: not yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && (*sms = cached[dev].load()) > 0) return cudaSuccess;
+  e = cudaFuncSetAttribute(table_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kSmem);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices) cached[dev].store(*sms);
+  return cudaSuccess;
 }
 
 template <typename V>
-int launch(const int* seg, const V* val, int* cols, int* ext,
-           unsigned long long* vsum, int B, int W, long long plane, int R1,
+int launch(const int* seg, const V* val, const Out& o, int B, int W, long long plane,
            cudaStream_t s) {
-  const long long n = (long long)B * R1;
-  cudaError_t e = cudaMemsetAsync(cols, 0, sizeof(int) * 5 * (size_t)n, s);
+  // one memset clears cols (class included), bbox and vsum: 48 B a row
+  cudaError_t e = cudaMemsetAsync(o.cols, 0, 48 * (size_t)o.n, s);
   if (e != cudaSuccess) return (int)e;
-  e = cudaMemsetAsync(vsum, 0, sizeof(unsigned long long) * (size_t)n, s);
+  int sms = 0;
+  e = sms_of<V>(&sms);
   if (e != cudaSuccess) return (int)e;
-  const unsigned eb = (unsigned)((n + 255) / 256);
-  init_extremes<<<eb, 256, 0, s>>>(ext, n);
+  // about one block an SM in one wave, each chunk a whole number of groups
+  long long per_plane = sms / B > 1 ? sms / B : 1;
+  long long chunk = (plane + per_plane - 1) / per_plane;
+  chunk = (chunk + kRun - 1) / kRun * kRun;
+  per_plane = (plane + chunk - 1) / chunk;
+  const bool vec = ((uintptr_t)seg | (uintptr_t)val) % 16 == 0;
+  table_kernel<V><<<dim3((unsigned)per_plane, B), kThreads, kSmem, s>>>(seg, val, o, W, plane,
+                                                                        chunk, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int ntiles = (R1 + kMaxBins - 1) / kMaxBins;
-  const int nbins = (R1 + ntiles - 1) / ntiles;
-  const size_t smem = (size_t)nbins * kBinBytes;
-  e = cudaFuncSetAttribute(table_kernel<V>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((plane + kChunk - 1) / kChunk), B, ntiles);
-  table_kernel<V><<<grid, kThreads, smem, s>>>(seg, val, cols, ext, vsum, W,
-                                               plane, n, R1, nbins);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  finalize<<<eb, 256, 0, s>>>(cols, ext, vsum, n);
+  finalize<<<dim3((unsigned)((o.R1 + 255) / 256), B), 256, 0, s>>>(o);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// cols: int32 [6, B, R1] (area, sr_hi, sr_lo, sc_hi, sc_lo, class_id);
-// bbox: int32 [B, R1, 4]; vsum: int64 scratch of B*R1 elements.
-extern "C" int pcis_region_table(const void* seg, const void* val, int val_is_u8,
-                                 void* cols, void* bbox, void* vsum, int B,
-                                 int H, int W, int R1, void* stream) {
+// table: one buffer of n = B * R1 rows, 49 B a row: int32 cols [6, n]
+// (area, sr_hi, sr_lo, sc_hi, sc_lo, class_id), int32 bbox [n, 4], int64
+// value sums [n] (scratch), bool valid [n].
+extern "C" int pcis_region_table(const void* seg, const void* val, int val_is_u8, void* table,
+                                 int B, int H, int W, int R1, void* stream) {
   const long long plane = (long long)H * W;
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || plane >= (1ll << 31) ||
-      R1 <= 0 || (R1 + kMaxBins - 1) / kMaxBins > 65535)
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || plane >= (1ll << 31) || R1 <= 0)
     return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * R1;
+  char* t = (char*)table;
+  const Out o{(int*)t, (int*)(t + 24 * n), (unsigned long long*)(t + 40 * n),
+              (bool*)(t + 48 * n), n, R1};
   cudaStream_t s = (cudaStream_t)stream;
-  if (val_is_u8)
-    return launch<uint8_t>((const int*)seg, (const uint8_t*)val, (int*)cols,
-                           (int*)bbox, (unsigned long long*)vsum, B, W, plane,
-                           R1, s);
-  return launch<int32_t>((const int*)seg, (const int32_t*)val, (int*)cols,
-                         (int*)bbox, (unsigned long long*)vsum, B, W, plane,
-                         R1, s);
+  if (val_is_u8) return launch<uint8_t>((const int*)seg, (const uint8_t*)val, o, B, W, plane, s);
+  return launch<int32_t>((const int*)seg, (const int32_t*)val, o, B, W, plane, s);
 }

@@ -23,6 +23,7 @@ from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import (  # noqa: F
     edt_sq_exact_auto,
 )
 from particle_col_image_segmentation_tpu_torch.ops.fill_tiles import (  # noqa: F401
+    max_fused_cap,
     particle_fill_step,
     particle_fill_step_auto,
     particle_fill_step_cuda,

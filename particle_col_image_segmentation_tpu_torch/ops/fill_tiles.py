@@ -19,7 +19,9 @@ from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
 from particle_col_image_segmentation_tpu_torch.ops.edt import edt_sq
 from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import as_planes, check_cap
 
-__all__ = ["particle_fill_step", "particle_fill_step_cuda", "particle_fill_step_auto"]
+__all__ = [
+    "particle_fill_step", "particle_fill_step_cuda", "particle_fill_step_auto", "max_fused_cap",
+]
 
 
 def particle_fill_step(
@@ -33,11 +35,19 @@ def particle_fill_step(
     return torch.where(overlap, particle_val, filled), count
 
 
+def max_fused_cap() -> int:
+    """The largest cap K8's one-kernel route takes (its tile and halo fit a
+    block's shared memory); larger caps take the two-kernel route."""
+    return _kernels.library().pcis_fill_max_fused_cap()
+
+
 def particle_fill_step_cuda(
     filled: torch.Tensor, particle_val: int, sval: int, cap: int, dt2: int, dr2: int
 ):
     """K8 on a contiguous CUDA uint8 [H, W] or [B, H, W] plane; same results
-    as ``particle_fill_step``."""
+    as ``particle_fill_step``.  The route follows from ``cap`` alone: one
+    kernel up to ``max_fused_cap()``, else the row pass and column tiles
+    through an int32 scratch plane (``particle_fill_step_cuda.last_route``)."""
     _kernels.require_cuda("particle_fill_step_cuda", filled)
     if filled.dtype != torch.uint8 or filled.ndim not in (2, 3):
         raise ValueError(
@@ -49,23 +59,33 @@ def particle_fill_step_cuda(
             f"particle_fill_step_cuda: class values must be uint8, got "
             f"{particle_val} and {sval}"
         )
+    if not all(-(2**31) <= t < 2**31 for t in (dt2, dr2)):
+        raise ValueError(f"particle_fill_step_cuda: dt2 {dt2} and dr2 {dr2} must be int32")
     check_cap("particle_fill_step_cuda", cap)
     B, H, W = as_planes("particle_fill_step_cuda", filled)
     out = torch.empty_like(filled)
     count = torch.empty(B, dtype=torch.int32, device=filled.device)
-    scratch = torch.empty(filled.shape, dtype=torch.int32, device=filled.device)
     lib = _kernels.library()
+    fused = cap <= max_fused_cap()
+    args = (B, H, W, cap, particle_val, sval, dt2, dr2, _kernels.stream_of(filled))
     with torch.cuda.device(filled.device):
-        err = lib.pcis_particle_fill(
-            filled.data_ptr(), out.data_ptr(), count.data_ptr(), scratch.data_ptr(),
-            B, H, W, cap, particle_val, sval, dt2, dr2, _kernels.stream_of(filled),
-        )
+        if fused:
+            err = lib.pcis_particle_fill_fused(
+                filled.data_ptr(), out.data_ptr(), count.data_ptr(), *args
+            )
+        else:
+            scratch = torch.empty(filled.shape, dtype=torch.int32, device=filled.device)
+            err = lib.pcis_particle_fill(
+                filled.data_ptr(), out.data_ptr(), count.data_ptr(), scratch.data_ptr(), *args
+            )
     _kernels.check(err, "particle_fill_step_cuda")
     particle_fill_step_cuda.launches += 1
+    particle_fill_step_cuda.last_route = "fused" if fused else "two-kernel"
     return out, (count if filled.ndim == 3 else count[0])
 
 
 particle_fill_step_cuda.launches = 0
+particle_fill_step_cuda.last_route = None
 
 
 def particle_fill_step_auto(

@@ -133,24 +133,25 @@ def region_table_cuda(seg: torch.Tensor, img: torch.Tensor, max_regions: int) ->
     B, H, W = _check_table_inputs("region_table_cuda", seg, img, max_regions)
     R1 = max_regions + 1
     lead = seg.shape[:-2]
-    # area | sr_hi | sr_lo | sc_hi | sc_lo | class_id, one buffer
-    cols = torch.empty((6,) + lead + (R1,), dtype=torch.int32, device=seg.device)
-    bbox = torch.empty(lead + (R1, 4), dtype=torch.int32, device=seg.device)
-    vsum = torch.empty(lead + (R1,), dtype=torch.int64, device=seg.device)
+    n = B * R1
+    # one buffer, 49 B a row: area | sr_hi | sr_lo | sc_hi | sc_lo | class_id
+    # (int32 [6, n]), bbox (int32 [n, 4]), the kernel's int64 value sums, valid
+    buf = torch.empty(49 * n, dtype=torch.uint8, device=seg.device)
     lib = _kernels.library()
     with torch.cuda.device(seg.device):
         err = lib.pcis_region_table(
             seg.data_ptr(), img.data_ptr(), int(img.dtype == torch.uint8),
-            cols.data_ptr(), bbox.data_ptr(), vsum.data_ptr(), B, H, W, R1,
-            _kernels.stream_of(seg),
+            buf.data_ptr(), B, H, W, R1, _kernels.stream_of(seg),
         )
     _kernels.check(err, "region_table_cuda")
     region_table_cuda.launches += 1
+    cols = buf[: 24 * n].view(torch.int32).view((6,) + lead + (R1,))
     area, sr_hi, sr_lo, sc_hi, sc_lo, class_id = cols.unbind(0)
-    row = torch.arange(R1, device=seg.device)
     return RegionTable(
         area=area, sr_hi=sr_hi, sr_lo=sr_lo, sc_hi=sc_hi, sc_lo=sc_lo,
-        bbox=bbox, class_id=class_id, valid=(area > 0) & (row > 0),
+        bbox=buf[24 * n : 40 * n].view(torch.int32).view(lead + (R1, 4)),
+        class_id=class_id,
+        valid=buf[48 * n :].view(torch.bool).view(lead + (R1,)),
     )
 
 

@@ -41,6 +41,7 @@ from particle_col_image_segmentation_tpu_torch.ops import (
     edt_sq_exact_auto,
     local_maxima,
     local_maxima_auto,
+    max_fused_cap,
     watershed,
     watershed_auto,
     watershed_cuda,
@@ -57,6 +58,8 @@ from chip_smoke import (
     k3_inputs,
     k3_raw,
     k4_inputs,
+    k5_inputs,
+    k8_inputs,
     off16,
     scipy_min_index,
     ws_budgets,
@@ -380,6 +383,33 @@ def test_fill_kernel(dev, shape, params):
     _equal(particle_fill_step_cuda(none, *params), particle_fill_step(none, *params))
 
 
+def test_region_table_kernel_edges(dev):
+    """K5 on chip_smoke.k5_inputs: K4's edge inputs, runs meeting row and
+    plane ends at widths 1-130, B = 1 and 64, an id a pixel over 2048² (every
+    block's shared table overflows) and ids sharing their low 12 bits."""
+    for case, seg, vals, max_regions, shifted in k5_inputs():
+        s, v = torch.from_numpy(seg).to(dev), torch.from_numpy(vals).to(dev)
+        if shifted:
+            s, v = off16(s), off16(v)
+        _equal(region_table_cuda(s, v, max_regions), region_props(s, v, max_regions), case)
+
+
+def test_fill_kernel_both_routes(dev):
+    """K8 on chip_smoke.k8_inputs: caps 0-20, the largest cap of the
+    one-kernel route and the one past it (the two-kernel route), particles
+    at cap and cap + 1 from tile edges, dt2 past (cap + 1)², no cell pixel,
+    odd shapes; the route follows the cap."""
+    top = max_fused_cap()
+    routes = {}
+    for case, x, params in k8_inputs(top):
+        xt = torch.from_numpy(x).to(dev)
+        _equal(particle_fill_step_cuda(xt, *params), particle_fill_step(xt, *params),
+               f"{case} {params}")
+        routes[params[2]] = particle_fill_step_cuda.last_route
+    assert routes == {c: "fused" if c <= top else "two-kernel" for c in routes}
+    assert top + 1 in routes and top >= 20
+
+
 def test_new_wrappers_check_their_inputs(dev):
     x = torch.zeros((2, 16, 16), dtype=torch.uint8, device=dev)
     i = x.to(torch.int32)
@@ -397,6 +427,8 @@ def test_new_wrappers_check_their_inputs(dev):
         particle_fill_step_cuda(i, 2, 1, 20, 4, 400)
     with pytest.raises(ValueError, match="class values"):
         particle_fill_step_cuda(x, 300, 1, 20, 4, 400)
+    with pytest.raises(ValueError, match="int32"):
+        particle_fill_step_cuda(x, 2, 1, 20, 2**31, 400)
 
 
 # ---- K7, K10/K11 and K2's plateau use (the refine slice) ----

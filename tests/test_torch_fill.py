@@ -128,3 +128,38 @@ def test_auto_takes_plain_on_cpu_and_wrappers_refuse_cpu():
         particle_fill_step_cuda(img, 2, 1, 20, 4, 400)
     with pytest.raises(ValueError, match="cap"):
         edt_sq(m, -1)
+
+
+def _tile_edge_planes(cap):
+    """[3, 128, 256] planes of cells (1) with particle pixels (2) at exactly
+    ``cap`` (plane 0) and ``cap + 1`` (plane 1) px from the 64-row and the
+    128-column tile boundaries, on either side; plane 2 has no particle."""
+    x = np.ones((3, 128, 256), np.uint8)
+    for b, at in ((0, cap), (1, cap + 1)):
+        x[b, 63 + at, 10] = x[b, 64 - at, 200] = 2  # below / above the row boundary
+        x[b, 100, 127 + at] = x[b, 20, 128 - at] = 2  # right / left of the column boundary
+    return x
+
+
+@pytest.mark.parametrize("cap,dt2,dr2", [
+    (20, 4, 400), (20, 0, 440), (20, 442, -1), (2, 10, 0), (5, 9, 4), (1, 1, 0),
+])
+def test_fill_step_at_tile_edges_and_past_the_cap_matches_pallas_and_jax(cap, dt2, dr2):
+    """Particles at cap and cap + 1 across a tile boundary, and dt2 >
+    (cap + 1)² (every cell pixel fills, particles or none: the clamped d² is
+    at most (cap + 1)²), against the Pallas kernel in interpret mode and the
+    JAX dispatch."""
+    img = _tile_edge_planes(cap)
+    got, cnt = particle_fill_step(torch.from_numpy(img), 2, 1, cap, dt2, dr2)
+    want, wcnt = particle_fill_step_pallas(
+        jnp.asarray(img), 2, 1, cap, dt2, dr2, tile=32, interpret=True
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(wcnt))
+    auto, acnt = jax_fill_auto(jnp.asarray(img), 2, 1, cap, dt2, dr2)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(auto))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(acnt))
+    if dt2 > (cap + 1) ** 2:
+        np.testing.assert_array_equal(cnt.numpy(), (img == 1).sum(axis=(1, 2)))
+    else:
+        assert int(cnt[2]) == 0  # no particle, nothing within reach

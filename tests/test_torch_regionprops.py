@@ -395,3 +395,67 @@ def test_centroid_auto_takes_plain_on_cpu_and_wrapper_refuses_cpu():
     assert centroid_sums_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         centroid_sums_cuda(seg, 63)
+
+
+# ---- K5's edge inputs: runs that meet row ends, an id a pixel ----
+
+
+def _assert_tables_equal_where_used(got, want, values_homogeneous=True):
+    """Every column on the rows where ``valid`` or ``area > 0`` (row 0 of a
+    plane included): the empty rows differ by backend (zeros here and on the
+    MXU path, segment identities on the scatter path)."""
+    area = np.asarray(want.area)
+    used = np.asarray(want.valid) | (area > 0)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.area.numpy(), area)
+    for name in want._fields:
+        if name == "class_id" and not values_homogeneous:
+            continue
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        np.testing.assert_array_equal(g[used], w[used], err_msg=name)
+
+
+def _edge_ids(H, W, seed):
+    """[2, H, W] ids whose runs meet row ends: plane 0 one id over row bands
+    of 3 (a band spans whole rows, so a 16-px group crosses rows inside one
+    id) with 4-wide blocks in every other band, plane 1 an id a pixel; the
+    class plane a function of the id (value-homogeneous, as CCL output is),
+    so the JAX scatter table's class (a segment max) is comparable."""
+    yy, xx = np.mgrid[:H, :W]
+    band = yy // 3
+    seg0 = np.where(band % 2 == 0, band + 1, 1000 + band * 64 + xx // 4)
+    seg1 = 1 + yy * W + xx
+    seg = np.stack([seg0, seg1]).astype(np.int32)
+    lut = np.random.default_rng(seed).integers(-16384, 16384, seg.max() + 1).astype(np.int32)
+    return seg, lut[seg]
+
+
+@pytest.mark.parametrize("H,W,chunk", [(16, 1, 1), (30, 15, 15), (34, 17, 17), (26, 130, 26)])
+def test_region_props_runs_meeting_row_ends_match_jax_scatter_and_mxu(H, W, chunk):
+    """Widths 1, 15, 17 and 130 (W % 16 != 0, so K5's flat 16-px groups
+    cross rows) and an id a pixel, against the JAX scatter table (plane by
+    plane) and the MXU kernel (interpret mode; ``rows_per_chunk`` divides H
+    and W, since its second pass runs over the transposed plane)."""
+    from particle_col_image_segmentation_tpu.ops.regionprops import (
+        region_props as jax_region_props,
+    )
+    from particle_col_image_segmentation_tpu.ops.regionprops_tiles import region_table_mxu
+
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops import region_props
+
+    seg, img = _edge_ids(H, W, seed=W)
+    max_regions = int(seg.max())
+    got = region_props(torch.from_numpy(seg), torch.from_numpy(img), max_regions)
+    for b in range(2):
+        want = jax_region_props(jnp.asarray(seg[b]), jnp.asarray(img[b]), max_regions)
+        plane = type(got)(*(t[b] for t in got))
+        _assert_tables_equal_where_used(plane, want)
+    mxu = region_table_mxu(jnp.asarray(seg), jnp.asarray(img), max_regions,
+                           rows_per_chunk=chunk, interpret=True)
+    _assert_tables_equal_where_used(got, mxu)
+    # plane 1: every pixel its own region, its bbox the pixel itself
+    n = H * W
+    area1, bbox1 = got.area[1].numpy(), got.bbox[1].numpy()
+    assert (area1[1 : n + 1] == 1).all() and area1[0] == 0 and not area1[n + 1 :].any()
+    r, c = np.divmod(np.arange(n), W)
+    np.testing.assert_array_equal(bbox1[1 : n + 1], np.stack([r, c, r + 1, c + 1], axis=1))

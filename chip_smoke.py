@@ -15,9 +15,14 @@ nonzero and no result line is printed):
      tolerance is 0): 2048² bench planes, odd [3,97,130] batches, 2-D
      planes, background=0 and 4-connected CCL, int32 values, saturating
      sums (both K4 wrappers: class tables and the dedup's clamped sums),
-     table overflow (max_regions=8), out-of-range lookup ids, EDT caps
-     0..32 on sparse, full and empty masks (cap > H included), fill steps
-     with and without particles; K2's adversarial inputs (``k2_inputs``:
+     table overflow (max_regions=8), out-of-range lookup ids, fill steps
+     with and without particles; K9 on ``k9_inputs`` over both routes (caps
+     0-3, 8, 9, 31-33 on sparse, dense, empty and full masks, the largest
+     one-kernel cap and the one past it, features at cap and cap + 1 from
+     tile edges, cap > H, odd shapes, a view off a 16-byte boundary), each
+     cap's route and the flag "some d² > cap²" checked; the float32 square
+     root (``sqrt_f32``) equal to numpy's for every d² below 2^24 and 2^20
+     d² past it; K2's adversarial inputs (``k2_inputs``:
      one value, a serpentine crossing every tile, checkerboards, 1-px
      stripes, binary noise, int32 extremes, widths 1-129), each equal to
      scipy's min-index labels (``scipy_min_index``) and, where the plain
@@ -33,8 +38,11 @@ nonzero and no result line is printed):
      go quiet and wake again) and a batch of a few- and a many-pass plane
      (``ws_mixed``), and budgets of 1, 2, need − 1 and need passes
      (``ws_budgets``: planes that report converged equal plain, one pass
-     converges none), and K7 on the [8,2048,2048] watershed labels, [3,97,130]
-     ids past R, a 2-D plane and R+1 = 30001 (three id tiles); K3 on raw
+     converges none), refine_plane_device's distance equal to numpy's
+     sqrt of its d², and K7 on the [8,2048,2048] watershed labels, a 2-D
+     plane and ``k7_inputs`` (one id over 2048², runs crossing rows and
+     planes, ids past R, R+1 = 4096 and 4097 with colliding slots, R+1 =
+     30001, an id a pixel, B = 64, a view off a 16-byte boundary); K3 on raw
      that is not CCL output (``k3_inputs``: forward references, non-root
      targets, values past the plane, INT32_MIN/MAX, 1x1 planes, widths
      1-129, H*W not a multiple of 4 or of its 4096-px tile, a view off a
@@ -60,7 +68,8 @@ nonzero and no result line is printed):
      torch.profiler split (bits / scan / ranks); K5 and K8 at [8,2048,2048]
      (R+1 = 16385, cap 20) and at [1,2048,2048], by CUDA events and by
      their device time a call under torch.profiler,
-     K9 at [16,2048,2048] (cap 2, the merge contexts), K6 at [2048,2048];
+     K9 at [16,2048,2048] (cap 2, the merge contexts) and at [8,2048,2048]
+     cap 32 (refine's probe, with its bound), K6 at [2048,2048];
      K2 on its three callers' inputs — [32,2048,2048] uint8 den,
      [16,2048,2048] uint8 merge contexts, [8,2048,2048] int32 EDT² — by
      CUDA events, with torch.profiler's local / merge / flatten split;
@@ -125,7 +134,7 @@ KERNELS = [  # key, name, source, TPU kernel it replaces
     ("K4", "K4 region counts", "counts.cu", "regionprops_tiles.py:80"),
     ("K5", "K5 region table", "table.cu", "regionprops_tiles.py:226"),
     ("K6", "K6 table lookup", "lookup.cu", "regionprops_tiles.py:558"),
-    ("K7", "K7 centroid table", "centroid.cu", "regionprops_tiles.py:435"),
+    ("K7", "K7 centroid table", "table.cu", "regionprops_tiles.py:435"),
     ("K8", "K8 particle fill", "fill.cu", "fill_tiles.py:37"),
     ("K9", "K9 capped edt", "edt.cu", "edt_tiles.py:41"),
     ("K10", "K10 watershed costs", "watershed.cu", "watershed_tiles.py:191"),
@@ -391,6 +400,81 @@ def k8_inputs(max_cap: int, seed: int = 31):
         x = scatter(shape, 0.02, 0.5)
         for params in ((2, 1, 20, 4, 400), (2, 1, 5, 9, 4), (4, 2, 2, 4, 4), (1, 1, 3, 4, 9)):
             yield f"odd {list(shape)}", x, params
+
+
+def k9_inputs(max_cap: int, seed: int = 37):
+    """K9's edge inputs (case, bool or uint8 mask, cap, whether to pass a
+    view off a 16-byte boundary) for both routes, the one-kernel route up to
+    ``max_cap``: caps 0, 1, 2, 3, 8, 9, 31, 32 and 33 on sparse, dense,
+    empty and full masks, odd [3,97,130] (W not a multiple of the 128-column
+    tile, nor of 16); ``max_cap`` and ``max_cap + 1`` on sparse features over
+    long rows (features further apart than a 32-column word); features at
+    exactly cap and cap + 1 from a 128-row or 128-column tile edge, on either
+    side; cap > H; uint8 masks with values past 1; 1-pixel and 1-row planes;
+    a view off a 16-byte boundary."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for cap in (0, 1, 2, 3, 8, 9, 31, 32, 33):
+        yield f"sparse [2,150,300] cap {cap}", rng.random((2, 150, 300)) < 0.01, cap, False
+        yield f"dense [2,150,300] cap {cap}", rng.random((2, 150, 300)) < 0.5, cap, False
+        yield f"odd [3,97,130] cap {cap}", rng.random((3, 97, 130)) < 0.02, cap, False
+        ef = np.zeros((2, 70, 260), bool)
+        ef[1] = True
+        yield f"empty and full [2,70,260] cap {cap}", ef, cap, False
+    for cap in (max_cap, max_cap + 1):
+        yield (f"sparse long rows [2,400,1500] cap {cap}", rng.random((2, 400, 1500)) < 2e-5,
+               cap, False)
+        yield f"odd [3,97,130] cap {cap}", rng.random((3, 97, 130)) < 0.002, cap, False
+    for cap in (1, 2, 31, 32, 33, 40):
+        for at in (cap, cap + 1):  # distance from the tile edge
+            x = np.zeros((1, 300, 300), bool)
+            x[0, 127 + at, 10] = x[0, 128 - at, 200] = True  # rows: across the 128-row edge
+            x[0, 250, 127 + at] = x[0, 20, 128 - at] = True  # columns: across the 128-column edge
+            yield f"features {at} px from tile edges [1,300,300] cap {cap}", x, cap, False
+    short = rng.random((3, 20, 130)) < 0.02
+    for cap in (32, 40):
+        yield f"cap {cap} > H [3,20,130]", short, cap, False
+    u8 = rng.integers(0, 4, (2, 64, 160)).astype(np.uint8) * (rng.random((2, 64, 160)) < 0.05)
+    yield "uint8 values 0-3 [2,64,160] cap 5", u8, 5, False
+    for shape in ((1, 1, 1), (1, 1, 300), (1, 300, 1), (1, 3, 5)):
+        yield f"{list(shape)} cap 2", rng.random(shape) < 0.3, 2, False
+    yield "a view off 16 bytes [2,128,256] cap 32", rng.random((2, 128, 256)) < 0.01, 32, True
+
+
+def k7_inputs(seed: int = 41):
+    """K7's edge inputs (case, int32 ids, max_regions, whether to pass a
+    view off a 16-byte boundary): one id over a whole 2048² plane (the hot
+    bin); W % 16 != 0 and H*W % 16 != 0 (runs crossing rows and planes);
+    ids -3..4999 past R; a 2-D plane; R+1 = 4096 and 4097 with ids sharing
+    their low 12 bits (the shared table's slots); R+1 = 30001; an id a pixel
+    over 2048² (every block's shared table overflows); B = 64; a view off a
+    16-byte boundary."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yield "one id [1,2048,2048]", np.zeros((1, 2048, 2048), np.int32), 4095, False
+    yield "one id 7 [2048,2048] (2-D)", np.full((2048, 2048), 7, np.int32), 4095, False
+    blocks = (np.arange(97)[:, None] // 5 * 40 + np.arange(129)[None, :] // 4).astype(np.int32)
+    yield "4x5 blocks [3,97,129] (W % 16, H*W % 16 != 0)", np.stack([blocks] * 3), 4095, False
+    for w in (1, 3, 15, 17, 33, 130):
+        yy = np.broadcast_to(np.arange(37)[:, None] // 5, (37, w))
+        yield f"row bands width {w} [2,37,{w}]", np.stack([yy, yy + 1]).astype(np.int32), 30, False
+    yield ("ids -3..4999 [3,97,130]", rng.integers(-3, 5000, (3, 97, 130)).astype(np.int32),
+           4095, False)
+    yield ("2-D [301,777] blocks", (np.arange(301)[:, None] // 9 * 90 + np.arange(777)[None] // 9)
+           .astype(np.int32), 4095, False)
+    collide = (4096 * rng.integers(0, 2, (2, 300, 301)) + rng.integers(0, 40, (2, 300, 301)))
+    for mr in (4095, 4096):
+        yield f"ids k * 4096 + 0..39 [2,300,301] R+1 = {mr + 1}", collide.astype(np.int32), mr, False
+    yield ("R+1 = 30001 [2,512,512]", rng.integers(0, 40000, (2, 512, 512)).astype(np.int32),
+           30000, False)
+    yield ("an id a pixel [1,2048,2048]", np.arange(2048 * 2048, dtype=np.int32)
+           .reshape(1, 2048, 2048), 2048 * 2048 - 1, False)
+    many = rng.integers(-1, 40, (64, 17, 19)).astype(np.int32)
+    many[::3] = 5
+    yield "B = 64 [64,17,19]", many, 30, False
+    yield "view off 16 bytes [3,97,129]", np.stack([blocks] * 3) - 3, 4095, True
 
 
 def off16(x):
@@ -829,6 +913,7 @@ def main() -> int:
         local_maxima,
         local_maxima_auto,
         max_fused_cap,
+        max_tile_cap,
         median_label_filter,
         median_label_filter_cuda,
         particle_fill_step,
@@ -839,6 +924,7 @@ def main() -> int:
         region_sums,
         region_sums_cuda,
         region_table_cuda,
+        sqrt_f32,
         table_lookup,
         table_lookup_cuda,
         watershed,
@@ -1036,17 +1122,36 @@ def main() -> int:
         compare("K6", f"2-D ids, table [{R1}]", [table_lookup_cuda(ids[1], tab.reshape(-1, R1)[0])],
                 [table_lookup(ids[1], tab.reshape(-1, R1)[0])])
 
-    cells4 = x4 == 1
-    empty_full = torch.zeros((2, 512, 512), dtype=torch.bool, device=dev)
-    empty_full[1] = True
-    odd_mask = torch.from_numpy(np.random.default_rng(8).random((3, 97, 130)) < 0.02).to(dev)
-    for c in (0, 2, 5, 8, 9, 20, 32):
-        compare("K9", f"[4,2048,2048] cells cap={c}", [edt_sq_cuda(cells4, c)], [edt_sq(cells4, c)])
-        compare("K9", f"empty and full planes cap={c}",
-                [edt_sq_cuda(empty_full, c)], [edt_sq(empty_full, c)])
-        compare("K9", f"odd [3,97,130] cap={c}", [edt_sq_cuda(odd_mask, c)], [edt_sq(odd_mask, c)])
-    short = odd_mask[:, :20].contiguous()
-    compare("K9", "[3,20,130] cap=32 > H", [edt_sq_cuda(short, 32)], [edt_sq(short, 32)])
+    def edt(case: str, m, c: int) -> str:
+        """K9 against plain on m at cap c, its flag against the plain
+        output's d² > c²; returns the route K9 took."""
+        got, flag = edt_sq_cuda(m, c, with_flag=True)
+        want = edt_sq(m, c)
+        route = edt_sq_cuda.last_route
+        compare("K9", f"{case} ({route})", [got], [want])
+        if bool(flag) != bool((want > c * c).any()):
+            raise AssertionError(f"K9 {case}: flag {int(flag)}, plain max {int(want.max())}")
+        return route
+
+    tile_cap = max_tile_cap()
+    k9_routes = {c: edt(f"[4,2048,2048] cells cap {c}", x4 == 1, c) for c in (2, 20, 32)}
+    for case, m_np, c, shifted in k9_inputs(tile_cap):
+        m = torch.from_numpy(m_np).to(dev)
+        k9_routes[c] = edt(case, off16(m) if shifted else m, c)
+    if any((route == "tile") != (c <= tile_cap) for c, route in k9_routes.items()):
+        raise AssertionError(f"K9 took a route other than its cap's: {k9_routes}")
+    log(f"phase 3 K9 routes by cap (one kernel up to cap {tile_cap}): {k9_routes}")
+    # the float32 distance's square root on the card: numpy's correctly
+    # rounded one for every d² below 2^24 and a sample past it
+    past = np.random.default_rng(5).integers(2**24, 2**31, 1 << 20).astype(np.int32)
+    for case, d2 in (("every d² in [0, 2^24)", torch.arange(2**24, dtype=torch.int32, device=dev)),
+                     ("2^20 seeded d² in [2^24, 2^31)", torch.from_numpy(past).to(dev))):
+        got = sqrt_f32(d2).cpu().numpy()
+        if not np.array_equal(got.view(np.int32),
+                              np.sqrt(d2.cpu().numpy().astype(np.float32)).view(np.int32)):
+            raise AssertionError(f"sqrt_f32 on the card: {case} differs from numpy's")
+        log(f"phase 3 sqrt_f32 {case}: equal to numpy's float32 sqrt bit for bit")
+    del past, d2, got
 
     # ---- phase 3, the refine slice: exact EDT, local maxima, K10/K11, K7 ---
     rcfg = RefineConfig()
@@ -1058,7 +1163,22 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     x8r = torch.from_numpy(stack8).to(dev)
     mask8 = x8r < rcfg.boundary_threshold
-    dsq8 = edt_sq_exact_auto(~mask8, rcfg.edt_probe_cap)
+    pcap = rcfg.edt_probe_cap
+    # refine's probe as phase 5 times it: K9 and its flag against plain
+    edt(f"[{REFINE_PLANES},{H},{W}] relief, refine's probe cap {pcap}", ~mask8, pcap)
+    dsq8 = edt_sq_exact_auto(~mask8, pcap)
+    want8 = edt_sq(~mask8, pcap)
+    if bool((want8 > pcap * pcap).any()):
+        want8 = edt_sq_exact(~mask8)
+    compare("K9", f"edt_sq_exact_auto [{REFINE_PLANES},{H},{W}] relief", [dsq8], [want8])
+    dist8 = refine_plane_device(x8r, rcfg, REFINE_REGIONS)[4].cpu().numpy()
+    if not np.array_equal(dist8.view(np.int32),
+                          np.sqrt(want8.cpu().numpy().astype(np.float32)).view(np.int32)):
+        raise AssertionError("refine_plane_device's distance differs from numpy's sqrt of "
+                             "the plain d²")
+    log(f"phase 3 refine_plane_device [{REFINE_PLANES},{H},{W}] relief: distance == numpy's "
+        f"float32 sqrt of the plain transform's d² bit for bit")
+    del dist8, want8
     compare("K9", "edt_sq_exact_auto [2,2048,2048] relief (capped probe certified)",
             [edt_sq_exact_auto(~mask8[:2], rcfg.edt_probe_cap)], [edt_sq_exact(~mask8[:2])])
     deep = torch.zeros((1, 1024, 1024), dtype=torch.bool, device=dev)
@@ -1132,14 +1252,14 @@ def main() -> int:
     compare("K7", f"[{REFINE_PLANES},{H},{W}] watershed labels R={REFINE_REGIONS + 1}",
             list(centroid_sums_cuda(labels8, REFINE_REGIONS)),
             list(centroid_sums(labels8, REFINE_REGIONS)))
-    ids3 = torch.from_numpy(rng3.integers(-3, 5000, (3, 97, 130)).astype(np.int32)).to(dev)
-    compare("K7", "odd [3,97,130] ids -3..4999 (past R)",
-            list(centroid_sums_cuda(ids3, REFINE_REGIONS)), list(centroid_sums(ids3, REFINE_REGIONS)))
     compare("K7", f"2-D [{H},{W}] labels", list(centroid_sums_cuda(labels8[0], REFINE_REGIONS)),
             list(centroid_sums(labels8[0], REFINE_REGIONS)))
-    wide = torch.randint(0, 40000, (2, 512, 512), dtype=torch.int32, device=dev)
-    compare("K7", "[2,512,512] R+1 = 30001 (three id tiles)",
-            list(centroid_sums_cuda(wide, 30000)), list(centroid_sums(wide, 30000)))
+    for case, seg_np, mr, shifted in k7_inputs():
+        st = torch.from_numpy(seg_np).to(dev)
+        st = off16(st) if shifted else st
+        compare("K7", f"{case} max_regions={mr}", list(centroid_sums_cuda(st, mr)),
+                list(centroid_sums(st, mr)))
+    del st
 
     # ---- launch counts: reset just before a path runs, read just after -----
     counters = {
@@ -1234,6 +1354,8 @@ def main() -> int:
                  acfg.distance_threshold ** 2, acfg.dilation_radius ** 2)
     x8, den8, seg8 = xb[:8].contiguous(), den[:8].contiguous(), seg[:8].contiguous()
     ctx16 = torch.cat([den8 == 1, den8 == 1])  # one strain: its mask, then the union
+    edt(f"phase 5's merge contexts [16,{H},{W}] cap {acfg.merge_disk_radius}", ctx16,
+        acfg.merge_disk_radius)
     tab = torch.randint(0, 2, (R1,), dtype=torch.int32, device=dev)
     ms = {
         "K1": time_ms(lambda: median_label_filter_cuda(xb, 5, 8), reps=10),
@@ -1378,6 +1500,14 @@ def main() -> int:
     library_ms["K7"] = time_ms(lambda: lib_table.index_add_(0, bins, digits), reps=5)
     library_note["K7"] = "one index_add_"
     del pix, rows, cols, digits, bins, lib_table
+    # K9 also runs as refine's certified probe: cap 32 on [8,2048,2048]
+    probe = (~mask8).contiguous()
+    k9p = (lambda: edt_sq_cuda(probe, rcfg.edt_probe_cap, with_flag=True))
+    log(f"phase 5 times [{card}]: K9 refine's probe [{REFINE_PLANES},{H},{W}] cap "
+        f"{rcfg.edt_probe_cap}: {time_ms(k9p, reps=10):.4f} ms (device {device_ms(k9p):.4f}, "
+        f"route {edt_sq_cuda.last_route}), bound "
+        f"{5 * REFINE_PLANES * H * W / HBM_BYTES_PER_S * 1e3:.4f} ms (1 B in, 4 B out a pixel)")
+    del probe
     # each watershed phase: its whole pass loop inside the events (chunks of
     # passes, one host sync a chunk), and the device time of its passes
     ws_fn = {"K10": lambda: minimax_costs_cuda(x8r, mask8, seeded8)}

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "pcis_region_counts": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "pcis_region_table": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
     "pcis_table_lookup": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "pcis_edt_sq": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "pcis_edt_sq": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "pcis_edt_max_tile_cap": (_I, []),
     "pcis_particle_fill": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "pcis_particle_fill_fused": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "pcis_fill_max_fused_cap": (_I, []),

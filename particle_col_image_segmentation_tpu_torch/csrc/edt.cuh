@@ -1,5 +1,4 @@
-// Capped squared EDT device code shared by K9 (edt.cu) and K8 (fill.cu; only
-// its route for caps past its one-kernel route's, which needs no distance).
+// Capped squared EDT device code shared by K9 (edt.cu) and K8 (fill.cu).
 //
 // The transform (the same function as ops/edt.py's plain edt_sq):
 //   dh(r, c) = min(distance to the nearest feature pixel in row r, cap+1)
@@ -7,12 +6,14 @@
 // with rows outside the plane featureless.  Exact wherever the true
 // distance is <= cap, in (cap^2, (cap+1)^2] past it.
 //
-// The TPU kernels (edt_tiles._edt_kernel, fill_tiles._fill_kernel) ran both
-// phases inside one VMEM band with a cap-row halo, because VMEM holds whole
-// bands and each HBM pass was expensive.  A block here has 227 KB of shared
-// memory at most, and a band with halos grows with the cap, so the two
-// phases run as two kernels joined by one int32 scratch plane, which works
-// for any H, W >= 1 and any cap:
+// Two pieces live here:
+//   - the window loader of the one-kernel routes (K9's edt_tile, K8's
+//     fused_fill): 16-byte chunks of a uint8 plane and the byte compares
+//     that turn them into mask bits;
+//   - the two-kernel route that both take past their one-kernel route's
+//     cap (K8's window no longer fits shared memory there, K9's 16-bit sums
+//     no longer hold), which works for any H, W >= 1 and any cap through
+//     one int32 scratch plane:
 //   row_pass  one warp per row: a __ballot_sync of 32 feature bits per step
 //             and a carried last/next feature column give the exact row
 //             distance in O(1) per pixel, forward then backward;
@@ -21,13 +22,12 @@
 //             8 KB of shared memory; each thread keeps 8 output rows in
 //             registers and adds exactly the 2*cap+1 taps in reach (the
 //             loop bounds are uniform across a warp).
-// Bound on this card: at small caps the scratch plane's HBM traffic (4 B
-// written, ~4 B read per pixel); at large caps the 2*cap+1 shared-memory
-// taps per pixel.  Everything is in an anonymous namespace, so each
-// translation unit that includes this header gets its own kernels.
+// Everything is in an anonymous namespace, so each translation unit that
+// includes this header gets its own kernels.
 
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -40,6 +40,46 @@ constexpr int kWarps = 8;             // warps per col_tile block
 constexpr int kRowsPerThread = 8;     // output rows each thread keeps
 constexpr int kTileH = kWarps * kRowsPerThread;  // 64 output rows per block
 constexpr int kChunk = 64;            // source rows staged per step
+constexpr unsigned kFull = 0xffffffffu;
+// 227 KB a block on sm_90, less 1 KB for a kernel's static shared memory
+constexpr size_t kSmemLimit = 232448 - 1024;
+
+// Bit b: byte b of the 16 equals the byte repeated in pat.
+__device__ __forceinline__ unsigned byte_mask(const uint4& q, unsigned pat) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+  unsigned m = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // the low bits of the four bytes, gathered into bits 24-27
+    const unsigned x = __vcmpeq4(w[i], pat) & 0x01010101u;
+    m |= (x * 0x01020408u) >> 24 << (4 * i);
+  }
+  return m;
+}
+
+// 16 bytes of row gr from column gc, and the mask of those inside the plane
+// (the rest read 0).  vec: W % 16 == 0 and a 16-byte aligned plane, so a
+// chunk lies wholly inside or outside.
+__device__ __forceinline__ uint4 load_chunk(const uint8_t* __restrict__ src, int gr, int gc,
+                                            int H, int W, bool vec, unsigned& inside) {
+  inside = 0;
+  if (gr < 0 || gr >= H) return make_uint4(0, 0, 0, 0);
+  const uint8_t* row = src + (long long)gr * W;
+  if (vec) {
+    if (gc < 0 || gc >= W) return make_uint4(0, 0, 0, 0);
+    inside = 0xffffu;
+    return __ldg(reinterpret_cast<const uint4*>(row + gc));
+  }
+  unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int b = 0; b < 16; ++b) {
+    if (gc + b >= 0 && gc + b < W) {
+      w[b >> 2] |= (unsigned)row[gc + b] << (8 * (b & 3));
+      inside |= 1u << b;
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
 
 __device__ __forceinline__ bool is_feature(uint8_t v, int match) {
   return match < 0 ? v != 0 : (int)v == match;
@@ -130,6 +170,20 @@ inline dim3 row_grid(long long nrows) {
 inline dim3 tile_grid(int B, int H, int W) {
   return dim3((unsigned)((W + kTileW - 1) / kTileW),
               (unsigned)((H + kTileH - 1) / kTileH), (unsigned)B);
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory, once a process for
+// each device (`ready` holds a bit a device, owned by the caller).
+inline cudaError_t allow_smem(const void* kernel, size_t bytes,
+                              std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (ready.load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) ready.fetch_or(bit);
+  return e;
 }
 
 // The entry points' shared argument check.

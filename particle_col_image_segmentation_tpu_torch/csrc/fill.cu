@@ -40,9 +40,10 @@
 //     under cover bits), sums its count (warp reduce, one shared atomic a
 //     warp), and the block adds it to count[b] with one device atomic.
 //
-// two-kernel route, for larger caps: K9's design (edt.cuh: the ballot row
-// pass into an int32 scratch plane, then 64 x 32 column tiles) with the
-// fill test as the column pass's epilogue.
+// two-kernel route, for larger caps: the route K9 also takes past its own
+// one-kernel route (edt.cuh: the ballot row pass into an int32 scratch
+// plane, then 64 x 32 column tiles) with the fill test as the column pass's
+// epilogue.
 
 #include <atomic>
 
@@ -54,9 +55,10 @@ constexpr int kFillH = 64;        // output rows a fused block
 constexpr int kFillW = 128;       // output columns a fused block
 constexpr int kFillThreads = 256; // a thread an output row and 32-column word
 constexpr int kBatch = 4;         // window chunks a thread loads at once
-constexpr unsigned kFull = 0xffffffffu;
-// 227 KB a block on sm_90, less 1 KB for the kernel's static shared memory
-constexpr size_t kSmemLimit = 232448 - 1024;
+using edt::byte_mask;
+using edt::kFull;
+using edt::kSmemLimit;
+using edt::load_chunk;
 
 // A fused block's window: rows [r0 - cap, r0 + 64 + cap) and the 32-column
 // words [c0 - 32 e, c0 + 128 + 32 e), e = ceil(cap / 32).  Its shared
@@ -77,43 +79,6 @@ __device__ __forceinline__ int isqrt(int v) {
   while (h * h > v) --h;
   while ((h + 1) * (h + 1) <= v) ++h;
   return h;
-}
-
-// Bit b: byte b of the 16 equals the byte repeated in pat.
-__device__ __forceinline__ unsigned byte_mask(const uint4& q, unsigned pat) {
-  const unsigned w[4] = {q.x, q.y, q.z, q.w};
-  unsigned m = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // the low bits of the four bytes, gathered into bits 24-27
-    const unsigned x = __vcmpeq4(w[i], pat) & 0x01010101u;
-    m |= (x * 0x01020408u) >> 24 << (4 * i);
-  }
-  return m;
-}
-
-// 16 bytes of row gr from column gc, and the mask of those inside the plane
-// (the rest read 0).  vec: W % 16 == 0 and a 16-byte aligned plane, so a
-// chunk lies wholly inside or outside.
-__device__ __forceinline__ uint4 load_chunk(const uint8_t* __restrict__ src, int gr, int gc,
-                                            int H, int W, bool vec, unsigned& inside) {
-  inside = 0;
-  if (gr < 0 || gr >= H) return make_uint4(0, 0, 0, 0);
-  const uint8_t* row = src + (long long)gr * W;
-  if (vec) {
-    if (gc < 0 || gc >= W) return make_uint4(0, 0, 0, 0);
-    inside = 0xffffu;
-    return __ldg(reinterpret_cast<const uint4*>(row + gc));
-  }
-  unsigned w[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int b = 0; b < 16; ++b) {
-    if (gc + b >= 0 && gc + b < W) {
-      w[b >> 2] |= (unsigned)row[gc + b] << (8 * (b & 3));
-      inside |= 1u << b;
-    }
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // grid (ceil(W / 128), ceil(H / 64), B), 256 threads.  T: the fill
@@ -276,18 +241,9 @@ extern "C" int pcis_particle_fill_fused(const void* img, void* out, void* count,
                                         void* stream) {
   if (bad_args(B, H, W, cap, pval, sval) || cap > kMaxFusedCap)
     return (int)cudaErrorInvalidValue;
-  // the attribute once a process for each device
   static std::atomic<unsigned long long> ready{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = edt::allow_smem((const void*)fused_fill, fused_smem(kMaxFusedCap), ready);
   if (e != cudaSuccess) return (int)e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(ready.load() & bit)) {
-    e = cudaFuncSetAttribute(fused_fill, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)fused_smem(kMaxFusedCap));
-    if (e != cudaSuccess) return (int)e;
-    ready.fetch_or(bit);
-  }
   cudaStream_t s = (cudaStream_t)stream;
   e = cudaMemsetAsync(count, 0, sizeof(int) * (size_t)B, s);
   if (e != cudaSuccess) return (int)e;

@@ -1,8 +1,10 @@
-// K5: the full per-region table (RegionTable) from compact ids.
+// K5: the full per-region table (RegionTable) from compact ids, and K7: its
+// first five columns alone (CentroidTable), one run walk for both.
 //
 // Replaces: particle_col_image_segmentation_tpu/ops/regionprops_tiles.py
-//   _table_kernel (launched by _run_table for region_table_mxu, dispatched
-//   by region_props_auto).
+//   _table_kernel (K5; launched by _run_table for region_table_mxu,
+//   dispatched by region_props_auto) and _centroid_kernel (K7; launched by
+//   centroid_sums_mxu, dispatched by centroid_sums_auto).
 //
 // Contract (same as ops.regionprops.region_props): for table rows i in
 // [0, R1) of plane b, over the pixels p = (r, c) with seg[b, p] == i,
@@ -13,41 +15,48 @@
 //   class = floor(sum(val) saturated to int32 / max(area, 1))
 //   bbox  = (min r, min c, max r + 1, max c + 1), and (0, 0, 0, 0) on empty
 //           rows, where every other column is 0 too.
-// Ids outside [0, R1) are dropped.
+// Ids outside [0, R1) are dropped.  K7 (ops.regionprops.centroid_sums) is
+// the first five columns, int32 [5, B, R1]: the table kernel's instance for
+// V = NoValues reads no values and keeps no value sums, class or extremes.
 //
-// Bound on this card: memory, 5 B a pixel for uint8 values (8 for int32),
-// plus the table.  The TPU accumulated one-hot int8 matmuls on the MXU and
-// ran a second pass over the transposed plane for the column extremes.
-// Here, as in K4 (counts.cu), a thread takes 16 consecutive pixels and adds
-// a whole run to the table where the id changes, not a pixel:
+// Bound on this card: memory, 5 B a pixel for uint8 values (8 for int32; 4
+// for K7), plus the table.  The TPU accumulated one-hot int8 matmuls on the
+// MXU and ran a second pass over the transposed plane for the column
+// extremes.  Here, as in K4 (counts.cu), a thread takes 16 consecutive
+// pixels and adds a whole run to the table where the id changes, not a
+// pixel:
 //   - a run lies in one row: it breaks where the id changes and at every row
 //     end (the 16-px groups are aligned in the batch's flat index, so a
 //     group crosses rows where W % 16 != 0, and planes where H*W % 16 != 0).
 //     A run over columns [c0, c0 + n) of row r adds area n, n*(r >> 7) and
 //     n*(r & 127), the column digits summed in registers, and the extremes
-//     r, c0, r + 1, c0 + n;
+//     r, c0, r + 1, c0 + n; a group's row comes from one division, not one
+//     a pixel;
 //   - each thread's last run goes through one __match_any_sync group a warp,
 //     so a region's interior costs one table update a warp per 512 px;
 //   - each pixel's id and value are read from device memory once, whatever
 //     R1 is: a block keeps a 4096-slot open-addressing table in shared
 //     memory keyed by id (a chunk of a bench plane holds a few hundred ids;
-//     compact ids are near-contiguous, so id & 4095 rarely collides).  A run
-//     whose id finds no slot within 8 probes adds straight to the output
-//     table with device atomics, so the result is exact for any input, an
-//     id a pixel included.  The block then flushes its occupied slots;
+//     compact ids are near-contiguous, so id & 4095 rarely collides, and
+//     never for R1 <= 4096, refine's table).  A run whose id finds no slot
+//     within 8 probes adds straight to the output table with device
+//     atomics, so the result is exact for any input, an id a pixel
+//     included.  The block then flushes its occupied slots;
 //   - extremes are kept so that zero means "none": INT_MAX - min and
 //     max + 1, combined by max.  So one memset clears the whole output, and
 //     empty rows already read (0, 0, 0, 0);
 //   - one wave: about one 1024-thread block an SM over (chunks, planes), so
-//     a single plane fills the card too;
-//   - three launches a call: the memset, the table, and `finalize`, which
-//     decodes the minima, divides the class and writes `valid`.
+//     a single plane fills the card too, and each block zeroes and flushes
+//     its table once;
+//   - three launches a K5 call: the memset, the table, and `finalize`, which
+//     decodes the minima, divides the class and writes `valid`; two for K7.
 // Every column sum wraps mod 2^32 like the int32 table it lands in.
 
 #include <atomic>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -58,10 +67,18 @@ constexpr int kProbes = 8;       // slots tried before a run goes to device memo
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;  // devices whose set-up is cached
 
+// K7's value type: no values, only the five centroid columns.
+struct NoValues {};
+template <typename V>
+constexpr bool kValues = !std::is_same<V, NoValues>::value;  // K5
+
 // Shared columns, kSlots each: the slot's id + 1 (0 = empty), area, the four
-// digit sums, then the four extremes in their zero-based encoding.
+// digit sums, then (K5) the four extremes in their zero-based encoding.
 enum { kKey, kArea, kSrh, kSrl, kSch, kScl, kMinR, kMinC, kMaxR, kMaxC, kIntCols };
-constexpr size_t kSmem = (size_t)kSlots * (8 + 4 * kIntCols);  // + int64 value sums
+// K5: the int64 value sums, then the int columns; K7: the first six
+template <typename V>
+constexpr size_t kSmem = kValues<V> ? (size_t)kSlots * (8 + 4 * kIntCols)
+                                    : (size_t)kSlots * 4 * (kScl + 1);
 
 // The columns one run (or a warp's merged runs of one id) adds to a row.
 struct Add {
@@ -71,7 +88,8 @@ struct Add {
 };
 
 // The output: int32 cols [6, n] (area, sr_hi, sr_lo, sc_hi, sc_lo, class),
-// int32 bbox [n, 4], int64 vsum [n], bool valid [n]; n = B * R1.
+// int32 bbox [n, 4], int64 vsum [n], bool valid [n]; n = B * R1.  K7: cols
+// [5, n] alone.
 struct Out {
   int* cols;
   int* bbox;
@@ -81,20 +99,25 @@ struct Out {
   int R1;
 };
 
+template <typename V>
 __device__ __forceinline__ void add_cols(int* a, long long stride, int* ext, int ext_stride,
                                          unsigned long long* v, const Add& x) {
+  // K7 (V = NoValues) keeps no value sums and no extremes
   atomicAdd(a, x.area);
   atomicAdd(a + stride, x.srh);
   atomicAdd(a + 2 * stride, x.srl);
   atomicAdd(a + 3 * stride, x.sch);
   atomicAdd(a + 4 * stride, x.scl);
-  atomicAdd(v, x.v);
+  if constexpr (kValues<V>) {
+    atomicAdd(v, x.v);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) atomicMax(ext + k * ext_stride, x.ext[k]);
+    for (int k = 0; k < 4; ++k) atomicMax(ext + k * ext_stride, x.ext[k]);
+  }
 }
 
 // Add x at id `key` of the block's plane: its shared slot if it has or can
 // claim one, else the output row itself.
+template <typename V>
 __device__ __forceinline__ void add_run(int* s, unsigned long long* sv, const Out& o,
                                         long long row0, int key, const Add& x) {
   volatile int* keys = s;
@@ -103,25 +126,21 @@ __device__ __forceinline__ void add_run(int* s, unsigned long long* sv, const Ou
     int k = keys[h];
     if (k == 0) k = atomicCAS(s + h, 0, key + 1);  // 0: claimed here
     if (k == 0 || k == key + 1) {
-      add_cols(s + kArea * kSlots + h, kSlots, s + kMinR * kSlots + h, kSlots, sv + h, x);
+      add_cols<V>(s + kArea * kSlots + h, kSlots, s + kMinR * kSlots + h, kSlots, sv + h, x);
       return;
     }
     h = (h + 1) & (kSlots - 1);
   }
   const long long g = row0 + key;
-  add_cols(o.cols + g, o.n, o.bbox + 4 * g, 1, o.vsum + g, x);
+  add_cols<V>(o.cols + g, o.n, o.bbox + 4 * g, 1, o.vsum + g, x);
 }
 
-// The run of 16 px at flat index g (g % 16 == 0): ids, and values as 32-bit
-// words (four bytes a word for uint8, one value a word for int32).  Pixels
-// past the batch read id -1.  (K4's loader, counts.cu.)
-template <typename V>
-__device__ __forceinline__ void load_run(const int* __restrict__ seg, const V* __restrict__ val,
-                                         long long g, long long n, bool vec, int (&id)[kRun],
-                                         unsigned (&vw)[kRun * sizeof(V) / 4]) {
+// The ids of the 16 px at flat index g (g % 16 == 0); pixels past the
+// batch read id -1.  (K4's loader, counts.cu.)
+__device__ __forceinline__ void load_ids(const int* __restrict__ seg, long long g, long long n,
+                                         bool vec, int (&id)[kRun]) {
   if (vec && g + kRun <= n) {
     const int4* s4 = reinterpret_cast<const int4*>(seg + g);
-    const uint4* v4 = reinterpret_cast<const uint4*>(val + g);
 #pragma unroll
     for (int i = 0; i < kRun / 4; ++i) {
       const int4 a = __ldg(s4 + i);
@@ -130,6 +149,19 @@ __device__ __forceinline__ void load_run(const int* __restrict__ seg, const V* _
       id[4 * i + 2] = a.z;
       id[4 * i + 3] = a.w;
     }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) id[k] = g + k < n ? seg[g + k] : -1;
+}
+
+// Their values as 32-bit words: four bytes a word for uint8, one value a
+// word for int32; pixels past the batch read 0.
+template <typename V>
+__device__ __forceinline__ void load_vals(const V* __restrict__ val, long long g, long long n,
+                                          bool vec, unsigned (&vw)[kRun * sizeof(V) / 4]) {
+  if (vec && g + kRun <= n) {
+    const uint4* v4 = reinterpret_cast<const uint4*>(val + g);
 #pragma unroll
     for (int i = 0; i < kRun * (int)sizeof(V) / 16; ++i) {
       const uint4 b = __ldg(v4 + i);
@@ -140,8 +172,6 @@ __device__ __forceinline__ void load_run(const int* __restrict__ seg, const V* _
     }
     return;
   }
-#pragma unroll
-  for (int k = 0; k < kRun; ++k) id[k] = g + k < n ? seg[g + k] : -1;
   if constexpr (sizeof(V) == 1) {
 #pragma unroll
     for (int i = 0; i < kRun / 4; ++i) {
@@ -192,10 +222,11 @@ __global__ void __launch_bounds__(kThreads, 1) table_kernel(
     const int* __restrict__ seg, const V* __restrict__ val, Out o, int W, long long plane,
     long long chunk, bool vec) {
   extern __shared__ __align__(16) unsigned long long smem[];
-  unsigned long long* sv = smem;  // value sums, then the int columns
-  int* s = reinterpret_cast<int*>(smem + kSlots);
+  unsigned long long* sv = smem;  // K5: value sums, then the int columns
+  int* s = reinterpret_cast<int*>(kValues<V> ? smem + kSlots : smem);
   uint4* all = reinterpret_cast<uint4*>(smem);
-  for (int i = threadIdx.x; i < (int)(kSmem / 16); i += kThreads) all[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < (int)(kSmem<V> / 16); i += kThreads)
+    all[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
   const long long off = blockIdx.y * plane;
   const long long lo = off + blockIdx.x * chunk;
@@ -212,7 +243,8 @@ __global__ void __launch_bounds__(kThreads, 1) table_kernel(
     if (G < G1) {
       int id[kRun];
       unsigned vw[kRun * sizeof(V) / 4];
-      load_run<V>(seg, val, G * kRun, n_all, vec, id, vw);
+      load_ids(seg, G * kRun, n_all, vec, id);
+      if constexpr (kValues<V>) load_vals<V>(val, G * kRun, n_all, vec, vw);
       // (r, c) of the group's first pixel in plane b, by floor division: a
       // group that starts in the plane before has r < 0 there
       const int p0 = (int)(G * kRun - off);  // in (-16, plane)
@@ -223,14 +255,15 @@ __global__ void __launch_bounds__(kThreads, 1) table_kernel(
       for (int k = 0; k < kRun; ++k) {
         const long long p = G * kRun + k;
         const int kk = p >= lo && p < hi && id[k] >= 0 && id[k] < o.R1 ? id[k] : -1;
-        const long long v = value_at<V>(vw, k);
+        long long v = 0;
+        if constexpr (kValues<V>) v = value_at<V>(vw, k);
         if (kk == u.key && c != 0) {  // same id, same row
           ++u.n;
           u.v += v;
           u.sch += c >> 7;
           u.scl += c & 127;
         } else {
-          if (u.key >= 0) add_run(s, sv, o, row0, u.key, run_cols(u));
+          if (u.key >= 0) add_run<V>(s, sv, o, row0, u.key, run_cols(u));
           u = Run{kk, r, c, 1, c >> 7, c & 127, v};
         }
         if (++c == W) {
@@ -248,16 +281,18 @@ __global__ void __launch_bounds__(kThreads, 1) table_kernel(
     x.srl = __reduce_add_sync(peers, mine.srl);
     x.sch = __reduce_add_sync(peers, mine.sch);
     x.scl = __reduce_add_sync(peers, mine.scl);
-    if constexpr (sizeof(V) == 1) {
-      x.v = __reduce_add_sync(peers, (unsigned)u.v);  // <= 32 * 16 * 255
-    } else {  // |sum| < 2^35: 24-bit low digits and the signed rest, each fits 32 lanes
-      const unsigned lo24 = __reduce_add_sync(peers, (unsigned)(u.v & 0xffffff));
-      const int hi = __reduce_add_sync(peers, (int)(u.v >> 24));
-      x.v = (unsigned long long)((long long)hi * (1ll << 24) + lo24);
-    }
+    if constexpr (kValues<V>) {
+      if constexpr (sizeof(V) == 1) {
+        x.v = __reduce_add_sync(peers, (unsigned)u.v);  // <= 32 * 16 * 255
+      } else {  // |sum| < 2^35: 24-bit low digits and the signed rest, each fits 32 lanes
+        const unsigned lo24 = __reduce_add_sync(peers, (unsigned)(u.v & 0xffffff));
+        const int hi = __reduce_add_sync(peers, (int)(u.v >> 24));
+        x.v = (unsigned long long)((long long)hi * (1ll << 24) + lo24);
+      }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) x.ext[k] = __reduce_max_sync(peers, mine.ext[k]);
-    if (u.key >= 0 && lane == __ffs(peers) - 1) add_run(s, sv, o, row0, u.key, x);
+      for (int k = 0; k < 4; ++k) x.ext[k] = __reduce_max_sync(peers, mine.ext[k]);
+    }
+    if (u.key >= 0 && lane == __ffs(peers) - 1) add_run<V>(s, sv, o, row0, u.key, x);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kSlots; i += kThreads) {
@@ -269,11 +304,13 @@ __global__ void __launch_bounds__(kThreads, 1) table_kernel(
     x.srl = s[kSrl * kSlots + i];
     x.sch = s[kSch * kSlots + i];
     x.scl = s[kScl * kSlots + i];
-    x.v = sv[i];
+    if constexpr (kValues<V>) {
+      x.v = sv[i];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) x.ext[k] = s[(kMinR + k) * kSlots + i];
+      for (int k = 0; k < 4; ++k) x.ext[k] = s[(kMinR + k) * kSlots + i];
+    }
     const long long g = row0 + key - 1;
-    add_cols(o.cols + g, o.n, o.bbox + 4 * g, 1, o.vsum + g, x);
+    add_cols<V>(o.cols + g, o.n, o.bbox + 4 * g, 1, o.vsum + g, x);
   }
 }
 
@@ -307,7 +344,7 @@ cudaError_t sms_of(int* sms) {
   if (e != cudaSuccess) return e;
   if (dev < kMaxDevices && (*sms = cached[dev].load()) > 0) return cudaSuccess;
   e = cudaFuncSetAttribute(table_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kSmem);
+                           (int)kSmem<V>);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
@@ -318,8 +355,9 @@ cudaError_t sms_of(int* sms) {
 template <typename V>
 int launch(const int* seg, const V* val, const Out& o, int B, int W, long long plane,
            cudaStream_t s) {
-  // one memset clears cols (class included), bbox and vsum: 48 B a row
-  cudaError_t e = cudaMemsetAsync(o.cols, 0, 48 * (size_t)o.n, s);
+  // one memset clears cols (class included), bbox and vsum: 48 B a row (K7:
+  // its five columns, 20 B)
+  cudaError_t e = cudaMemsetAsync(o.cols, 0, (kValues<V> ? 48 : 20) * (size_t)o.n, s);
   if (e != cudaSuccess) return (int)e;
   int sms = 0;
   e = sms_of<V>(&sms);
@@ -330,12 +368,16 @@ int launch(const int* seg, const V* val, const Out& o, int B, int W, long long p
   chunk = (chunk + kRun - 1) / kRun * kRun;
   per_plane = (plane + chunk - 1) / chunk;
   const bool vec = ((uintptr_t)seg | (uintptr_t)val) % 16 == 0;
-  table_kernel<V><<<dim3((unsigned)per_plane, B), kThreads, kSmem, s>>>(seg, val, o, W, plane,
-                                                                        chunk, vec);
+  table_kernel<V><<<dim3((unsigned)per_plane, B), kThreads, kSmem<V>, s>>>(seg, val, o, W,
+                                                                           plane, chunk, vec);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || !kValues<V>) return (int)e;
   finalize<<<dim3((unsigned)((o.R1 + 255) / 256), B), 256, 0, s>>>(o);
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int B, int H, int W, int R1) {
+  return B <= 0 || B > 65535 || H <= 0 || W <= 0 || (long long)H * W >= (1ll << 31) || R1 <= 0;
 }
 
 }  // namespace
@@ -345,14 +387,22 @@ int launch(const int* seg, const V* val, const Out& o, int B, int W, long long p
 // value sums [n] (scratch), bool valid [n].
 extern "C" int pcis_region_table(const void* seg, const void* val, int val_is_u8, void* table,
                                  int B, int H, int W, int R1, void* stream) {
-  const long long plane = (long long)H * W;
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || plane >= (1ll << 31) || R1 <= 0)
-    return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * R1;
+  if (bad_shape(B, H, W, R1)) return (int)cudaErrorInvalidValue;
+  const long long plane = (long long)H * W, n = (long long)B * R1;
   char* t = (char*)table;
   const Out o{(int*)t, (int*)(t + 24 * n), (unsigned long long*)(t + 40 * n),
               (bool*)(t + 48 * n), n, R1};
   cudaStream_t s = (cudaStream_t)stream;
   if (val_is_u8) return launch<uint8_t>((const int*)seg, (const uint8_t*)val, o, B, W, plane, s);
   return launch<int32_t>((const int*)seg, (const int32_t*)val, o, B, W, plane, s);
+}
+
+// K7.  cols: int32 [5, B, R1] (area, sr_hi, sr_lo, sc_hi, sc_lo), zeroed here.
+extern "C" int pcis_centroid_sums(const void* seg, void* cols, int B, int H, int W, int R1,
+                                  void* stream) {
+  if (bad_shape(B, H, W, R1)) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * R1;
+  const Out o{(int*)cols, nullptr, nullptr, nullptr, n, R1};
+  return launch<NoValues>((const int*)seg, nullptr, o, B, W, (long long)H * W,
+                          (cudaStream_t)stream);
 }

@@ -29,6 +29,7 @@ from particle_col_image_segmentation_tpu_torch.ops.ccl import (
     compact_labels_auto,
     connected_components_auto,
 )
+from particle_col_image_segmentation_tpu_torch.ops.edt import sqrt_f32
 from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import (
     edt_sq_auto,
     edt_sq_exact_auto,
@@ -65,7 +66,7 @@ def refine_plane_device(boundary_map: torch.Tensor, cfg: RefineConfig,
         dsq = edt_sq_exact_auto(~binary_mask, probe_cap=cfg.edt_probe_cap)
     else:
         dsq = edt_sq_auto(~binary_mask, cfg.edt_cap)
-    distance = torch.sqrt(dsq.to(torch.float32))
+    distance = sqrt_f32(dsq)
     # maxima of d² are maxima of d, and int32 d² compares stay exact where
     # adjacent float32 square roots would round together
     maxima, conv_max = local_maxima_auto(dsq, with_flag=True)

@@ -16,11 +16,13 @@ from particle_col_image_segmentation_tpu_torch.ops.edt import (  # noqa: F401
     edt_exact,
     edt_sq,
     edt_sq_exact,
+    sqrt_f32,
 )
 from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import (  # noqa: F401
     edt_sq_auto,
     edt_sq_cuda,
     edt_sq_exact_auto,
+    max_tile_cap,
 )
 from particle_col_image_segmentation_tpu_torch.ops.fill_tiles import (  # noqa: F401
     max_fused_cap,

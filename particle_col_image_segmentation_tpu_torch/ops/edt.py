@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["edt_sq", "row_dh2_exact", "minplus_rows", "edt_sq_exact", "edt_exact"]
+__all__ = ["edt_sq", "row_dh2_exact", "minplus_rows", "edt_sq_exact", "edt_exact", "sqrt_f32"]
 
 
 def edt_sq(feature: torch.Tensor, cap: int) -> torch.Tensor:
@@ -125,6 +125,26 @@ def edt_sq_exact(feature: torch.Tensor, rows_per_step: int = 8) -> torch.Tensor:
     )
 
 
+def sqrt_f32(d2: torch.Tensor) -> torch.Tensor:
+    """``sqrt(float32(d2))`` as float32, correctly rounded: the value
+    ``jnp.sqrt(d2.astype(float32))`` gives, on every device.
+
+    ``d2`` is rounded to float32 first, so a d² past 2²⁴ rounds as it does
+    in the JAX package.  PyTorch's float32 square root on the CPU is not
+    correctly rounded on every build (its vectorised kernel can miss by one
+    ulp, e.g. √19 and √37), so there the root is taken in float64 and
+    rounded once to float32.  That is exact: float64 carries 53 ≥ 2·24 + 2
+    bits, so the double rounding of the square root of a float32 can never
+    differ from the correctly rounded float32 root.  On the card float32
+    ``torch.sqrt`` is IEEE round-to-nearest (``sqrt.rn``), one elementwise
+    pass, and ``chip_smoke.py`` holds it to numpy's root for every d² below
+    2²⁴."""
+    x = d2.to(torch.float32)
+    if x.device.type == "cpu":
+        return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def edt_exact(feature: torch.Tensor) -> torch.Tensor:
     """Exact float32 EDT (scipy.ndimage.distance_transform_edt parity)."""
-    return torch.sqrt(edt_sq_exact(feature).to(torch.float32))
+    return sqrt_f32(edt_sq_exact(feature))

@@ -6,7 +6,9 @@ Counterpart of ``particle_col_image_segmentation_tpu/ops/edt_tiles.py``
 ``particle_col_image_segmentation_tpu/ops/edt.py``.  The JAX dispatch takes its Pallas
 kernel only for cap > 8 on lane-aligned planes; here every CUDA tensor takes
 ``csrc/edt.cu`` whatever the cap or the plane size, and its output equals the
-plain ``ops.edt.edt_sq`` exactly.
+plain ``ops.edt.edt_sq`` exactly.  The kernel is one launch with no scratch
+plane up to ``max_tile_cap()`` (180) and a row pass plus column tiles
+through an int32 scratch plane past it, chosen by cap alone.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from particle_col_image_segmentation_tpu_torch import _kernels
 from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
 from particle_col_image_segmentation_tpu_torch.ops.edt import edt_sq, edt_sq_exact
 
-__all__ = ["edt_sq_cuda", "edt_sq_auto", "edt_sq_exact_auto", "MAX_CAP"]
+__all__ = ["edt_sq_cuda", "edt_sq_auto", "edt_sq_exact_auto", "max_tile_cap", "MAX_CAP"]
 
 # (cap+1)² plus a dy² ≤ cap² must stay inside int32
 MAX_CAP = 32766
@@ -40,37 +42,54 @@ def check_cap(name: str, cap: int) -> None:
         raise ValueError(f"{name}: cap must be in [0, {MAX_CAP}], got {cap}")
 
 
-def edt_sq_cuda(feature: torch.Tensor, cap: int) -> torch.Tensor:
+def max_tile_cap() -> int:
+    """The largest cap K9's one-kernel route takes (its window fits shared
+    memory); larger caps take the row pass and column tiles."""
+    return _kernels.library().pcis_edt_max_tile_cap()
+
+
+def edt_sq_cuda(feature: torch.Tensor, cap: int, with_flag: bool = False):
     """K9 on a contiguous CUDA bool/uint8 [..., H, W] stack (nonzero =
     feature) → int32 squared distances, exact up to ``cap``, in
-    (cap², (cap+1)²] past it.  Any H, W ≥ 1 and any cap in [0, MAX_CAP], cap > H included."""
+    (cap², (cap+1)²] past it.  Any H, W ≥ 1 and any cap in [0, MAX_CAP], cap > H
+    included.  With ``with_flag``, returns (distances, flag): an int32 [1]
+    on the card, nonzero iff some distance exceeds cap², written by the
+    kernel itself (``edt_sq_cuda.last_route`` says which route ran)."""
     _kernels.require_cuda("edt_sq_cuda", feature)
     if feature.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"edt_sq_cuda: expected bool or uint8 features, got {feature.dtype}")
     check_cap("edt_sq_cuda", cap)
     B, H, W = as_planes("edt_sq_cuda", feature)
     out = torch.empty(feature.shape, dtype=torch.int32, device=feature.device)
-    scratch = torch.empty_like(out)  # row-pass distances
+    tiled = cap <= max_tile_cap()
+    scratch = None if tiled else torch.empty_like(out)  # row-pass distances
+    flag = torch.empty(1, dtype=torch.int32, device=feature.device) if with_flag else None
     lib = _kernels.library()
     with torch.cuda.device(feature.device):
         err = lib.pcis_edt_sq(
-            feature.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, W,
-            cap, _kernels.stream_of(feature),
+            feature.data_ptr(), out.data_ptr(), None if tiled else scratch.data_ptr(),
+            None if flag is None else flag.data_ptr(), B, H, W, cap,
+            _kernels.stream_of(feature),
         )
     _kernels.check(err, "edt_sq_cuda")
     edt_sq_cuda.launches += 1
-    return out
+    edt_sq_cuda.last_route = "tile" if tiled else "two-kernel"
+    return (out, flag) if with_flag else out
 
 
 edt_sq_cuda.launches = 0
+edt_sq_cuda.last_route = None
 
 
-def edt_sq_auto(feature: torch.Tensor, cap: int) -> torch.Tensor:
+def edt_sq_auto(feature: torch.Tensor, cap: int, with_flag: bool = False):
     """K9 for a CUDA tensor, whatever the cap; the plain transform for a CPU
-    tensor.  The values are the same either way."""
+    tensor.  The values are the same either way.  With ``with_flag``,
+    returns (distances, flag), the flag nonzero iff some distance exceeds
+    cap² (K9 writes it on the card)."""
     if use_kernel(feature):
-        return edt_sq_cuda(feature, cap)
-    return edt_sq(feature, cap)
+        return edt_sq_cuda(feature, cap, with_flag=with_flag)
+    out = edt_sq(feature, cap)
+    return (out, (out > cap * cap).any()) if with_flag else out
 
 
 def edt_sq_exact_auto(feature: torch.Tensor, probe_cap: int = 32,
@@ -80,10 +99,14 @@ def edt_sq_exact_auto(feature: torch.Tensor, probe_cap: int = 32,
     The capped transform (K9 on a CUDA tensor) is exact wherever the true
     distance ≤ ``probe_cap`` and exceeds probe_cap² wherever it is not, so
     no value above probe_cap² anywhere in the batch proves the capped result
-    exact.  Otherwise the exact O(H²·W) transform runs from scratch.  The
-    output equals ``ops.edt.edt_sq_exact`` either way."""
-    feature = (feature != 0).contiguous()
-    capped = edt_sq_auto(feature, probe_cap)
-    if bool((capped > probe_cap * probe_cap).any()):
+    exact; on the card K9 writes that certificate as a flag beside its
+    output, and one host sync reads it.  Otherwise the exact O(H²·W)
+    transform runs from scratch.  The output equals ``ops.edt.edt_sq_exact``
+    either way."""
+    if feature.dtype not in (torch.bool, torch.uint8):
+        feature = feature != 0  # K9 and the plain versions read any nonzero as a feature
+    feature = feature.contiguous()
+    capped, deep = edt_sq_auto(feature, probe_cap, with_flag=True)
+    if bool(deep):
         return edt_sq_exact(feature, rows_per_step)
     return capped

@@ -6,9 +6,9 @@ Counterpart of ``particle_col_image_segmentation_tpu/ops/regionprops_tiles.py``
 ``table_lookup_mxu``, ``centroid_sums_mxu`` and their ``*_auto`` dispatch).  The TPU built these
 tables from one-hot int8 matmuls with base-128 digit splits and two passes
 (the second over the transposed plane for the column extremes).  Here
-``csrc/counts.cu`` (K4), ``csrc/table.cu`` (K5) and ``csrc/centroid.cu``
-(K7) keep shared-memory histograms with atomics, and ``csrc/lookup.cu`` (K6)
-is a bounds-checked gather; their outputs equal the plain versions in
+``csrc/counts.cu`` (K4) and ``csrc/table.cu`` (K5, and K7 as the same run
+walk's instance for the five centroid columns) add 16-px runs to
+shared-memory tables, and ``csrc/lookup.cu`` (K6) is a bounds-checked gather; their outputs equal the plain versions in
 ``ops.regionprops`` and ``table_lookup`` exactly.
 """
 

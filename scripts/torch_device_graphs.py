@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Device times of the PyTorch/CUDA port's three device graphs and of its
-kernels K3, K4, K5, K8 and K9, for comparing two checkouts on one card.
+kernels K3, K4, K5, K7, K8 and K9, for comparing two checkouts on one card.
 
 Run from the root of a checkout of the port; the script imports the port,
 ``bench.py`` and ``chip_smoke.py`` from the working directory, so the same
@@ -23,7 +23,11 @@ device time a call under torch.profiler (a fast call's events also hold
 the host's launch gaps), K8 at [8,2048,2048] with no cell pixel and with
 every cell pixel filling, and the tiles of K8's one-kernel route that the
 [8,2048,2048] planes leave live;
-``refine_plane_device`` on the [8,2048,2048] touching-cell relief; and each
+``refine_plane_device`` on the [8,2048,2048] touching-cell relief; on that
+relief K9 as refine's probe (``edt_sq_cuda`` at cap 32 on the complement of
+its boundary mask, and ``edt_sq_exact_auto`` as refine calls it, with its
+certificate's host sync) and K7 (``centroid_sums_cuda`` of its watershed
+labels, R+1 = 4096), each by CUDA events and by device time a call; and each
 watershed phase on that relief (``minimax_costs_cuda`` for K10,
 ``claim_labels_cuda`` for K11: ms with the whole pass loop; the loop's
 passes, or its PhaseLog where the checkout has one; and, under
@@ -76,6 +80,7 @@ def main() -> int:
     from particle_col_image_segmentation_tpu_torch.models.refine import refine_plane_device
     from particle_col_image_segmentation_tpu_torch.ops import (
         ccl_cuda,
+        centroid_sums_cuda,
         compact_labels_cuda,
         edt_sq_cuda,
         edt_sq_exact_auto,
@@ -167,6 +172,16 @@ def main() -> int:
     mk, _ = compact_labels_cuda(ccl_cuda(maxima.to(torch.uint8), background=0), 4095)
     seeded = (mk > 0) & mask
     cost = minimax_costs_cuda(xr, mask, seeded)[0]
+    labels = claim_labels_cuda(cost, xr, mk, mask, seeded)[0]
+    probe = (~mask).contiguous()
+    refine_kernels = {
+        "k9_b8_cap32": lambda: edt_sq_cuda(probe, rcfg.edt_probe_cap),
+        "k9_b8_certified": lambda: edt_sq_exact_auto(probe, rcfg.edt_probe_cap),
+        "k7_b8": lambda: centroid_sums_cuda(labels, 4095),
+    }
+    for key, fn in refine_kernels.items():
+        kernel_ms[f"{key}_ms"] = time_ms(fn, reps=20)
+        kernel_ms[f"{key}_device_ms"] = busy_us(traced(fn, 5)) / 5e3
     phases = {
         "k10": (lambda: minimax_costs_cuda(xr, mask, seeded), "cost_pass"),
         "k11": (lambda: claim_labels_cuda(cost, xr, mk, mask, seeded), "label_pass"),

@@ -42,6 +42,7 @@ from particle_col_image_segmentation_tpu_torch.ops import (
     local_maxima,
     local_maxima_auto,
     max_fused_cap,
+    max_tile_cap,
     watershed,
     watershed_auto,
     watershed_cuda,
@@ -59,7 +60,9 @@ from chip_smoke import (
     k3_raw,
     k4_inputs,
     k5_inputs,
+    k7_inputs,
     k8_inputs,
+    k9_inputs,
     off16,
     scipy_min_index,
     ws_budgets,
@@ -394,6 +397,26 @@ def test_region_table_kernel_edges(dev):
         _equal(region_table_cuda(s, v, max_regions), region_props(s, v, max_regions), case)
 
 
+def test_edt_kernel_both_routes_and_flag(dev):
+    """K9 on chip_smoke.k9_inputs: caps 0-3, 8, 9, 31-33, the largest cap of
+    the one-kernel route and the one past it (the two-kernel route),
+    features at cap and cap + 1 from tile edges, cap > H, odd shapes, a view
+    off a 16-byte boundary; the route follows the cap, and the flag is set
+    exactly where some d² > cap²."""
+    top = max_tile_cap()
+    routes = {}
+    for case, m, cap, shifted in k9_inputs(top):
+        mt = torch.from_numpy(m).to(dev)
+        mt = off16(mt) if shifted else mt
+        got, flag = edt_sq_cuda(mt, cap, with_flag=True)
+        want = edt_sq(mt, cap)
+        _equal([got], [want], case)
+        assert bool(flag) == bool((want > cap * cap).any()), case
+        routes[cap] = edt_sq_cuda.last_route
+    assert routes == {c: "tile" if c <= top else "two-kernel" for c in routes}
+    assert top + 1 in routes and top >= 32
+
+
 def test_fill_kernel_both_routes(dev):
     """K8 on chip_smoke.k8_inputs: caps 0-20, the largest cap of the
     one-kernel route and the one past it (the two-kernel route), particles
@@ -444,6 +467,17 @@ def test_centroid_kernel(dev, shape, max_regions):
     _equal(centroid_sums_cuda(x, max_regions), centroid_sums(x, max_regions))
     assert centroid_sums_cuda.launches == before + 1
     _equal(centroid_sums_auto(x, max_regions), centroid_sums(x, max_regions))
+
+
+def test_centroid_kernel_edges(dev):
+    """K7 on chip_smoke.k7_inputs: one id over 2048², runs crossing rows and
+    planes, ids past R, a 2-D plane, R+1 = 4096 and 4097 with ids sharing
+    their shared-table slot, R+1 = 30001, an id a pixel, B = 64, a view off
+    a 16-byte boundary."""
+    for case, seg, max_regions, shifted in k7_inputs():
+        s = torch.from_numpy(seg).to(dev)
+        s = off16(s) if shifted else s
+        _equal(centroid_sums_cuda(s, max_regions), centroid_sums(s, max_regions), case)
 
 
 def _relief(n, pairs, seed):

@@ -3,8 +3,9 @@ package on the CPU, and the guards that keep the port apart from it.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Integers (labels, markers, counts, tables, EDT², flags) are compared
-exactly; the float32 distance map too (IEEE ``sqrt`` is correctly rounded in
-both, so any difference is a failure).  Nearest-neighbour distances are
+exactly; the float32 distance map too (``jnp.sqrt`` and the port's
+``sqrt_f32`` both give the correctly rounded float32 root, so any difference
+is a failure).  Nearest-neighbour distances are
 held to rtol 1e-6: both sum two float32 squares and take the root, but XLA
 may contract the sum into a fused multiply-add where PyTorch rounds each
 product, which moves the last bit.  The CSVs round those distances to 3
@@ -40,7 +41,7 @@ from particle_col_image_segmentation_tpu_torch.cli import main as torch_cli
 from particle_col_image_segmentation_tpu_torch.config import config_from_fields
 from particle_col_image_segmentation_tpu_torch.models import refine as torch_refine
 from particle_col_image_segmentation_tpu_torch.ops import pairwise
-from particle_col_image_segmentation_tpu_torch.ops.edt import edt_exact, edt_sq_exact
+from particle_col_image_segmentation_tpu_torch.ops.edt import edt_exact, edt_sq_exact, sqrt_f32
 from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import edt_sq_exact_auto
 from particle_col_image_segmentation_tpu_torch.report import csvio as port_csvio
 
@@ -89,6 +90,28 @@ def test_edt_sq_exact_and_auto_match_jax(name):
         np.testing.assert_array_equal(auto.numpy(), want)
     np.testing.assert_array_equal(edt_exact(torch.from_numpy(f)).numpy(),
                                   np.asarray(jax_edt_exact(jnp.asarray(f))))
+
+
+def _sqrt_cases():
+    rng = np.random.default_rng(17)
+    return {
+        "every d2 below 2^20": np.arange(2**20, dtype=np.int32),
+        "seeded d2 in [2^24, 2^31)": rng.integers(2**24, 2**31, 200_000).astype(np.int32),
+        # roots that a float32 square root which is not correctly rounded misses
+        "d2 19 and 37": np.array([19, 37], np.int32),
+    }
+
+
+@pytest.mark.parametrize("name", list(_sqrt_cases()))
+def test_sqrt_f32_rounds_as_numpy_and_jax(name):
+    """sqrt_f32 is the correctly rounded float32 root of float32(d²): numpy's
+    and jnp.sqrt's, bit for bit (tolerance 0)."""
+    d2 = _sqrt_cases()[name]
+    got = sqrt_f32(torch.from_numpy(d2))
+    assert got.dtype == torch.float32
+    want = np.sqrt(d2.astype(np.float32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.sqrt(jnp.asarray(d2).astype(jnp.float32))))
 
 
 # ---- the device graph and the host results ----

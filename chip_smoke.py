@@ -16,7 +16,13 @@ nonzero and no result line is printed):
      planes, background=0 and 4-connected CCL, int32 values, saturating
      sums (both K4 wrappers: class tables and the dedup's clamped sums),
      table overflow (max_regions=8), out-of-range lookup ids, fill steps
-     with and without particles; K9 on ``k9_inputs`` over both routes (caps
+     with and without particles; K6 on ``k6_inputs`` (ids and table values
+     at INT32_MIN/MAX, R = 1 to 40000 with [R] and [B,R] tables, H*W not a
+     multiple of 4, B = 64, views off a 16-byte boundary); K4 as the Otsu
+     histogram (bin ids, R+1 = 256, uint8 zeros) against the plain bincount
+     on ``hist_inputs`` (a constant plane, 1x1 planes, every bin hit), on
+     config #1's [16,512,512] batch and on config #2's blurred
+     [24,2048,2048] stack; K9 on ``k9_inputs`` over both routes (caps
      0-3, 8, 9, 31-33 on sparse, dense, empty and full masks, the largest
      one-kernel cap and the one past it, features at cap and cap + 1 from
      tile edges, cap > H, odd shapes, a view off a 16-byte boundary), each
@@ -81,6 +87,13 @@ nonzero and no result line is printed):
      host syncs, the device time of its passes by torch.profiler, and the
      tiles each pass ran);
      refine_plane_device on that relief, kernels and plain, on the card;
+     K6 by device time too; the threshold path (``threshold_times``):
+     config #1's single plane and [16,512,512] batch and config #2's
+     stack_stats at [24,512,512] and [24,2048,2048], kernels and plain,
+     by CUDA events and device time, the [24,2048,2048] call split by step
+     (blur, min/max, bin ids, K4 histogram, Otsu, mask, K2, K3, K4 counts),
+     K4's histogram launch beside one torch.bincount of the offset ids and
+     K2 on the binary mask, each with its bound;
   6. analyze path — run_analysis over a folder tree of 2048² bench planes
      (8 single-file 3D05 folders, batched 8 at a time, and one 3D05+6B07
      folder with RFP and DAPI files: per-channel analysis, DAPI dedup,
@@ -97,10 +110,30 @@ nonzero and no result line is printed):
      before the run), labels, cell counts, areas and centroids equal to the
      plain run on the card; the stack CSV of a [2,1024,1024] crop equal to
      the plain CPU run's byte for byte; the passes, launches and host syncs
-     of each watershed phase.
+     of each watershed phase;
+  9. threshold path (``threshold_phase``) — threshold_and_count on config
+     #1's 512² uint16 plane, threshold_and_count_batch on its [16,512,512]
+     batch (plane b rolled by 7·b columns) and config #2's stack_stats on
+     [24,512,512] and [24,2048,2048] stacks (bench.py's recipes; 30 and 480
+     discs a plane), max_regions=4095: K2, K3 and K4 launched (K4 twice a
+     call: the Otsu histogram and the region table; counts reset just
+     before the run), thresholds bit for bit, masks, labels, count, num_fg
+     and num_total equal to the plain versions on the card (labels where
+     the plain CCL converged, K2 equal to scipy's on the other planes),
+     each plane's count and num_total equal to scipy.ndimage.label's on
+     img > t, the [16,512,512] batch's thresholds, masks and counts equal
+     to the plain CPU run's, the [24,512,512] stack's blur and
+     thresholds (plane 6 holds an Otsu near-tie) equal to the CPU's, and
+     the single-plane histogram and otsu_threshold of config #1's plane
+     (one K4 launch each) equal to the plain CPU histogram and the call's
+     threshold.  The [24,2048,2048] stack is made once on the host and is
+     on the card only in phase 3's histogram check, phase 5's threshold
+     times and phase 9.
 The line before the last is the per-kernel JSON record (``launches`` sums
-the batch, analyze and refine paths' runs, ``bound_ms`` is the bytes each
-function must move over 3.35 TB/s); the last line is {"ok": true, ...}.
+the batch, analyze, refine and threshold paths' runs, ``bound_ms`` is the
+bytes each function must move over 3.35 TB/s, ``more_shapes`` holds K2's
+and K4's threshold-path shapes and K6's device time); the last line is
+{"ok": true, ...}.
 
 The script imports the port, bench.py's plane generator, numpy and scipy:
 nothing of JAX and nothing of the JAX package, which it checks before the
@@ -124,6 +157,7 @@ N_MAIN = 40
 ANALYZE_REGIONS = 16384  # AnalysisConfig().max_regions: R+1 = 16385
 REFINE_REGIONS = 4095  # refine's default: R+1 = 4096
 REFINE_PLANES = 8
+TH_REGIONS = 4095  # configs #1 and #2 in bench.py
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SRC = "particle_col_image_segmentation_tpu_torch/csrc/"
 TPU = "particle_col_image_segmentation_tpu/ops/"
@@ -475,6 +509,183 @@ def k7_inputs(seed: int = 41):
     many[::3] = 5
     yield "B = 64 [64,17,19]", many, 30, False
     yield "view off 16 bytes [3,97,129]", np.stack([blocks] * 3) - 3, 4095, True
+
+
+def k6_inputs(seed: int = 43):
+    """K6's edge inputs (case, int32 ids, int32 table, whether to pass views
+    off a 16-byte boundary): ids -2..R+1 with INT32_MIN and INT32_MAX among
+    them and table values INT32_MIN and INT32_MAX, at R = 1, 2, 16385 and
+    40000 (past the kernel's 32768-entry shared-memory table) with an [R] and a
+    [B, R] table; H*W not a multiple of 4 at widths 1-9; B = 64 with a
+    [B, R] table; views of ids and table off a 16-byte boundary."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = -(2**31), 2**31 - 1
+
+    def ids(shape, R):
+        x = rng.integers(-2, R + 2, shape)
+        pick = rng.random(shape)
+        x[pick < 0.05] = lo
+        x[pick > 0.95] = hi
+        return x.astype(np.int32)
+
+    def tab(shape):
+        t = rng.integers(lo, hi, shape, dtype=np.int64, endpoint=True).astype(np.int32)
+        t[..., 0], t[..., -1] = lo, hi
+        return t
+
+    for R in (1, 2, 16385, 40000):
+        x = ids((2, 97, 131), R)
+        yield f"R = {R} [2,97,131], table [{R}]", x, tab((R,)), False
+        yield f"R = {R} [2,97,131], table [2,{R}]", x, tab((2, R)), False
+    for w in range(1, 10):
+        for h in (1, 3, 7):
+            yield f"H*W = {h * w} [3,{h},{w}], table [3,50]", ids((3, h, w), 50), tab((3, 50)), False
+        yield f"2-D [5,{w}], table [50]", ids((5, w), 50), tab((50,)), False
+    yield "B = 64 [64,17,19], table [64,300]", ids((64, 17, 19), 300), tab((64, 300)), False
+    yield "B = 64 [64,1,3], table [64,7]", ids((64, 1, 3), 7), tab((64, 7)), False
+    x = ids((3, 97, 129), 600)
+    yield "views off 16 bytes [3,97,129], table [600]", x, tab((600,)), True
+    yield "views off 16 bytes [3,97,129], table [3,600]", x, tab((3, 600)), True
+    yield "views off 16 bytes 2-D [1,1], table [1]", ids((1, 1), 1), tab((1,)), True
+
+
+def add_discs(plane, rng, discs: int) -> None:
+    """The bench's bright particles (bench.py config #1 and #2), in place on
+    a uint16 plane: ``discs`` discs of +20000, centres in [20, n − 20), r² in
+    [30, 200), the same draws as the bench's full-plane masks, each drawn in
+    its own window."""
+    import numpy as np
+
+    n = plane.shape[-1]
+    for _ in range(discs):
+        cy, cx = rng.integers(20, n - 20, 2)
+        r2 = int(rng.integers(30, 200))
+        window = np.s_[cy - 15:cy + 16, cx - 15:cx + 16]  # r < 15, inside the plane
+        yy, xx = np.mgrid[window]
+        plane[window][(yy - cy) ** 2 + (xx - cx) ** 2 <= r2] += 20000
+
+
+def config1_plane(n: int = 512, seed: int = 1, discs: int = 40):
+    """Config #1's 16-bit plane (bench.py's bench_config1 at n²): uniform
+    noise below 400 and ``discs`` bright particles."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = (rng.random((n, n)) * 400).astype(np.uint16)
+    add_discs(img, rng, discs)
+    return img
+
+
+def config2_stack(planes: int = 24, n: int = 512, discs: int = 30, seed: int = 2):
+    """Config #2's first z-stack (bench.py's bench_config2 at n², uint16
+    [planes, n, n]): noise below 400 on every plane, then ``discs`` bright
+    particles a plane (30 at 512², 480 at 2048²: the same density)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    stack = (rng.random((planes, n, n)) * 400).astype(np.uint16)
+    for p in range(planes):
+        add_discs(stack[p], rng, discs)
+    return stack
+
+
+def stack_stats(x):
+    """Config #2's compute (bench.py's stack_stats): the Gaussian blur at
+    σ 1, then ``threshold_and_count_batch`` at max_regions 4095.  Returns
+    the blurred stack and the six outputs."""
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        gaussian_blur,
+        threshold_and_count_batch,
+    )
+
+    den = gaussian_blur(x, 1.0)
+    return den, threshold_and_count_batch(den, max_regions=TH_REGIONS)
+
+
+def hist_inputs(seed: int = 47):
+    """K4's inputs as the Otsu histogram (case, float32 [B, H, W] stack):
+    config #1's [4,128,128] batch rolled by 7·b columns, a constant plane
+    (span 1e-12, every pixel in bin 0), 1x1 planes, planes where every bin
+    is hit, normal noise with a bright half, and a plane whose maximum sits
+    alone in bin 255."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c1 = config1_plane(128, discs=10)
+    yield "config-1 [4,128,128] rolled 7·b", np.stack([np.roll(c1, 7 * b, axis=1)
+                                                       for b in range(4)]).astype(np.float32)
+    yield "constant [1,64,64]", np.full((1, 64, 64), 3.0, np.float32)
+    yield "1x1 planes [3,1,1]", np.array([7, 0, 65535], np.float32).reshape(3, 1, 1)
+    ramp = (np.arange(64 * 128) % 256).astype(np.float32).reshape(64, 128)
+    yield "every bin hit [2,64,128]", np.stack([ramp, ramp[::-1, ::-1] * 3.5 - 100])
+    noise = rng.normal(900.0, 200.0, (2, 97, 131)).astype(np.float32)
+    noise[1, :48] += 4000.0
+    yield "normal, a bright half [2,97,131]", noise
+    lone = rng.random((1, 50, 70)).astype(np.float32)
+    lone[0, 7, 9] = 1e6
+    yield "one bright pixel [1,50,70]", lone
+
+
+def plain_otsu(x):
+    """Per-plane Otsu thresholds of a float32 [B, H, W] stack through the
+    plain histogram (one ``bincount``) on x's device."""
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
+        _bin_index,
+        _bincount,
+        _centers,
+        _otsu_from_hist,
+        _value_range,
+    )
+
+    lo, span = _value_range(x)
+    return _otsu_from_hist(_bincount(_bin_index(x, lo, span, 256), 256),
+                           _centers(lo[..., 0], span[..., 0], 256))
+
+
+def plain_threshold_batch(x, max_regions: int, min_area: int = 1):
+    """``threshold_and_count_batch`` through the plain versions on x's
+    device (float32 [B, H, W]): (thresholds, its six outputs)."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        compact_labels,
+        connected_components,
+        region_counts,
+    )
+
+    t = plain_otsu(x)
+    mask = x > t[:, None, None]
+    m8 = mask.to(torch.uint8)
+    raw, conv = connected_components(m8, background=None, num_classes=2, with_flag=True)
+    seg, num_total = compact_labels(raw, max_regions)
+    areas, classes = region_counts(seg, m8, max_regions)
+    fg = (classes == 1) & (areas > 0)
+    count = (fg & (areas >= min_area)).sum(dim=-1, dtype=torch.int32)
+    return t, (mask, seg, count, fg.sum(dim=-1, dtype=torch.int32), num_total, conv)
+
+
+def plain_threshold(img, max_regions: int, min_area: int = 1):
+    """``threshold_and_count`` through the plain versions on img's device:
+    (threshold, the plain CCL's converged flag, its four outputs)."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        compact_labels,
+        connected_components,
+        region_counts,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+
+    x = as_float32(img)
+    t = plain_otsu(x[None])[0]
+    mask = x > t
+    raw, conv = connected_components(mask.to(torch.uint8), background=0, num_classes=2,
+                                     with_flag=True)
+    seg, num = compact_labels(raw, max_regions)
+    area, _ = region_counts(seg, mask.to(torch.int32), max_regions)
+    return t, conv, (mask, seg, (area[1:] >= min_area).sum(dtype=torch.int32), num)
 
 
 def off16(x):
@@ -862,6 +1073,277 @@ def device_ms(fn, reps: int = 5) -> float:
     return busy_us(intervals) / reps / 1e3
 
 
+def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
+    """Phase 5's threshold path (configs #1 and #2) on the card: each call
+    through the kernels (CUDA events, and device time a call by
+    torch.profiler) and through the plain versions; config #2 at
+    [24,2048,2048] step by step (blur, min/max, bin ids, the K4 histogram,
+    the Otsu reduction, the mask, K2, K3, K4 counts; device time a call of
+    each on the previous step's output) against the whole call; K4's
+    histogram launch beside one ``torch.bincount`` of the offset ids, and K2
+    on the binary mask.  Returns K4's and K2's entries for the record's
+    ``more_shapes``."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        ccl_cuda,
+        compact_labels_cuda,
+        connected_components,
+        gaussian_blur,
+        region_counts_cuda,
+        threshold_and_count,
+        threshold_and_count_batch,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
+        _bin_counts,
+        _bin_index,
+        _bincount,
+        _centers,
+        _otsu_from_hist,
+        _value_range,
+    )
+
+    dev, B2 = x1.device, x2k.shape[0]
+    big = f"[{B2},{x2k.shape[1]},{x2k.shape[2]}]"
+
+    def plain_stack_stats(x):
+        den = gaussian_blur(x, 1.0)
+        return den, plain_threshold_batch(den, TH_REGIONS)
+
+    def traced(fn, reps: int = 5):
+        """(device ms, device activities) a call, by torch.profiler."""
+        intervals = traced_calls(fn, reps)
+        if not intervals:
+            raise AssertionError("the trace holds no device activity")
+        return busy_us(intervals) / reps / 1e3, len(intervals) / reps
+
+    th_times = {}
+    for name, fn, plain_fn, px in (
+            (f"config #1 threshold_and_count {list(x1.shape)}",
+             lambda: threshold_and_count(x1, max_regions=TH_REGIONS),
+             lambda: plain_threshold(x1, TH_REGIONS), x1.numel()),
+            (f"config #1 threshold_and_count_batch {list(x1b.shape)}",
+             lambda: threshold_and_count_batch(x1b, max_regions=TH_REGIONS),
+             lambda: plain_threshold_batch(as_float32(x1b), TH_REGIONS), x1b.numel()),
+            (f"config #2 stack_stats {list(x2.shape)}", lambda: stack_stats(x2),
+             lambda: plain_stack_stats(x2), x2.numel()),
+            (f"config #2 stack_stats {big}", lambda: stack_stats(x2k),
+             lambda: plain_stack_stats(x2k), x2k.numel())):
+        th_times[name] = (time_ms(fn, reps=10), *traced(fn), time_ms(plain_fn, reps=1))
+        ev, dv, acts, pl = th_times[name]
+        log(f"phase 5 times [{card}]: {name}: kernels {ev:.4f} ms by CUDA events "
+            f"({px / ev / 1e3:.1f} MP/s), device {dv:.4f} ms in {acts:.0f} device "
+            f"activities a call; plain {pl:.3f} ms")
+    # config #2 at its large shape step by step, each step's device time a
+    # call on the previous step's output
+    den2k = gaussian_blur(x2k, 1.0)
+    lo, span = _value_range(den2k)
+    idx2k = _bin_index(den2k, lo, span, 256)
+    counts2k = _bin_counts(idx2k, 256)
+    centers2k = _centers(lo[..., 0], span[..., 0], 256)
+    t2k = _otsu_from_hist(counts2k, centers2k)
+    m8_2k = (den2k > t2k[:, None, None]).to(torch.uint8)
+    raw2k = ccl_cuda(m8_2k)
+    seg2k, _ = compact_labels_cuda(raw2k, TH_REGIONS)
+    steps = {
+        "blur": lambda: gaussian_blur(x2k, 1.0),
+        "min/max": lambda: _value_range(den2k),
+        "bin ids": lambda: _bin_index(den2k, lo, span, 256),
+        "K4 histogram (zeros + K4)": lambda: _bin_counts(idx2k, 256),
+        "Otsu reduction": lambda: (_centers(lo[..., 0], span[..., 0], 256),
+                                   _otsu_from_hist(counts2k, centers2k)),
+        "mask": lambda: (den2k > t2k[:, None, None]).to(torch.uint8),
+        "K2": lambda: ccl_cuda(m8_2k),
+        "K3": lambda: compact_labels_cuda(raw2k, TH_REGIONS),
+        "K4 counts": lambda: region_counts_cuda(seg2k, m8_2k, TH_REGIONS),
+    }
+    th_split = {k: traced(fn) for k, fn in steps.items()}
+    whole = th_times[f"config #2 stack_stats {big}"][1]
+    log(f"phase 5 times [{card}]: config #2 stack_stats {big} by step, device ms a "
+        f"call (device activities): " + ", ".join(f"{k} {v:.4f} ({n:.0f})"
+                                                  for k, (v, n) in th_split.items())
+        + f"; sum {sum(v for v, _ in th_split.values()):.4f} against {whole:.4f} for the "
+        f"whole call (blur {100 * th_split['blur'][0] / whole:.1f} %)")
+    # K4's histogram launch beside one torch.bincount of the offset ids
+    # b * 256 + idx (its library yardstick at this shape), and K2 on the
+    # binary mask
+    zeros2k = torch.zeros(idx2k.shape, dtype=torch.uint8, device=dev)
+    offs = (idx2k.to(torch.int64)
+            + 256 * torch.arange(B2, device=dev).view(-1, 1, 1)).reshape(-1)
+    if not torch.equal(torch.bincount(offs, minlength=B2 * 256).view(B2, 256).to(torch.int32),
+                       region_counts_cuda(idx2k, zeros2k, 255)[0]):
+        raise AssertionError("phase 5: torch.bincount's histogram differs from K4's")
+    k4h = (lambda: region_counts_cuda(idx2k, zeros2k, 255))
+    k2m = (lambda: ccl_cuda(m8_2k))
+    # the histogram's own bytes: an int32 bin id a pixel in, an int32 count a
+    # bin out (the uint8 zeros and the class table come of reusing K4)
+    hist_px, hist_bins = x2k.numel(), B2 * 256
+    more_shapes = {
+        "K4": {"shape": f"Otsu histogram {big} R+1=256, uint8 zeros",
+               "ms": time_ms(k4h, reps=10), "device_ms": device_ms(k4h),
+               "plain_ms": time_ms(lambda: _bincount(idx2k, 256), reps=3),
+               "bound_ms": (4 * hist_px + 4 * hist_bins) / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "library_ms": time_ms(lambda: torch.bincount(offs, minlength=hist_bins), reps=10)},
+        "K2": {"shape": f"binary mask {big} uint8, background=None",
+               "ms": time_ms(k2m, reps=10), "device_ms": device_ms(k2m),
+               "plain_ms": time_ms(lambda: connected_components(m8_2k, num_classes=2), reps=1),
+               "bound_ms": 5 * hist_px / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "library_ms": None},
+    }
+    for k in ("K4", "K2"):
+        m = more_shapes[k]
+        lib = f", one torch.bincount {m['library_ms']:.4f} ms" if m["library_ms"] else ""
+        log(f"phase 5 times [{card}]: {k} {m['shape']}: {m['ms']:.4f} ms by CUDA events, "
+            f"device {m['device_ms']:.4f}, bound {m['bound_ms']:.4f}; plain "
+            f"{m['plain_ms']:.3f} ms{lib}")
+    return more_shapes
+
+
+def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) -> dict:
+    """Phase 9: the threshold path on the card, through the entry points
+    (config #1's plane c1 = x1 through ``threshold_and_count``, its
+    [16,512,512] batch x1b through ``threshold_and_count_batch``, config
+    #2's stacks x2 and x2k through ``stack_stats``).  Launch counts are
+    reset just before and read just after; every output is then held to
+    the plain versions on the card and to scipy's component counts, and the
+    batch to the plain CPU run.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from scipy import ndimage as ndi
+
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        ccl_cuda,
+        gaussian_blur,
+        histogram,
+        otsu_threshold,
+        otsu_threshold_batch,
+        region_counts_cuda,
+        threshold_and_count,
+        threshold_and_count_batch,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+
+    reset_counts()
+    t0 = time.perf_counter()
+    single = threshold_and_count(x1, max_regions=TH_REGIONS)
+    batch1 = threshold_and_count_batch(x1b, max_regions=TH_REGIONS)
+    den2, stats2 = stack_stats(x2)
+    den2k, stats2k = stack_stats(x2k)
+    torch.cuda.synchronize()
+    threshold_s = time.perf_counter() - t0
+    threshold_launches = read_counts()
+    # four calls: K2 and K3 once each; K4 twice, the Otsu histogram and the
+    # region table
+    want_launches = {k: {"K2": 4, "K3": 4, "K4": 8}.get(k, 0) for k in threshold_launches}
+    log(f"phase 9 threshold path: threshold_and_count {list(x1.shape)}, "
+        f"threshold_and_count_batch {list(x1b.shape)}, stack_stats {list(x2.shape)} and "
+        f"{list(x2k.shape)}: {threshold_s:.2f} s wall "
+        f"[{card}]; kernel launches {threshold_launches}")
+    if threshold_launches != want_launches:
+        raise AssertionError(f"phase 9: launches {threshold_launches}, expected {want_launches} "
+                             "(the histogram is K4's launch on the card)")
+
+    def same(case: str, name: str, got, want) -> None:
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"phase 9 {case}: {name} differs from the plain versions'")
+
+    def labelled(fg):
+        """scipy's 8-connected components of a bool plane: (areas, count)."""
+        lab, n = ndi.label(fg, structure=np.ones((3, 3), int))
+        return np.bincount(lab.ravel(), minlength=n + 1)[1:], n
+
+    def check_batch(case: str, x, got) -> None:
+        """The kernels' six outputs against the plain versions on the card
+        (thresholds bit for bit, labels where the plain CCL converged, K2's
+        labels against scipy's where it did not) and scipy's counts."""
+        t_k = otsu_threshold_batch(x)
+        t_p, want = plain_threshold_batch(x, TH_REGIONS)
+        same(case, "thresholds", t_k.view(torch.int32), t_p.view(torch.int32))
+        mask, seg, count, num_fg, num_total, conv = got
+        if not bool(conv.all()):
+            raise AssertionError(f"phase 9 {case}: the kernels report a plane unconverged")
+        same(case, "mask", mask, want[0])
+        conv_p = want[5].cpu().tolist()
+        for b, ok in enumerate(conv_p):
+            if ok:
+                for name, g, w in zip(("seg", "count", "num_fg", "num_total"), got[1:5], want[1:5]):
+                    same(f"{case} plane {b}", name, g[b], w[b])
+            else:
+                m8 = mask[b].to(torch.uint8)
+                want_raw = scipy_min_index(m8.cpu().numpy(), None, 8)
+                if not np.array_equal(ccl_cuda(m8).cpu().numpy(), want_raw):
+                    raise AssertionError(f"phase 9 {case} plane {b}: K2 differs from scipy")
+        img, t_h, m_h = x.cpu().numpy(), t_k.cpu().numpy(), mask.cpu().numpy()
+        counts, totals = count.cpu().tolist(), num_total.cpu().tolist()
+        for b in range(img.shape[0]):
+            fg = img[b] > t_h[b]
+            areas, n_fg = labelled(fg)
+            n_bg = labelled(~fg)[1]
+            if not np.array_equal(fg, m_h[b]) or totals[b] != n_fg + n_bg:
+                raise AssertionError(f"phase 9 {case} plane {b}: mask or num_total differs "
+                                     f"from scipy's ({totals[b]} vs {n_fg} + {n_bg})")
+            if totals[b] <= TH_REGIONS and counts[b] != int((areas >= 1).sum()):
+                raise AssertionError(f"phase 9 {case} plane {b}: count {counts[b]}, scipy "
+                                     f"{int((areas >= 1).sum())}")
+        over = [b for b, n in enumerate(totals) if n > TH_REGIONS]
+        log(f"phase 9 {case}: == plain on the card ({sum(conv_p)} of {len(conv_p)} planes "
+            f"converged in the plain CCL's 64 rounds, K2 == scipy on the others), count and "
+            f"num_total == scipy's; overflowing planes {over}")
+        log(f"phase 9 {case}: thresholds {[float(v) for v in t_h]}")
+        log(f"phase 9 {case}: count {counts}; num_total {totals}")
+
+    t_p, conv_p, want = plain_threshold(x1, TH_REGIONS)
+    if not bool(conv_p):
+        raise AssertionError("phase 9: the plain CCL did not converge on config #1's plane")
+    for name, g, w in zip(("mask", "seg", "count", "num"), single, want, strict=True):
+        same(f"config #1 single {list(x1.shape)}", name, g, w)
+    areas, n = labelled(c1.astype(np.float32) > float(t_p))
+    if int(single[3]) != n or (n <= TH_REGIONS and int(single[2]) != int((areas >= 1).sum())):
+        raise AssertionError(f"phase 9 config #1 single: count {int(single[2])}, num "
+                             f"{int(single[3])}; scipy {n}")
+    log(f"phase 9 config #1 single {list(x1.shape)}: == plain on the card; threshold "
+        f"{float(t_p)}, count {int(single[2])} == scipy's")
+    # the single-plane histogram and otsu_threshold: K4 on [1,512,512] bin ids
+    launches = region_counts_cuda.launches
+    counts, centers = histogram(x1)
+    t1 = otsu_threshold(x1)
+    if region_counts_cuda.launches != launches + 2:
+        raise AssertionError("phase 9: histogram and otsu_threshold did not launch K4 once each")
+    want_counts, want_centers = histogram(x1.cpu())
+    same("config #1 histogram", "counts", counts.cpu(), want_counts)
+    same("config #1 histogram", "centres", centers.cpu().view(torch.int32),
+         want_centers.view(torch.int32))
+    same("config #1 otsu_threshold", "threshold", t1.view(torch.int32), t_p.view(torch.int32))
+    log(f"phase 9 config #1 histogram and otsu_threshold {list(x1.shape)}: one K4 launch "
+        f"each, == the plain CPU histogram and the call's threshold")
+    check_batch(f"config #1 batch {list(x1b.shape)}", as_float32(x1b), batch1)
+    check_batch(f"config #2 stack_stats {list(x2.shape)}", den2, stats2)
+    check_batch(f"config #2 stack_stats {list(x2k.shape)}", den2k, stats2k)
+    # the [16,512,512] batch through the plain versions on the CPU
+    t0 = time.perf_counter()
+    cpu = threshold_and_count_batch(x1b.cpu(), max_regions=TH_REGIONS)
+    cpu_s = time.perf_counter() - t0
+    same("config #1 batch on the CPU", "thresholds",
+         otsu_threshold_batch(x1b).cpu().view(torch.int32),
+         otsu_threshold_batch(x1b.cpu()).view(torch.int32))
+    for i, name in ((0, "mask"), (2, "count"), (3, "num_fg"), (4, "num_total")):
+        same("config #1 batch on the CPU", name, batch1[i].cpu(), cpu[i])
+    log(f"phase 9 config #1 batch {list(x1b.shape)}: thresholds, masks, count, num_fg and "
+        f"num_total == the plain CPU run's ({cpu_s:.1f} s)")
+    # config #2's smaller stack holds a near-tie (plane 6 at 512²: two cuts
+    # within 1.5e-7 of each other), which a sum in another order flips: the
+    # card's blur and thresholds equal the CPU's
+    den_cpu = gaussian_blur(x2.cpu(), 1.0)
+    same("config #2 on the CPU", "blur", den2.cpu().view(torch.int32), den_cpu.view(torch.int32))
+    same("config #2 on the CPU", "thresholds", otsu_threshold_batch(den2).cpu().view(torch.int32),
+         otsu_threshold_batch(den_cpu).view(torch.int32))
+    log(f"phase 9 config #2 stack_stats {list(x2.shape)}: the blur and the thresholds == the "
+        f"CPU's bit for bit")
+    return threshold_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
@@ -930,6 +1412,13 @@ def main() -> int:
         watershed,
         watershed_auto,
         watershed_cuda,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops import gaussian_blur
+    from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
+        _bin_index,
+        _bincount,
+        _value_range,
     )
     from particle_col_image_segmentation_tpu_torch.ops.watershed import (
         claim_labels,
@@ -1094,6 +1583,32 @@ def main() -> int:
                 list(region_counts(st, vt, mr)))
         compare("K4", f"region_sums {case} max_regions={mr}", list(region_sums_cuda(st, vt, mr)),
                 list(region_sums(st, vt, mr)))
+    # K4 as the Otsu histogram: bin ids (R + 1 = 256) with uint8 zeros as
+    # values, against the plain bincount; config #1's batch and config #2's
+    # blurred [24,2048,2048] stack are the threshold path's own inputs
+    def histogram_k4(case: str, x) -> None:
+        lo, span = _value_range(x)
+        idx = _bin_index(x, lo, span, 256)
+        zeros = torch.zeros(idx.shape, dtype=torch.uint8, device=dev)
+        compare("K4", f"Otsu histogram {case}", [region_counts_cuda(idx, zeros, 255)[0]],
+                [_bincount(idx, 256)])
+
+    for case, xs in hist_inputs():
+        histogram_k4(case, torch.from_numpy(xs).to(dev))
+    c1 = config1_plane()
+    x1b = torch.from_numpy(np.stack([np.roll(c1, 7 * b, axis=1) for b in range(16)])).to(dev)
+    histogram_k4("config #1 [16,512,512]", as_float32(x1b))
+    # config #2's [24,2048,2048] stack stays on the host between the phases
+    # that use it (here, phase 5's threshold times, phase 9), so the card
+    # holds none of it while the other paths run and are timed
+    t0 = time.perf_counter()
+    x2k_np = config2_stack(24, H, 480)
+    log(f"phase 3 config #2 stack [24,{H},{W}] uint16 (480 discs a plane) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    histogram_k4(f"config #2 blurred [24,{H},{W}]",
+                 gaussian_blur(torch.from_numpy(x2k_np).to(dev), 1.0))
+    torch.cuda.empty_cache()
+
     # K5's edge inputs (K4's, then runs meeting row and plane ends, B = 1 and
     # 64, tables that overflow) and K8's on both of its routes
     for case, seg_np, val_np, mr, shifted in k5_inputs():
@@ -1121,6 +1636,12 @@ def main() -> int:
                 [table_lookup_cuda(ids, tab)], [table_lookup(ids, tab)])
         compare("K6", f"2-D ids, table [{R1}]", [table_lookup_cuda(ids[1], tab.reshape(-1, R1)[0])],
                 [table_lookup(ids[1], tab.reshape(-1, R1)[0])])
+    for case, ids_np, tab_np, shifted in k6_inputs():
+        st, tt = torch.from_numpy(ids_np).to(dev), torch.from_numpy(tab_np).to(dev)
+        if shifted:
+            st, tt = off16(st), off16(tt)
+        compare("K6", case, [table_lookup_cuda(st, tt)], [table_lookup(st, tt)])
+    del st, tt
 
     def edt(case: str, m, c: int) -> str:
         """K9 against plain on m at cap c, its flag against the plain
@@ -1424,6 +1945,11 @@ def main() -> int:
             f"(device {device_ms(k5):.4f}), K8 kernel {time_ms(k8, reps=10):.4f} ms (device "
             f"{device_ms(k8):.4f}, route {particle_fill_step_cuda.last_route})")
     del seg1, den1
+    # K6 by device time too: a call this short reads its wrapper's host path
+    # by events
+    k6_device_ms = device_ms(lambda: table_lookup_cuda(seg8[0], tab), reps=20)
+    log(f"phase 5 times [{card}]: K6 [{H},{W}] R={R1}: {ms['K6']:.4f} ms by CUDA events, "
+        f"device {k6_device_ms:.4f} ms (torch.profiler, 20 calls)")
     split = kernel_split(lambda: compact_labels_cuda(raw, MAX_REGIONS), K3_PHASES)
     log(f"phase 5 times [{card}]: K3 on raw [{BATCH},{H},{W}]: torch.profiler: "
         + ", ".join(f"{p} {v:.3f}" for p, v in split.items()) + " ms")
@@ -1557,6 +2083,17 @@ def main() -> int:
     log(f"phase 5 times [{card}]: refine_plane_device [{REFINE_PLANES},{H},{W}] kernels "
         f"{refine_ms:.3f} ms = {rmp / refine_ms * 1e3:.1f} MP/s; plain "
         f"{plain_refine_ms:.3f} ms = {rmp / plain_refine_ms * 1e3:.1f} MP/s")
+
+    # the threshold path (configs #1 and #2): times, and K4's and K2's own
+    # shapes on it
+    x1 = torch.from_numpy(c1).to(dev)
+    x2 = torch.from_numpy(config2_stack()).to(dev)
+    more_shapes = threshold_times(card, x1, x1b, x2, torch.from_numpy(x2k_np).to(dev))
+    torch.cuda.empty_cache()
+    more_shapes["K6"] = {"shape": f"[{H},{W}] R={R1}, device time", "ms": k6_device_ms,
+                         "device_ms": k6_device_ms, "plain_ms": plain_ms["K6"],
+                         "bound_ms": (8 * H * W + 4 * R1) / HBM_BYTES_PER_S * 1e3,
+                         "bound_by": "bytes", "library_ms": None}
     log(f"phase 5 peak device memory: "
         f"{max(smoke_peak, torch.cuda.max_memory_allocated(dev)) / 2**30:.2f} GiB")
 
@@ -1674,6 +2211,11 @@ def main() -> int:
     log(f"phase 8 refine path: [2,1024,1024] crop stack CSV ({n_rows} cells) == the plain "
         f"CPU run's ({cpu_s:.1f} s), byte for byte")
 
+    # ---- phase 9: the threshold path (configs #1 and #2) ---------------------
+    threshold_launches = threshold_phase(card, c1, x1, x1b, x2, torch.from_numpy(x2k_np).to(dev),
+                                         reset_counts, read_counts)
+    del x1, x1b, x2, x2k_np
+
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
     if loaded:
@@ -1691,13 +2233,15 @@ def main() -> int:
                    "K6": 4 * R1, "K7": 20 * REFINE_PLANES * R1r, "K8": 4 * 8}
     bound_ms = {k: (n_px[k] * planes_of[k] * H * W + table_bytes.get(k, 0))
                 / HBM_BYTES_PER_S * 1e3 for k in n_px}
-    paths = {"batch": batch_launches, "analyze": analyze_launches, "refine": refine_launches}
+    paths = {"batch": batch_launches, "analyze": analyze_launches, "refine": refine_launches,
+             "threshold": threshold_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
          "launches": sum(v[k] for v in paths.values()),
          "launches_by_path": {p: v[k] for p, v in paths.items()},
          "max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k],
-         "bound_ms": bound_ms[k], "bound_by": "bytes", "library_ms": library_ms.get(k)}
+         "bound_ms": bound_ms[k], "bound_by": "bytes", "library_ms": library_ms.get(k),
+         **({"more_shapes": [more_shapes[k]]} if k in more_shapes else {})}
         for k, name, src, tpu in KERNELS
     ]}
     log(card)

@@ -31,6 +31,7 @@ from particle_col_image_segmentation_tpu_torch.ops.fill_tiles import (  # noqa: 
     particle_fill_step_cuda,
 )
 from particle_col_image_segmentation_tpu_torch.ops.filters import (  # noqa: F401
+    gaussian_blur,
     median_label_filter,
 )
 from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import (  # noqa: F401
@@ -69,6 +70,13 @@ from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import (  #
     table_lookup,
     table_lookup_auto,
     table_lookup_cuda,
+)
+from particle_col_image_segmentation_tpu_torch.ops.threshold import (  # noqa: F401
+    histogram,
+    otsu_threshold,
+    otsu_threshold_batch,
+    threshold_and_count,
+    threshold_and_count_batch,
 )
 from particle_col_image_segmentation_tpu_torch.ops.watershed import (  # noqa: F401
     watershed,

@@ -1,7 +1,8 @@
-"""Plain median filter of label planes (the K1 kernel's reference version).
+"""Plain median filter of label planes (the K1 kernel's reference version),
+and the Gaussian blur.
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/filters.py``
-(``median_label_filter`` and its threshold-packing helpers).  The median of
+(``median_label_filter`` and its threshold-packing helpers, ``gaussian_blur``).  The median of
 an integer window with values < K comes from cumulative class counts:
 
     median = #{ v < K-1 : count(window ≤ v) < ⌈n/2⌉ }
@@ -13,9 +14,15 @@ and one separable box sum counts a whole group.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["median_label_filter"]
+__all__ = ["as_float32", "gaussian_blur", "median_label_filter"]
+
+# dtypes the float32 cast takes: those the JAX package's astype(jnp.float32)
+# takes without x64, plus torch.uint16
+_REAL = (torch.uint8, torch.int8, torch.int16, torch.uint16, torch.int32,
+         torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
 
 def _threshold_packing(size: int, num_classes: int):
@@ -79,3 +86,49 @@ def median_label_filter(img: torch.Tensor, size: int = 5, num_classes: int = 8) 
         counts = _valid_window_sum(_valid_window_sum(packed, size, -1), size, -2)
         med = median_from_counts(med, counts, group, bits, half_rank)
     return med.to(img.dtype)
+
+
+def as_float32(img: torch.Tensor) -> torch.Tensor:
+    """``img.astype(jnp.float32)``: uint8, int8, int16, uint16, int32,
+    float16, bfloat16, float32 or float64, on img's device (exact for every
+    integer value here).  A torch.uint16 tensor is read through its int16
+    view, since few ops take uint16 on the card."""
+    if img.dtype not in _REAL:
+        raise ValueError(f"expected one of {[str(d) for d in _REAL]}, got {img.dtype}")
+    if img.dtype == torch.uint16:
+        return img.view(torch.int16).to(torch.int32).bitwise_and_(0xFFFF).to(torch.float32)
+    return img.to(torch.float32)
+
+
+def _taps(xp: torch.Tensor, k, axis: int, n: int) -> torch.Tensor:
+    """Σ_o xp[o : o + n] · k[o] along axis, in tap order: one float32
+    multiply and one add a tap."""
+    out = xp.narrow(axis, 0, n) * float(k[0])
+    for o in range(1, len(k)):
+        out += xp.narrow(axis, o, n) * float(k[o])
+    return out
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """MATLAB imgaussfilt parity: separable Gaussian, kernel 2·ceil(2σ)+1,
+    replicate ('nearest') padding; float32 [..., H, W] on img's device (any
+    dtype ``as_float32`` takes).
+
+    Plain PyTorch, as the JAX package leaves the blur to XLA.  It sums in
+    the JAX package's order, so the two agree bit for bit: normalised
+    float64 taps rounded to float32, columns (axis -2) first, then rows,
+    each output the taps in order, one multiply and one add a tap.  A fused
+    kernel has to keep that order and must not contract a multiply and an
+    add into an FMA."""
+    half = int(np.ceil(2 * sigma))
+    xs = np.arange(-half, half + 1, dtype=np.float64)
+    k = np.exp(-(xs * xs) / (2 * sigma * sigma))
+    k = (k / k.sum()).astype(np.float32)
+    x = as_float32(img)
+    H, W = x.shape[-2:]
+    # edge replication commutes with the per-axis sums: pad each axis just
+    # before its own pass
+    rows = torch.arange(-half, H + half, device=x.device).clamp_(0, H - 1)
+    x = _taps(x.index_select(-2, rows), k, -2, H)
+    cols = torch.arange(-half, W + half, device=x.device).clamp_(0, W - 1)
+    return _taps(x.index_select(-1, cols), k, -1, W)

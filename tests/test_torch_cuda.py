@@ -56,15 +56,22 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
 )
 
 from chip_smoke import (
+    config1_plane,
+    config2_stack,
+    hist_inputs,
     k3_inputs,
     k3_raw,
     k4_inputs,
     k5_inputs,
+    k6_inputs,
     k7_inputs,
     k8_inputs,
     k9_inputs,
     off16,
+    plain_threshold,
+    plain_threshold_batch,
     scipy_min_index,
+    stack_stats,
     ws_budgets,
     ws_corridor,
     ws_mixed,
@@ -356,6 +363,23 @@ def test_table_lookup_kernel(dev, shape, R):
         assert table_lookup_cuda.launches == before + 1
 
 
+def test_table_lookup_kernel_edges(dev):
+    """K6 on chip_smoke.k6_inputs: ids and table values at INT32_MIN and
+    INT32_MAX, R = 1 to 40000, [R] and [B,R] tables, H*W not a multiple of 4
+    (a vector straddles two planes), B = 64, views off a 16-byte boundary;
+    each 3-D case with an [R] table also as its first plane alone."""
+    for case, seg, tab, shifted in k6_inputs():
+        s, t = torch.from_numpy(seg).to(dev), torch.from_numpy(tab).to(dev)
+        if shifted:
+            s, t = off16(s), off16(t)
+            assert s.data_ptr() % 16 and t.data_ptr() % 16, case
+        before = table_lookup_cuda.launches
+        _equal([table_lookup_cuda(s, t)], [table_lookup(s, t)], case)
+        assert table_lookup_cuda.launches == before + 1
+        if s.ndim == 3 and t.ndim == 1:
+            _equal([table_lookup_cuda(s[0], t)], [table_lookup(s[0], t)], case)
+
+
 @pytest.mark.parametrize("cap", [0, 2, 5, 8, 9, 20, 32])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_edt_kernel(dev, shape, cap):
@@ -594,3 +618,85 @@ def test_local_maxima_and_exact_edt_kernels(dev):
     _equal([edt_sq_exact_auto(deep)], [edt_sq_exact(deep)])
     with pytest.raises(ValueError, match="uint8 or int32"):
         local_maxima_auto(dsq.to(torch.float32))
+
+
+# ---- the threshold path: K4 as the Otsu histogram, configs #1 and #2 ----
+
+
+def test_histogram_kernel(dev):
+    """K4 on bin ids (R+1 = 256, uint8 zeros) against the plain bincount on
+    chip_smoke.hist_inputs: one launch a call, none of the plain path."""
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
+        _bin_counts,
+        _bin_index,
+        _bincount,
+        _value_range,
+    )
+
+    for case, xs in hist_inputs():
+        x = torch.from_numpy(xs).to(dev)
+        lo, span = _value_range(x)
+        idx = _bin_index(x, lo, span, 256)
+        before = region_counts_cuda.launches
+        got = _bin_counts(idx, 256)
+        assert region_counts_cuda.launches == before + 1, case
+        _equal([got], [_bincount(idx, 256)], case)
+        _equal([_bin_counts(idx[0], 256)], [_bincount(idx[0], 256)], case)
+
+
+def _threshold_cases():
+    c1 = config1_plane(256, discs=20)
+    yield "config #1 single [256,256]", c1
+    yield "config #1 batch [4,256,256]", np.stack([np.roll(c1, 7 * b, axis=1) for b in range(4)])
+    yield "config #2 stack_stats [3,256,256]", config2_stack(3, 256, discs=8)
+
+
+@pytest.mark.parametrize("case", [c for c, _ in _threshold_cases()])
+def test_threshold_functions_through_the_kernels(dev, case):
+    """threshold_and_count, threshold_and_count_batch and config #2's
+    stack_stats on the card: K2 and K3 once a call and K4 twice (the
+    histogram and the table), outputs on the card and equal to the plain
+    versions on the card, thresholds bit for bit.  The single-plane
+    ``histogram`` and ``otsu_threshold`` of the first plane launch K4 once
+    each and equal the plain CPU histogram and the call's threshold."""
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        gaussian_blur,
+        histogram,
+        otsu_threshold,
+        otsu_threshold_batch,
+        threshold_and_count,
+        threshold_and_count_batch,
+    )
+
+    img = dict(_threshold_cases())[case]
+    x = torch.from_numpy(img).to(dev)
+    before = (ccl_cuda.launches, compact_labels_cuda.launches, region_counts_cuda.launches)
+    if "single" in case:
+        got = threshold_and_count(x, max_regions=4095)
+        t, conv, want = plain_threshold(x, 4095)
+    elif "batch" in case:
+        got = threshold_and_count_batch(x, max_regions=4095)
+        t, want = plain_threshold_batch(x.to(torch.float32), 4095)
+        conv = want[5].all()
+    else:
+        den, got = stack_stats(x)
+        _equal([den], [gaussian_blur(x.cpu(), 1.0).to(dev)], case)
+        t, want = plain_threshold_batch(den, 4095)
+        conv = want[5].all()
+    after = (ccl_cuda.launches, compact_labels_cuda.launches, region_counts_cuda.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 2), case
+    assert all(g.device == x.device for g in got), case
+    assert bool(conv), case
+    _equal(got, want, case)
+    if "single" not in case:
+        src = x.to(torch.float32) if "batch" in case else den
+        _equal([otsu_threshold_batch(src).view(torch.int32)], [t.view(torch.int32)], case)
+    plane = x if "single" in case else src[0]
+    before = region_counts_cuda.launches
+    counts, centers = histogram(plane)
+    t0 = otsu_threshold(plane)
+    assert region_counts_cuda.launches == before + 2, case
+    want_counts, want_centers = histogram(plane.cpu())
+    _equal([counts, centers.view(torch.int32), t0.view(torch.int32)],
+           [want_counts.to(dev), want_centers.to(dev).view(torch.int32),
+            t.reshape(-1)[0].view(torch.int32)], case)

@@ -320,6 +320,26 @@ def test_table_lookup_matches_mxu_and_auto(batched_table):
         table_lookup(torch.from_numpy(seg[0]), torch.from_numpy(np.zeros((2, R), np.int32)))
 
 
+def test_table_lookup_edges_match_jax():
+    """The plain K6 on chip_smoke.k6_inputs (ids and table values at INT32_MIN
+    and INT32_MAX, R = 1 to 40000, [R] and [B,R] tables, H*W not a multiple
+    of 4, B = 64) equals the JAX gather path; the card holds K6 to it on the
+    same inputs."""
+    from chip_smoke import k6_inputs
+
+    from particle_col_image_segmentation_tpu.ops.regionprops_tiles import (
+        table_lookup_auto as jax_lookup_auto,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import table_lookup
+
+    for case, seg, tab, _ in k6_inputs():
+        got = table_lookup(torch.from_numpy(seg), torch.from_numpy(tab))
+        assert got.dtype == torch.int32, case
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax_lookup_auto(jnp.asarray(seg), jnp.asarray(tab))),
+            err_msg=case)
+
+
 def test_table_auto_takes_plain_on_cpu_and_wrappers_refuse_cpu():
     from particle_col_image_segmentation_tpu_torch.ops.regionprops import (
         region_props,

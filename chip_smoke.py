@@ -7,7 +7,8 @@ Phases (each prints as it goes; any failure raises, so the exit code is
 nonzero and no result line is printed):
   1. environment — card name and power limit, torch/CUDA versions, compute
      capability (must be 9.x), whether triton, h5py and matplotlib import
-     (nothing below needs them), the nvcc in use;
+     (nothing below needs them), the nvcc in use, whether g++ runs and
+     finds zlib.h (the native TIFF codec's build) and whether PIL imports;
   2. build — the eleven kernels K1-K11 from csrc/ (one nvcc per source,
      in parallel), timed;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
@@ -128,16 +129,30 @@ nonzero and no result line is printed):
      (one K4 launch each) equal to the plain CPU histogram and the call's
      threshold.  The [24,2048,2048] stack is made once on the host and is
      on the card only in phase 3's histogram check, phase 5's threshold
-     times and phase 9.
+     times and phase 9;
+ 10. config #2 from TIFFs on disk (``zstack_phase``) — four [24,512,512]
+     and two [24,2048,2048] stacks (``config2_stacks``) written as
+     multi-page uint16 TIFFs, each decoded by the port's native codec bit
+     for bit (no PIL time is taken for it); host copies into a fresh and
+     a reused buffer, the pinned host-to-device copy, stack_stats,
+     bench.py's end-to-end MP/s (decode inside the timer) and the same
+     loop stepped (decode, pageable copy, compute per stack) by CUDA events
+     and the host's clock, K2, K3 and K4 launched (counts reset just before
+     the end-to-end runs); every
+     stack's blur and thresholds equal to the plain CPU run's, masks to
+     the CPU's den > t, counts and num_total to scipy's; a CPU baseline
+     (scipy blur, numpy Otsu, scipy label) for vs_cpu; then the split and
+     normalize verbs in fresh interpreters (``split_and_normalize``).
 The line before the last is the per-kernel JSON record (``launches`` sums
-the batch, analyze, refine and threshold paths' runs, ``bound_ms`` is the
-bytes each function must move over 3.35 TB/s, ``more_shapes`` holds K2's
-and K4's threshold-path shapes and K6's device time); the last line is
+the batch, analyze, refine, threshold and zstack paths' runs,
+``bound_ms`` is the bytes each function must move over 3.35 TB/s,
+``more_shapes`` holds K2's and K4's threshold-path shapes and K6's device
+time; ``zstack`` holds phase 10's numbers); the last line is
 {"ok": true, ...}.
 
-The script imports the port, bench.py's plane generator, numpy and scipy:
-nothing of JAX and nothing of the JAX package, which it checks before the
-record line.  CSV parity of the port with the JAX package is held in
+The script imports the port, bench.py's plane generator, numpy, scipy and
+PIL: nothing of JAX and nothing of the JAX package, which it checks before
+the record line.  CSV parity of the port with the JAX package is held in
 tests/test_torch_analysis.py and tests/test_torch_refine.py.
 """
 
@@ -195,6 +210,20 @@ def imports(name: str) -> str:
     except ImportError as e:
         return f"does not import ({e})"
     return f"imports ({getattr(mod, '__version__', '?')})"
+
+
+def host_compiler() -> str:
+    """Whether g++ runs and finds zlib.h, which the port's native TIFF codec
+    (io/native/pcis_io.cpp) needs."""
+    try:
+        res = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                             input="#include <zlib.h>\n", capture_output=True, text=True,
+                             timeout=60)
+    except OSError as e:
+        return f"does not run ({e})"
+    if res.returncode != 0:
+        return f"runs, zlib.h not found ({res.stderr.strip()[:200]})"
+    return "runs, zlib.h found"
 
 
 def scipy_labels(den):
@@ -578,17 +607,34 @@ def config1_plane(n: int = 512, seed: int = 1, discs: int = 40):
     return img
 
 
-def config2_stack(planes: int = 24, n: int = 512, discs: int = 30, seed: int = 2):
-    """Config #2's first z-stack (bench.py's bench_config2 at n², uint16
-    [planes, n, n]): noise below 400 on every plane, then ``discs`` bright
-    particles a plane (30 at 512², 480 at 2048²: the same density)."""
+def config2_stacks(stacks: int, n: int = 512, discs: int = 30, planes: int = 24,
+                   seed: int = 2) -> list:
+    """Config #2's z-stacks (bench.py's bench_config2 at n², uint16
+    [planes, n, n] each, drawn in sequence from one generator): noise below
+    400 on every plane, then ``discs`` bright particles a plane (30 at 512²,
+    480 at 2048²: the same density)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    stack = (rng.random((planes, n, n)) * 400).astype(np.uint16)
-    for p in range(planes):
-        add_discs(stack[p], rng, discs)
-    return stack
+    out = []
+    for _ in range(stacks):
+        stack = (rng.random((planes, n, n)) * 400).astype(np.uint16)
+        for p in range(planes):
+            add_discs(stack[p], rng, discs)
+        out.append(stack)
+    return out
+
+
+# phase 10's cells (name, stacks, n, discs a plane): bench.py's four
+# [24,512²] stacks, and two at the pipeline's plane size with the same
+# density of particles; each measured ZSTACK_REPS times
+ZSTACK_CELLS = (("[24,512,512]", 4, 512, 30), (f"[24,{H},{W}]", 2, H, 480))
+ZSTACK_REPS = 3
+
+
+def config2_stack(planes: int = 24, n: int = 512, discs: int = 30, seed: int = 2):
+    """Config #2's first z-stack (``config2_stacks``' first)."""
+    return config2_stacks(1, n, discs, planes, seed)[0]
 
 
 def stack_stats(x):
@@ -1344,6 +1390,363 @@ def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) 
     return threshold_launches
 
 
+def write_tiff_pages(path: str, pages, description: str = "", **kw) -> None:
+    """[N,H,W] pages as one multi-page TIFF, written by PIL as bench.py
+    writes config #2's stacks (uncompressed unless ``kw`` passes PIL a
+    ``compression``); ``description`` goes into tag 270 (an ImageJ
+    hyperstack's ``channels=``)."""
+    from PIL import Image
+
+    ims = [Image.fromarray(p) for p in pages]
+    if description:
+        kw["tiffinfo"] = {270: description}
+    ims[0].save(path, save_all=True, append_images=ims[1:], **kw)
+
+
+def run_verbs(*argvs) -> list:
+    """Run the port's CLI once for each argv, each in a fresh interpreter
+    from the checkout root, all at once; each run's stdout lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-m", "particle_col_image_segmentation_tpu_torch",
+                               *argv], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for argv, p, (_, err) in zip(argvs, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 10: the {argv[0]} verb exited {p.returncode}:\n"
+                                 f"{err[-4000:]}")
+    return [out.splitlines() for out, _ in outs]
+
+
+def files_under(root: str) -> set:
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _, fs in os.walk(root) for f in fs}
+
+
+def split_and_normalize(tmp: str) -> float:
+    """Phase 10's host verbs, each through ``python -m
+    particle_col_image_segmentation_tpu_torch`` (both at once).  ``split``
+    runs over a tree with a 4-channel ImageJ hyperstack [3 z x 4 ch, H²], a
+    2-channel stack without metadata (its token says RFP_GFP) and a mip:
+    every written plane must read back equal to its source plane, the
+    stacks and the mip must be moved whole, and the files must be those
+    split_zstack.py's naming gives (the clean name drops the channel token
+    and "_zstack"; planes go to <clean>/<clean>_zstack_<ch>/
+    <clean>_zstack_z<i>_<ch>.tif; RFP and GFP are channels 1 and 2 of four,
+    0 and 1 of two).  ``normalize`` runs over a raw-capture tree and must
+    move each z-stack and its own mip siblings (not "Tp_RFP_30"'s into
+    "Tp_RFP_3"'s) into one clean folder, and skip dot-folders.  Returns the
+    wall seconds of the two verbs."""
+    import numpy as np
+
+    from particle_col_image_segmentation_tpu_torch.io.tiff import read_tiff_stack
+
+    n = H
+    rng = np.random.default_rng(5)
+    top = os.path.join(tmp, "top")
+    acq = os.path.join(top, "acq1")
+    os.makedirs(acq)
+    four = rng.integers(0, 1 << 16, (3, 4, n, n), dtype=np.uint16)
+    two = rng.integers(0, 1 << 16, (2, 2, n, n), dtype=np.uint16)
+    write_tiff_pages(os.path.join(acq, "Tp_CY5_RFP_GFP_DAPI_1_zstack.tif"), four.reshape(12, n, n),
+                     "ImageJ=1.53c\nimages=12\nchannels=4\nslices=3\n")
+    write_tiff_pages(os.path.join(acq, "Tp_RFP_GFP_2_zstack.tif"), two.reshape(4, n, n))
+    write_tiff_pages(os.path.join(acq, "Tp_RFP_GFP_2_mip.tif"), two.max(axis=(0, 1))[None])
+    moved = {}
+    for name, clean in (("Tp_CY5_RFP_GFP_DAPI_1_zstack.tif", "Tp_1"),
+                        ("Tp_RFP_GFP_2_zstack.tif", "Tp_2"), ("Tp_RFP_GFP_2_mip.tif", "Tp_2")):
+        with open(os.path.join(acq, name), "rb") as f:
+            moved[f"acq1/{clean}/{name}"] = f.read()
+    planes = {}
+    for clean, stack, chans in (("Tp_1", four, {"RFP": 1, "GFP": 2}),
+                                ("Tp_2", two, {"RFP": 0, "GFP": 1})):
+        for ch, c in chans.items():
+            for z in range(stack.shape[0]):
+                rel = f"acq1/{clean}/{clean}_zstack_{ch}/{clean}_zstack_z{z}_{ch}.tif"
+                planes[rel] = stack[z, c]
+
+    cap = os.path.join(tmp, "cap")
+    run = os.path.join(cap, "run1")
+    os.makedirs(run)
+    os.makedirs(os.path.join(cap, ".hidden"))
+    raw = {"Tp_3": ("Tp_RFP_3_zstack.tif", "Tp_RFP_3_mip.tif", "Tp_RFP_3_mip.jpg"),
+           "Tp_30": ("Tp_RFP_30_zstack.tif", "Tp_RFP_30_mip.tif")}  # clean folder: files
+    for names in raw.values():
+        for name in names:
+            with open(os.path.join(run, name), "wb") as f:
+                f.write(name.encode())
+    with open(os.path.join(cap, ".hidden", "Tp_RFP_4_zstack.tif"), "wb") as f:
+        f.write(b"skipped")
+
+    t0 = time.perf_counter()
+    _, norm_out = run_verbs(["split", top], ["normalize", cap])
+    verbs_s = time.perf_counter() - t0
+
+    if files_under(top) != set(moved) | set(planes):
+        raise AssertionError(f"phase 10 split: files {sorted(files_under(top))}, expected "
+                             f"{sorted(set(moved) | set(planes))}")
+    for rel, data in moved.items():
+        with open(os.path.join(top, rel), "rb") as f:
+            if f.read() != data:
+                raise AssertionError(f"phase 10 split: {rel} was not moved whole")
+    for rel, src in planes.items():
+        got = read_tiff_stack(os.path.join(top, rel))
+        if got.dtype != src.dtype or not np.array_equal(got, src):
+            raise AssertionError(f"phase 10 split: {rel} differs from its source plane")
+    want_lines = sorted(f"normalized: {os.path.join(run, clean)}" for clean in raw)
+    want_files = {f"run1/{clean}/{name}" for clean, names in raw.items() for name in names}
+    want_files.add(".hidden/Tp_RFP_4_zstack.tif")
+    if sorted(norm_out) != want_lines or files_under(cap) != want_files:
+        raise AssertionError(f"phase 10 normalize: printed {norm_out}, files "
+                             f"{sorted(files_under(cap))}; expected {want_lines}, "
+                             f"{sorted(want_files)}")
+    log(f"phase 10 split [3 z x 4 ch, {n}²] ImageJ hyperstack, a 2-channel [2 z x 2 ch] "
+        f"stack and a mip: {len(planes)} planes == their source planes, stacks and mip moved "
+        f"whole, files == the naming rules'; normalize: {norm_out} == expected, tree moved; "
+        f"both verbs {verbs_s:.1f} s wall")
+    return verbs_s
+
+
+def zstack_phase(card: str, dev, reset_counts, read_counts) -> tuple:
+    """Phase 10: config #2 from TIFFs on disk (bench.py's bench_config2).
+    For each of ZSTACK_CELLS the stacks (drawn in sequence from seed 2) are
+    written as multi-page uint16 TIFFs; each must decode through the port's
+    native codec (``native.read_tiff`` is not None, so no time below is
+    PIL's) equal to what was written.  Page cache warm throughout: each file
+    was just written.  Per stack, by the host's clock: a copy of the decoded
+    stack into a fresh buffer and into a reused, pre-touched one (their
+    difference is the host's first-touch cost) and the host copy into a
+    pinned buffer; by CUDA events: host to device from that pinned buffer
+    and ``stack_stats`` on a device-resident stack.  Every stack's blur and
+    thresholds equal the plain CPU run's bit for bit, its mask the CPU's
+    den > t, each plane's count and num_total scipy's components of it; the
+    first stack of the first cell equals the plain CPU ``stack_stats`` in
+    every output.  Then, ZSTACK_REPS times each, launch counts reset just
+    before and read just after: end to end as bench.py times it (decode
+    inside the timer, stacks in sequence, one sync at the end), and the same
+    loop stepped (a sync after each step; decode, the pageable copy and
+    ``stack_stats`` each by the host's clock, per stack).  A CPU baseline
+    (scipy blur, numpy Otsu, scipy label, decode inside the timer) over the
+    first cell's first stack gives ``vs_cpu``.  Then
+    ``split_and_normalize``.  Returns (launch counts, the record's
+    ``zstack`` entry)."""
+    import numpy as np
+    import torch
+    from scipy import ndimage as ndi
+
+    import bench
+    from particle_col_image_segmentation_tpu_torch.io import native
+    from particle_col_image_segmentation_tpu_torch.io.tiff import read_tiff_stack
+    from particle_col_image_segmentation_tpu_torch.ops import gaussian_blur, otsu_threshold_batch
+
+    if not native.available():
+        raise AssertionError("phase 10: the port's native TIFF codec did not build or load "
+                             "(g++'s output is logged above); decode times would be PIL's")
+    eight = np.ones((3, 3), int)
+
+    def median(xs):
+        return float(np.median(xs))
+
+    def spread(xs) -> str:
+        return f"{median(xs):.3f} ({min(xs):.3f}–{max(xs):.3f})"
+
+    def event_ms(fn) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def host_ms(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def bits(t):
+        return t.cpu().view(torch.int32)
+
+    t_phase = time.perf_counter()
+    record = {"card": card, "page_cache": "warm: each file was just written",
+              "timer": "CUDA events for the pinned copy and device-resident compute, the "
+                       "host's clock for the host copies, the stepped loop and e2e",
+              "cells": {}}
+    with tempfile.TemporaryDirectory(prefix="pcis_zstack_") as tmp:
+        t0 = time.perf_counter()
+        files = {}
+        for key, stacks, n, discs in ZSTACK_CELLS:
+            files[key] = []
+            for s, stack in enumerate(config2_stacks(stacks, n, discs)):
+                path = os.path.join(tmp, f"stack{n}_{s}_zstack.tif")
+                write_tiff_pages(path, stack)
+                got = native.read_tiff(path)
+                if got is None or got.dtype != np.uint16 or not np.array_equal(got, stack):
+                    raise AssertionError(f"phase 10 {key} stack {s}: the native codec did not "
+                                         "decode the written stack bit for bit")
+                files[key].append(path)
+        log(f"phase 10 zstack: {sum(len(v) for v in files.values())} stacks written and decoded "
+            f"by the native codec bit for bit in {time.perf_counter() - t0:.1f} s")
+
+        first = True
+        for key, paths in files.items():
+            c = {"stacks": len(paths), "fresh_fill_ms": [], "reused_fill_ms": [],
+                 "h2d_pinned_ms": [], "pin_stage_ms": [], "compute_ms": []}
+            for s, path in enumerate(paths):
+                a = read_tiff_stack(path)
+                # the control for first-touch page faults: the same copy into
+                # a fresh buffer each time, and into one buffer touched before
+                c["fresh_fill_ms"].append(median([host_ms(lambda: np.copyto(np.empty_like(a), a))
+                                                  for _ in range(ZSTACK_REPS)]))
+                reused = np.zeros_like(a)
+                c["reused_fill_ms"].append(median([host_ms(lambda: np.copyto(reused, a))
+                                                   for _ in range(ZSTACK_REPS)]))
+                del reused
+                src = torch.from_numpy(a)
+                pin = torch.empty(a.shape, dtype=src.dtype, pin_memory=True)
+                c["pin_stage_ms"].append(median([host_ms(lambda: pin.copy_(src))
+                                                 for _ in range(ZSTACK_REPS)]))
+                x = torch.empty(a.shape, dtype=src.dtype, device=dev)
+                c["h2d_pinned_ms"].append(median([
+                    event_ms(lambda: x.copy_(pin, non_blocking=True)) for _ in range(ZSTACK_REPS)]))
+                if not np.array_equal(x.view(torch.int16).cpu().numpy().view(np.uint16), a):
+                    raise AssertionError(f"phase 10 {key} stack {s}: the pinned copy differs")
+                del pin
+                c["compute_ms"].append(median([event_ms(lambda: stack_stats(x))
+                                               for _ in range(ZSTACK_REPS + 2)][1:]))
+                den, out = stack_stats(x)
+                # the same decoded stack through the plain versions on the CPU
+                den_cpu = gaussian_blur(src, 1.0)
+                t_cpu = otsu_threshold_batch(den_cpu)
+                if not (torch.equal(bits(den), den_cpu.view(torch.int32))
+                        and torch.equal(bits(otsu_threshold_batch(den)), t_cpu.view(torch.int32))):
+                    raise AssertionError(f"phase 10 {key} stack {s}: the blur or the thresholds "
+                                         "differ from the plain CPU run's")
+                mask = den_cpu > t_cpu[:, None, None]
+                mask_k, count, num_total, conv = (out[0].cpu(), out[2].cpu().tolist(),
+                                                  out[4].cpu().tolist(), bool(out[5].all()))
+                if not conv or not torch.equal(mask_k, mask):
+                    raise AssertionError(f"phase 10 {key} stack {s}: the mask differs from the "
+                                         "CPU's den > t, or a plane is unconverged")
+                for b, fg in enumerate(mask.numpy()):
+                    n_fg = ndi.label(fg, structure=eight)[1]
+                    n_all = n_fg + ndi.label(~fg, structure=eight)[1]
+                    if num_total[b] != n_all or (n_all <= TH_REGIONS and count[b] != n_fg):
+                        raise AssertionError(f"phase 10 {key} stack {s} plane {b}: count "
+                                             f"{count[b]}, num_total {num_total[b]}; scipy "
+                                             f"{n_fg}, {n_all}")
+                if first:
+                    t1 = time.perf_counter()
+                    want = stack_stats(src)[1]
+                    for i, name in ((0, "mask"), (1, "seg"), (2, "count"), (3, "num_fg"),
+                                    (4, "num_total")):
+                        if not torch.equal(out[i].cpu(), want[i]):
+                            raise AssertionError(f"phase 10 {key} stack 0: {name} differs from "
+                                                 "the plain CPU stack_stats'")
+                    log(f"phase 10 {key} stack 0: mask, seg, count, num_fg and num_total == the "
+                        f"plain CPU stack_stats' ({time.perf_counter() - t1:.1f} s)")
+                    first = False
+                del x, den, out, src, a
+            torch.cuda.empty_cache()
+            c["shape"] = key
+            c["mb_per_stack"] = os.path.getsize(paths[0]) / 1e6
+            record["cells"][key] = c
+        log(f"phase 10 zstack: every stack's blur and thresholds == the plain CPU run's bit for "
+            f"bit, masks == the CPU's den > t, counts and num_total == scipy's "
+            f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+        # end to end as bench.py times it, then the same loop stepped; launch
+        # counts over all their runs
+        reset_counts()
+        for key, paths in files.items():
+            walls, stepped_walls, totals = [], [], set()
+            steps = {"decode_ms": [], "h2d_pageable_ms": [], "stack_stats_ms": []}
+            for _ in range(ZSTACK_REPS):
+                acc, npx = [], 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for path in paths:
+                    a = read_tiff_stack(path)
+                    out = stack_stats(torch.from_numpy(a).to(dev))[1]
+                    acc.append((out[2] + out[3]).sum())
+                    npx += a.size
+                totals.add(int(torch.stack(acc).sum()))
+                walls.append(time.perf_counter() - t0)
+
+                acc = []
+                t0 = time.perf_counter()
+                for path in paths:
+                    t1 = time.perf_counter()
+                    a = read_tiff_stack(path)
+                    t2 = time.perf_counter()
+                    x = torch.from_numpy(a).to(dev)
+                    torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+                    out = stack_stats(x)[1]
+                    acc.append((out[2] + out[3]).sum())
+                    torch.cuda.synchronize()
+                    t4 = time.perf_counter()
+                    for k, (u, v) in zip(steps, ((t1, t2), (t2, t3), (t3, t4))):
+                        steps[k].append((v - u) * 1e3)
+                totals.add(int(torch.stack(acc).sum()))
+                stepped_walls.append(time.perf_counter() - t0)
+            if len(totals) != 1:
+                raise AssertionError(f"phase 10 {key}: the end-to-end runs disagree: {totals}")
+            c = record["cells"][key]
+            c["e2e_s"] = walls
+            c["e2e_mps"] = npx / 1e6 / median(walls)
+            c["stepped_s"] = stepped_walls
+            c.update(steps)
+        launches = read_counts()
+        n_calls = 2 * ZSTACK_REPS * sum(len(p) for p in files.values())
+        want_launches = {k: {"K2": n_calls, "K3": n_calls, "K4": 2 * n_calls}.get(k, 0)
+                         for k in launches}
+        if launches != want_launches:
+            raise AssertionError(f"phase 10: launches {launches}, expected {want_launches}")
+
+        # the CPU baseline (bench.py's), decode inside the timer
+        base_key = next(iter(files))
+        t0 = time.perf_counter()
+        a = read_tiff_stack(files[base_key][0])
+        for plane in a:
+            den = ndi.gaussian_filter(plane.astype(np.float32), sigma=1.0)
+            lab, _ = ndi.label(den > bench._cpu_otsu(den), structure=eight)
+            np.bincount(lab.ravel())
+        cpu_s = time.perf_counter() - t0
+        record["cpu_baseline"] = {"shape": base_key, "s": cpu_s, "mps": a.size / 1e6 / cpu_s}
+        record["vs_cpu"] = record["cells"][base_key]["e2e_mps"] / record["cpu_baseline"]["mps"]
+
+        for key, c in record["cells"].items():
+            log(f"phase 10 times [{card}] {key} x {c['stacks']} stacks ({c['mb_per_stack']:.1f} "
+                f"MB a file), ms a stack, median (min–max) over stacks: a copy of the decoded "
+                f"stack into a fresh buffer {spread(c['fresh_fill_ms'])}, into a reused "
+                f"pre-touched one {spread(c['reused_fill_ms'])}; host to device pinned by events "
+                f"{spread(c['h2d_pinned_ms'])} (+ {spread(c['pin_stage_ms'])} host copy into the "
+                f"pinned buffer); stack_stats by events {spread(c['compute_ms'])}")
+            log(f"phase 10 times [{card}] {key} stepped (the host's clock, a sync after each "
+                f"step), ms a stack over {ZSTACK_REPS} runs x {c['stacks']} stacks: decode "
+                f"{spread(c['decode_ms'])} {[round(v, 3) for v in c['decode_ms']]}; host to "
+                f"device pageable {spread(c['h2d_pageable_ms'])} "
+                f"{[round(v, 3) for v in c['h2d_pageable_ms']]}; stack_stats "
+                f"{spread(c['stack_stats_ms'])}; stepped walls "
+                f"{[round(w, 4) for w in c['stepped_s']]} s")
+            log(f"phase 10 times [{card}] {key} end to end {c['e2e_mps']:.1f} MP/s (walls "
+                f"{[round(w, 4) for w in c['e2e_s']]} s)")
+        log(f"phase 10 times [{card}] CPU baseline {base_key} (decode, scipy blur, numpy Otsu, "
+            f"scipy label): {cpu_s:.3f} s = {record['cpu_baseline']['mps']:.2f} MP/s; vs_cpu "
+            f"{record['vs_cpu']:.1f}; launches {launches}")
+        record["verbs_s"] = split_and_normalize(tmp)
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10 zstack: {record['phase_s']:.1f} s wall")
+    return launches, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
@@ -1441,6 +1844,7 @@ def main() -> int:
         f"{sys.version.split()[0]}")
     log(f"phase 1 env: triton {imports('triton')}; h5py {imports('h5py')}; "
         f"matplotlib {imports('matplotlib')}; nvcc {_kernels._nvcc()}")
+    log(f"phase 1 env: the TIFF codec's toolchain: g++ {host_compiler()}; PIL {imports('PIL')}")
     if cap[0] != 9:
         raise RuntimeError(f"compute capability {cap} is not Hopper (9.x)")
 
@@ -2215,6 +2619,10 @@ def main() -> int:
     threshold_launches = threshold_phase(card, c1, x1, x1b, x2, torch.from_numpy(x2k_np).to(dev),
                                          reset_counts, read_counts)
     del x1, x1b, x2, x2k_np
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: config #2 from TIFFs on disk, and the host verbs ---------
+    zstack_launches, zstack = zstack_phase(card, dev, reset_counts, read_counts)
 
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
@@ -2234,7 +2642,7 @@ def main() -> int:
     bound_ms = {k: (n_px[k] * planes_of[k] * H * W + table_bytes.get(k, 0))
                 / HBM_BYTES_PER_S * 1e3 for k in n_px}
     paths = {"batch": batch_launches, "analyze": analyze_launches, "refine": refine_launches,
-             "threshold": threshold_launches}
+             "threshold": threshold_launches, "zstack": zstack_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
          "launches": sum(v[k] for v in paths.values()),
@@ -2243,7 +2651,7 @@ def main() -> int:
          "bound_ms": bound_ms[k], "bound_by": "bytes", "library_ms": library_ms.get(k),
          **({"more_shapes": [more_shapes[k]]} if k in more_shapes else {})}
         for k, name, src, tpu in KERNELS
-    ]}
+    ], "zstack": zstack}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

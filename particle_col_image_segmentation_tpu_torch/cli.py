@@ -5,10 +5,15 @@
   batch   — streaming fused segmentation stats over every .h5 plane of a tree
   refine  — watershed boundary refinement of an Ilastik probability export
             (refine_boundaries parity): refined labels and per-cell CSV
+  split   — split z-stack TIFFs into per-plane, per-channel TIFFs
+            (split_zstack.py parity)
+  normalize — move raw captures into one clean folder an acquisition
+            (create_file_structure.py parity)
 
 Files and output lines match the JAX package's verbs byte for byte.
 ``--device`` defaults to ``cuda`` (the hand-written kernels; Hopper cards
-only); ``--device cpu`` runs the plain PyTorch versions.
+only); ``--device cpu`` runs the plain PyTorch versions.  ``split`` and
+``normalize`` run on the host only and take no ``--device``.
 """
 
 from __future__ import annotations
@@ -122,6 +127,16 @@ def main(argv=None) -> int:
         "manifest resume retries them)",
     )
 
+    p = sub.add_parser("split", help="split z-stack TIFFs per plane/channel")
+    p.add_argument("folder")
+    p.add_argument(
+        "--channels", type=int, nargs="+", default=[1, 2],
+        help="channel indices (default 1 2 = RFP GFP, reference :93)",
+    )
+
+    p = sub.add_parser("normalize", help="normalize raw-capture folder tree")
+    p.add_argument("folder")
+
     p = sub.add_parser("refine", help="watershed boundary refinement of a probability .h5")
     p.add_argument("h5_file")
     _add_device_flag(p)
@@ -141,6 +156,17 @@ def main(argv=None) -> int:
         return _analyze(args)
     if args.command == "refine":
         return _refine(args)
+    if args.command == "split":
+        from particle_col_image_segmentation_tpu_torch.models.zsplit import process_folder
+
+        process_folder(args.folder, args.channels)
+        return 0
+    if args.command == "normalize":
+        from particle_col_image_segmentation_tpu_torch.io.discovery import normalize_capture_tree
+
+        for folder in normalize_capture_tree(args.folder):
+            print("normalized:", folder)
+        return 0
     return _batch(args)
 
 

@@ -34,6 +34,15 @@ CHANNELS: Tuple[str, ...] = ("RFP", "DAPI", "GFP")
 CHANNEL_MAP: Mapping[str, str] = {"RFP": "3D05", "DAPI": "6B07", "GFP": "C3M10"}
 STRAIN_MAP: Mapping[str, str] = {"3D05": "RFP", "6B07": "DAPI", "C3M10": "GFP"}
 
+# Raw-capture channel layout (reference: create_file_structure.py:13-16,
+# split_zstack.py:39).
+CAPTURE_CHANNELS: Tuple[dict, ...] = (
+    {"name": "CY5", "color": "red"},
+    {"name": "RFP", "color": "magenta"},
+    {"name": "GFP", "color": "green"},
+    {"name": "DAPI", "color": "cyan"},
+)
+
 
 def _freeze(d: Mapping) -> Tuple:
     return tuple(sorted(d.items()))

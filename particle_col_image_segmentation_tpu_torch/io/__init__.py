@@ -1,2 +1,3 @@
-"""Host I/O of the port: HDF5 codecs, dataset discovery and the
+"""Host I/O of the port: HDF5 and TIFF codecs (the native TIFF codec in
+``io/native``), dataset discovery and raw-capture normalization, and the
 prefetching host-to-device loader."""

@@ -58,6 +58,7 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
 from chip_smoke import (
     config1_plane,
     config2_stack,
+    config2_stacks,
     hist_inputs,
     k3_inputs,
     k3_raw,
@@ -75,6 +76,7 @@ from chip_smoke import (
     ws_budgets,
     ws_corridor,
     ws_mixed,
+    write_tiff_pages,
 )
 from fixtures import random_class_plane, synthetic_label_plane
 
@@ -700,3 +702,27 @@ def test_threshold_functions_through_the_kernels(dev, case):
     _equal([counts, centers.view(torch.int32), t0.view(torch.int32)],
            [want_counts.to(dev), want_centers.to(dev).view(torch.int32),
             t.reshape(-1)[0].view(torch.int32)], case)
+
+
+def test_config2_tiff_decode_to_card_stack_stats(dev, tmp_path):
+    """Config #2's [24,512,512] stack written as a multi-page uint16 TIFF goes
+    decode (the port's native codec) -> card -> stack_stats, equal to the
+    plain CPU run of the same decoded stack, with K2, K3 and K4 launched."""
+    from particle_col_image_segmentation_tpu_torch.io import native
+    from particle_col_image_segmentation_tpu_torch.io.tiff import read_tiff_stack
+
+    stack = config2_stacks(1)[0]
+    path = str(tmp_path / "stack_zstack.tif")
+    write_tiff_pages(path, stack)
+    assert native.available() and native.read_tiff(path) is not None
+    a = read_tiff_stack(path)
+    np.testing.assert_array_equal(a, stack)
+    before = (ccl_cuda.launches, compact_labels_cuda.launches, region_counts_cuda.launches)
+    den, got = stack_stats(torch.from_numpy(a).to(dev))
+    after = (ccl_cuda.launches, compact_labels_cuda.launches, region_counts_cuda.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 2)
+    den_cpu, want = stack_stats(torch.from_numpy(a))
+    assert torch.equal(den.cpu().view(torch.int32), den_cpu.view(torch.int32))
+    assert bool(got[5].all()) and bool(want[5].all())
+    for i in (0, 1, 2, 3, 4):  # mask, labels, count, num_fg, num_total
+        assert torch.equal(got[i].cpu(), want[i]), i

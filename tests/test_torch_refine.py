@@ -259,6 +259,7 @@ def _imported_modules(tree):
 def test_port_sources_never_import_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
+    assert PORT / "io" / "native" / "__init__.py" in files
     bad = []
     for path in files:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
@@ -269,7 +270,8 @@ def test_port_sources_never_import_the_jax_package():
 
 
 def test_copied_constants_and_defaults_equal_the_jax_package(tmp_path):
-    for name in ("CMAP", "BASE_TYPE_MAP", "CELL_TYPES", "CHANNELS", "CHANNEL_MAP", "STRAIN_MAP"):
+    for name in ("CMAP", "BASE_TYPE_MAP", "CELL_TYPES", "CHANNELS", "CHANNEL_MAP", "STRAIN_MAP",
+                 "CAPTURE_CHANNELS"):
         assert getattr(port_config, name) == getattr(jax_config, name), name
     for cls in ("AnalysisConfig", "RefineConfig"):
         ours = {f.name: f.default for f in dataclasses.fields(getattr(port_config, cls))}

@@ -29,7 +29,7 @@ from particle_col_image_segmentation_tpu_torch.ops import (
 )
 from particle_col_image_segmentation_tpu_torch.ops import threshold as port_threshold
 
-from chip_smoke import config1_plane, config2_stack, stack_stats
+from chip_smoke import config1_plane, config2_stack, config2_stacks, stack_stats
 
 
 @pytest.fixture(autouse=True)
@@ -278,3 +278,24 @@ def test_config_recipes_draw_the_bench_planes(n):
         r2 = int(rng.integers(30, 200))
         img[(yy - cy) ** 2 + (xx - cx) ** 2 <= r2] += 20000
     np.testing.assert_array_equal(config1_plane(n), img)
+
+
+def test_config2_stacks_draw_the_bench_stacks():
+    """config2_stacks draws bench_config2's stacks in sequence from one
+    generator; config2_stack is its first."""
+    n, planes = 128, 3
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[:n, :n]
+    want = []
+    for _ in range(2):
+        stack = (rng.random((planes, n, n)) * 400).astype(np.uint16)
+        for p in range(planes):
+            for _ in range(30):
+                cy, cx = rng.integers(20, n - 20, 2)
+                r2 = int(rng.integers(30, 200))
+                stack[p][(yy - cy) ** 2 + (xx - cx) ** 2 <= r2] += 20000
+        want.append(stack)
+    got = config2_stacks(2, n, 30, planes)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(config2_stack(planes, n), want[0])

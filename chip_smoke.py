@@ -143,17 +143,39 @@ nonzero and no result line is printed):
      the CPU's den > t, counts and num_total to scipy's; a CPU baseline
      (scipy blur, numpy Otsu, scipy label) for vs_cpu; then the split and
      normalize verbs in fresh interpreters (``split_and_normalize``).
+ 11. the morphology/EDT API and config #4 — ``morph_phase``: erode, open
+     and close_disk at r 2 and 20, fill_holes, edt at cap 20 and
+     boundary_mask on the bench planes' [4,2048,2048] cell masks once with
+     launch counts (K9 and K2), then each by CUDA events beside its plain
+     route; ``nanosims_phase``: two acquisitions (the 768² painting of 121
+     squares and the grid painted at 700x650, eight [514,514] .mat images
+     each) through run_nanosims on the card (K2 and K3 launched) against
+     the plain CPU run (ROI counts, labels, resized masks and positions bit
+     for bit, sums and every CSV within rtol 1e-6), the ``nanosims`` verb
+     in a fresh interpreter, and times: run_nanosims and the same flow
+     stepped, the per-ROI reduction alone (bench.py's
+     ``4_nanosims_ms_per_acq``, ``4_nanosims_rois_per_s``) and bench's
+     scipy baseline (``4_vs_cpu``).
+Phase 3 also holds the morphology/EDT API (``morph_checks``): erode, open
+and close_disk (K9) at r 0, 1, 2, 20, the largest one-kernel cap and one
+past it, fill_holes (K2; a serpentine past a budget of 3 compared where
+the plain flood converged), edt at cap 20 (bit patterns) and boundary_mask
+(card against CPU) on the bench planes' cell and particle masks and the
+odd [3,97,130] batch, each against its plain route on the card.
 The line before the last is the per-kernel JSON record (``launches`` sums
-the batch, analyze, refine, threshold and zstack paths' runs,
+the batch, analyze, refine, threshold, zstack, morphology and nanosims
+paths' runs,
 ``bound_ms`` is the bytes each function must move over 3.35 TB/s,
 ``more_shapes`` holds K2's and K4's threshold-path shapes and K6's device
-time; ``zstack`` holds phase 10's numbers); the last line is
+time; ``zstack`` holds phase 10's numbers, ``nanosims`` and
+``morphology`` phase 11's); the last line is
 {"ok": true, ...}.
 
 The script imports the port, bench.py's plane generator, numpy, scipy and
 PIL: nothing of JAX and nothing of the JAX package, which it checks before
 the record line.  CSV parity of the port with the JAX package is held in
-tests/test_torch_analysis.py and tests/test_torch_refine.py.
+tests/test_torch_analysis.py, tests/test_torch_refine.py and
+tests/test_torch_nanosims.py.
 """
 
 import argparse
@@ -1419,7 +1441,7 @@ def run_verbs(*argvs) -> list:
                 p.wait()
     for argv, p, (_, err) in zip(argvs, procs, outs):
         if p.returncode != 0:
-            raise AssertionError(f"phase 10: the {argv[0]} verb exited {p.returncode}:\n"
+            raise AssertionError(f"the {argv[0]} verb exited {p.returncode}:\n"
                                  f"{err[-4000:]}")
     return [out.splitlines() for out, _ in outs]
 
@@ -1745,6 +1767,402 @@ def zstack_phase(card: str, dev, reset_counts, read_counts) -> tuple:
     record["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 10 zstack: {record['phase_s']:.1f} s wall")
     return launches, record
+
+
+# ---- the morphology/EDT API and config #4 (phases 3 and 11) ----------------
+
+
+def serpentine(h: int = 41, w: int = 40, pitch: int = 4):
+    """A one-pixel background corridor entering at the top border and winding
+    through the whole plane: the plain hole flood needs one round a bend."""
+    import numpy as np
+
+    m = np.ones((h, w), bool)
+    for k, r in enumerate(range(1, h - 1, pitch)):
+        m[r, 1:w - 1] = False
+        if r + pitch < h - 1:
+            c = w - 2 if k % 2 == 0 else 1
+            m[r:r + pitch + 1, c] = False
+    m[0, 1] = False  # the corridor's mouth on the border
+    return m
+
+
+def plain_morphology():
+    """erode/open/close_disk through the plain capped transform (the K9
+    route's plain version), on any device."""
+    from particle_col_image_segmentation_tpu_torch.ops import edt_sq
+
+    def dilate(m, r):
+        return edt_sq(m, r) <= r * r
+
+    def erode(m, r):
+        return ~dilate(~m, r)
+
+    return {"erode_disk": erode, "open_disk": lambda m, r: dilate(erode(m, r), r),
+            "close_disk": lambda m, r: erode(dilate(m, r), r)}
+
+
+def morph_checks(dev, planes4, odd, tile_cap: int, compare) -> None:
+    """Phase 3's morphology/EDT checks: each op's kernel route against its
+    plain version on the card, exact (floats as bit patterns), on the 2048²
+    bench planes' cell and particle masks and the odd [3,97,130] batch."""
+    import numpy as np
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        boundary_mask, close_disk, edt, edt_sq, erode_disk, fill_holes, fill_holes_fixpoint,
+        open_disk, sqrt_f32)
+
+    plain = plain_morphology()
+    ops = {"erode_disk": erode_disk, "open_disk": open_disk, "close_disk": close_disk}
+    x4 = torch.from_numpy(planes4).to(dev)
+    masks = {f"[4,{H},{W}] cells": (x4 == 1).contiguous(),
+             f"[4,{H},{W}] particles": (x4 == 2).contiguous(),
+             "odd [3,97,130] cells": torch.from_numpy(odd == 1).to(dev)}
+    for case, m in masks.items():
+        for r in (0, 1, 2, 20, tile_cap, tile_cap + 1):
+            for name, fn in ops.items():
+                compare("K9", f"{name} r={r} {case}", [fn(m, r)], [plain[name](m, r)])
+        got, conv = fill_holes(m, with_flag=True)
+        want, want_conv = fill_holes_fixpoint(m, with_flag=True)
+        if not (bool(conv) and bool(want_conv)):
+            raise AssertionError(f"fill_holes {case}: the plain fixpoint did not converge")
+        compare("K2", f"fill_holes {case}", [got], [want])
+        compare("K9", f"edt cap 20 {case} (bit patterns)", [edt(m, 20).view(torch.int32)],
+                [sqrt_f32(edt_sq(m, 20)).view(torch.int32)])
+        if not torch.equal(boundary_mask(m).cpu(), boundary_mask(m.cpu())):
+            raise AssertionError(f"boundary_mask {case}: the card differs from the CPU")
+    # a corridor past a small budget: the plain flood stops short and says
+    # so; compared where it converges
+    s = torch.from_numpy(np.stack([serpentine(97, 130), serpentine(97, 130, 6)])).to(dev)
+    short, short_conv = fill_holes_fixpoint(s, max_iters=3, with_flag=True)
+    want, want_conv = fill_holes_fixpoint(s, max_iters=256, with_flag=True)
+    if bool(short_conv) or torch.equal(short, want) or not bool(want_conv):
+        raise AssertionError("fill_holes: the serpentine did not outlast a budget of 3")
+    compare("K2", "fill_holes serpentine [2,97,130] (plain converged at 256, not at 3)",
+            [fill_holes(s, max_iters=3)], [want])
+    log(f"phase 3 morphology: erode/open/close_disk (K9), fill_holes (K2), edt and "
+        f"boundary_mask == plain on the card for r in 0, 1, 2, 20, {tile_cap}, {tile_cap + 1}")
+
+
+def morph_phase(card: str, dev, planes4, reset_counts, read_counts) -> tuple:
+    """The morphology/EDT API on the bench planes' [4,2048,2048] cell masks:
+    one run of each op with launch counts reset just before and read just
+    after (K9 and K2 must launch), then each op's time by CUDA events, the
+    kernel route beside the plain one on the card.  Returns (launch counts,
+    times)."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        boundary_mask, close_disk, edt, edt_sq, erode_disk, fill_holes, fill_holes_fixpoint,
+        open_disk, sqrt_f32)
+
+    m = (torch.from_numpy(planes4).to(dev) == 1).contiguous()
+    plain = plain_morphology()
+    kernel, plain_fn = {}, {}
+    for r in (2, 20):
+        for name, fn in (("erode_disk", erode_disk), ("open_disk", open_disk),
+                         ("close_disk", close_disk)):
+            kernel[f"{name} r={r}"] = lambda fn=fn, r=r: fn(m, r)
+            plain_fn[f"{name} r={r}"] = lambda name=name, r=r: plain[name](m, r)
+    kernel.update({"fill_holes": lambda: fill_holes(m), "edt cap 20": lambda: edt(m, 20),
+                   "boundary_mask": lambda: boundary_mask(m)})
+    reset_counts()
+    for fn in kernel.values():
+        fn()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["K9"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"the morphology path launched {launches}")
+    plain_fn.update({"fill_holes": lambda: fill_holes_fixpoint(m),
+                     "edt cap 20": lambda: sqrt_f32(edt_sq(m, 20))})
+    times = {}
+    for k, fn in kernel.items():
+        times[k] = {"ms": time_ms(fn, reps=5)}
+        if k in plain_fn:
+            times[k]["plain_ms"] = time_ms(plain_fn[k], reps=1)
+        log(f"phase 11 morphology times [{card}] [4,{H},{W}] cells: {k}: "
+            + ", ".join(f"{a} {b:.4f}" for a, b in times[k].items()))
+    log(f"phase 11 morphology path: kernel launches {launches}")
+    return launches, times
+
+
+def config4_painting(h: int = 768, w: int = 768, size_y: int = 36, size_x: int = 36,
+                     pitch_y: int = 66, pitch_x: int = 66):
+    """Config #4's painted ROI image (bench.py's ``bench_nanosims`` recipe,
+    seed-free): squares on a grid, the first 128 painted, odd ids red
+    (255,0,0) and even ids green (0,255,0), on white; and their id image."""
+    import numpy as np
+
+    rgb = np.full((h, w, 3), 255, np.uint8)
+    labels = np.zeros((h, w), np.int32)
+    k = 1
+    for gy in range(0, h - 48, pitch_y):
+        for gx in range(0, w - 48, pitch_x):
+            if k > 128:
+                break
+            sl = (slice(gy + 4, gy + 4 + size_y), slice(gx + 4, gx + 4 + size_x))
+            labels[sl] = k
+            rgb[sl] = (255, 0, 0) if k % 2 else (0, 255, 0)
+            k += 1
+    return rgb, labels
+
+
+def write_acquisition(root: str, painted, seed: int) -> None:
+    """An acquisition folder: the eight .mat count images of [514,514] (the
+    1-px frame included; ``rng.random·50``), ``rois.png`` and ``bound.png``
+    (a red stroke across the painted field)."""
+    import numpy as np
+    from PIL import Image
+    from scipy.io import savemat
+
+    os.makedirs(root)
+    rng = np.random.default_rng(seed)
+    for name in ("12C", "13C", "14N12C", "15N12C", "16O", "17O", "18O", "Esi"):
+        savemat(os.path.join(root, f"{name}.mat"), {"IM": rng.random((514, 514)) * 50})
+    Image.fromarray(painted).save(os.path.join(root, "rois.png"))
+    h, w = painted.shape[:2]
+    bound = np.full((h, w, 3), 255, np.uint8)
+    bound[h // 2 - 3:h // 2 + 3, w // 8:w - w // 8] = (255, 0, 0)
+    bound[h // 4:h - h // 4, w // 2 - 3:w // 2 + 3] = (255, 0, 0)
+    Image.fromarray(bound).save(os.path.join(root, "bound.png"))
+
+
+def read_csvs(folder: str) -> dict:
+    import numpy as np
+
+    return {f: np.loadtxt(os.path.join(folder, f), delimiter=",", ndmin=2)
+            for f in sorted(os.listdir(folder)) if f.endswith(".csv")}
+
+
+def csvs_agree(got: dict, want: dict, rtol: float, case: str) -> None:
+    """Same files and shapes, class and index columns exact, every value
+    within rtol (or one unit in its 5th significant digit, the CSV's
+    rounding)."""
+    import numpy as np
+
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{case}: files {sorted(got)}, expected {sorted(want)}")
+    for name, w in want.items():
+        g = got[name]
+        if g.shape != w.shape or not np.array_equal(g[:, :2], w[:, :2]):
+            raise AssertionError(f"{case}: {name} differs in shape or class/index columns")
+        mag = np.where(np.isfinite(w) & (w != 0), np.abs(w), 1.0)
+        tol = rtol * np.abs(w) + 10.0 ** (np.floor(np.log10(mag)) - 4)
+        ok = (np.isnan(g) == np.isnan(w)) & (np.isnan(w) | (np.abs(g - w) <= tol))
+        if not ok.all():
+            raise AssertionError(f"{case}: {name} differs at {np.argwhere(~ok)[:5].tolist()}")
+
+
+def stepped_nanosims(acq: str, out_dir: str, cfg, dev) -> dict:
+    """run_nanosims, figures off, step by step with a sync after each step;
+    host-clock ms of each step."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from particle_col_image_segmentation_tpu_torch.models import nanosims as ns
+
+    ms = {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ms[name] = (t - t0) * 1e3
+        t0 = t
+
+    iso = ns.load_isotope_mats(acq)
+    step(".mat load")
+    rois = ns.crop_to_content(np.asarray(Image.open(os.path.join(acq, "rois.png")).convert("RGB")))
+    red_mask, green_mask = ns.class_masks(rois)
+    bound = ns.crop_to_content(np.asarray(Image.open(os.path.join(acq, "bound.png"))
+                                          .convert("RGB")))
+    bmask = ns.boundary_class_mask(bound)
+    step("PNG and class masks")
+    labs = [ns.roi_labels(m, cfg.max_rois, dev) for m in (red_mask, green_mask)]
+    step("K2+K3")
+    red, green = (ns.roi_class_result(lab, n, iso) for lab, n in labs)
+    step("resize+sums+centroids")
+    result = ns.combine_classes(red, green, rois, cfg, dev)
+    bd = ns.boundary_distances(result, bound, next(iter(iso.values())).shape[0], cfg,
+                               bound_mask=bmask, device=dev)
+    step("distances")
+    ns.write_csvs(result, out_dir, bd)
+    step("CSVs")
+    return ms
+
+
+NANOSIMS_REPS = 5
+
+
+def nanosims_phase(card: str, dev, reset_counts, read_counts) -> tuple:
+    """Phase 11: config #4 (bench.py's ``bench_nanosims`` acquisition).
+    Two acquisitions written to a temp folder: the 768² painting of 121
+    squares of 36² and the same grid painted at 700×650 (a resize ratio that
+    is no integer, a content crop that is not square), each with eight
+    [514,514] .mat images.  run_nanosims on the card, launch counts reset
+    just before and read just after (K2 and K3 must launch), against the
+    plain CPU run of the same folders: ROI counts, labels and each ROI's
+    resized mask equal bit for bit (so the solid masks too), positions bit
+    for bit, sums rtol 1e-6, every CSV value by value at that tolerance.
+    The ``nanosims`` verb in a fresh interpreter (device default cuda)
+    prints the CPU run's line and writes its CSVs.  Times, host clock,
+    median and spread over NANOSIMS_REPS runs after a warm-up: run_nanosims
+    a acquisition and the same flow stepped; the per-ROI reduction alone on
+    bench's labels, as bench.py times ``_roi_batched`` (its keys
+    ``4_nanosims_ms_per_acq``, ``4_nanosims_rois_per_s``), and bench's
+    scipy CPU baseline for ``4_vs_cpu``.  Returns (launch counts, the
+    record's ``nanosims`` entry)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from scipy.ndimage import zoom
+
+    from particle_col_image_segmentation_tpu_torch.config import NanoSIMSConfig
+    from particle_col_image_segmentation_tpu_torch.models import nanosims as ns
+    from particle_col_image_segmentation_tpu_torch.ops.resize import resize_cubic
+
+    cfg = NanoSIMSConfig()
+    t_phase = time.perf_counter()
+    record = {}
+    launches = None
+    with tempfile.TemporaryDirectory(prefix="pcis_nanosims_") as tmp:
+        acqs = {"768x768": config4_painting()[0],
+                "700x650": config4_painting(700, 650, 33, 30, 60, 56)[0]}
+        for seed, (key, painted) in enumerate(acqs.items()):
+            write_acquisition(os.path.join(tmp, key), painted, seed=3 + seed)
+
+        def run(key, device, out):
+            os.makedirs(out)
+            acq = os.path.join(tmp, key)
+            return ns.run_nanosims(acq, os.path.join(acq, "rois.png"),
+                                   os.path.join(acq, "bound.png"), out, cfg,
+                                   make_figures=False, device=device)
+
+        reset_counts()
+        card_res = {k: run(k, dev, os.path.join(tmp, "card", k)) for k in acqs}
+        cpu_res = {}
+        torch.cuda.synchronize()
+        launches = read_counts()
+        if launches["K2"] <= 0 or launches["K3"] <= 0:
+            raise AssertionError(f"phase 11: the nanosims path launched {launches}")
+        for key in acqs:
+            t0 = time.perf_counter()
+            cpu = cpu_res[key] = run(key, "cpu", os.path.join(tmp, "cpu", key))
+            cpu_s = time.perf_counter() - t0
+            got = card_res[key]
+            for cls in ("red", "green"):
+                g, w = getattr(got, cls), getattr(cpu, cls)
+                if g.num_rois != w.num_rois or not np.array_equal(g.labels, w.labels):
+                    raise AssertionError(f"phase 11 {key} {cls}: ROIs or labels differ")
+                if not np.array_equal(g.positions, w.positions, equal_nan=True):
+                    raise AssertionError(f"phase 11 {key} {cls}: positions differ")
+                if not np.allclose(g.sums, w.sums, rtol=1e-6, atol=0):
+                    raise AssertionError(f"phase 11 {key} {cls}: sums differ past rtol 1e-6")
+                onehot = (g.labels[None] == np.arange(1, g.num_rois + 1)[:, None, None])
+                onehot = torch.from_numpy(onehot.astype(np.float32))
+                if not torch.equal(resize_cubic(onehot.to(dev), 512).cpu(),
+                                   resize_cubic(onehot, 512)):
+                    raise AssertionError(f"phase 11 {key} {cls}: a resized ROI mask differs")
+            csvs_agree(read_csvs(os.path.join(tmp, "card", key)),
+                       read_csvs(os.path.join(tmp, "cpu", key)), 1e-6, f"phase 11 {key}")
+            log(f"phase 11 nanosims {key}: {got.red.num_rois} red and {got.green.num_rois} "
+                f"green ROIs; labels, resized masks and positions == the plain CPU run's "
+                f"({cpu_s:.1f} s) bit for bit, sums and every CSV within rtol 1e-6")
+        # the verb in a fresh interpreter, on the card by default
+        acq = os.path.join(tmp, "768x768")
+        verb_out = os.path.join(tmp, "verb")
+        os.makedirs(verb_out)
+        lines = run_verbs(["nanosims", acq, os.path.join(acq, "rois.png"), "--bound-png",
+                           os.path.join(acq, "bound.png"), "--out-dir", verb_out,
+                           "--no-figures"])[0]
+        cpu = cpu_res["768x768"]
+        want_line = (f"red ROIs: {cpu.red.num_rois}, green ROIs: {cpu.green.num_rois}; "
+                     f"CSVs written to {verb_out}")
+        if lines[-1:] != [want_line]:
+            raise AssertionError(f"phase 11: the nanosims verb printed {lines[-3:]}")
+        csvs_agree(read_csvs(verb_out), read_csvs(os.path.join(tmp, "cpu", "768x768")), 1e-6,
+                   "phase 11 nanosims verb")
+        log("phase 11 nanosims verb (fresh interpreter, --device defaulting to cuda): exit 0, "
+            "the CPU run's line and CSVs")
+
+        # times: run_nanosims and the same flow stepped, the reduction alone
+        walls, steps = [], []
+        for rep in range(NANOSIMS_REPS + 1):
+            out = os.path.join(tmp, "t", str(rep))
+            t0 = time.perf_counter()
+            run("768x768", dev, out)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            step_out = os.path.join(tmp, "s", str(rep))
+            os.makedirs(step_out)
+            st = stepped_nanosims(acq, step_out, cfg, dev)
+            if rep:  # the first run warms up
+                walls.append(wall)
+                steps.append(st)
+        if read_csvs(step_out).keys() != read_csvs(out).keys():
+            raise AssertionError("phase 11: the stepped run wrote other files")
+        for name in read_csvs(out):
+            with open(os.path.join(out, name), "rb") as a, open(os.path.join(step_out, name),
+                                                               "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"phase 11: the stepped run's {name} differs")
+
+    def spread(vals):
+        return {"median": statistics.median(vals), "min": min(vals), "max": max(vals)}
+
+    record["run_nanosims_ms"] = spread(walls)
+    record["stepped_ms"] = {k: spread([s[k] for s in steps]) for k in steps[0]}
+    record["stepped_total_ms"] = spread([sum(s.values()) for s in steps])
+    # the per-ROI reduction alone on bench's labels and isotopes (bench.py:394-407)
+    _, labels = config4_painting()
+    n_rois = int(labels.max())
+    rng = np.random.default_rng(3)
+    iso = torch.from_numpy(rng.random((7, 512, 512)).astype(np.float32)).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    red_ms = []
+    for rep in range(NANOSIMS_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums, _ = ns.roi_sums_and_centroids(lab, iso, n_rois, 512)
+        torch.cuda.synchronize()
+        if rep:
+            red_ms.append((time.perf_counter() - t0) * 1e3)
+    # bench.py's CPU comparison: scipy's cubic zoom and masked sums a ROI
+    # on 8 sample ROIs (bench.py:421-437)
+    iso_np = iso.cpu().numpy()
+    t0 = time.perf_counter()
+    for rid in range(1, 9):
+        m = (labels == rid).astype(np.float32)
+        resized = zoom(m, 512 / 768, order=3, grid_mode=True, mode="grid-constant")
+        _ = (resized[None] * iso_np).sum(axis=(1, 2))
+        _ = np.nonzero(np.floor(resized) >= 1)
+    cpu_rois_per_s = 8 / (time.perf_counter() - t0)
+    med = statistics.median(red_ms)
+    record.update({
+        "roi_reduction_ms": spread(red_ms), "n_rois": n_rois,
+        "4_nanosims_ms_per_acq": med, "4_nanosims_rois_per_s": n_rois / med * 1e3,
+        "4_vs_cpu": n_rois / med * 1e3 / cpu_rois_per_s, "cpu_rois_per_s": cpu_rois_per_s,
+    })
+    record["phase_s"] = time.perf_counter() - t_phase
+    r = record
+    log(f"phase 11 times [{card}] run_nanosims 768² painting, 121 ROIs, 7 isotopes at 512², "
+        f"host clock over {NANOSIMS_REPS} runs: median {r['run_nanosims_ms']['median']:.3f} ms "
+        f"({r['run_nanosims_ms']['min']:.3f}-{r['run_nanosims_ms']['max']:.3f})")
+    for k, v in r["stepped_ms"].items():
+        log(f"phase 11 times [{card}]   stepped {k}: median {v['median']:.3f} ms "
+            f"({v['min']:.3f}-{v['max']:.3f})")
+    log(f"phase 11 times [{card}]   stepped total: median {r['stepped_total_ms']['median']:.3f} ms")
+    log(f"phase 11 times [{card}] the per-ROI reduction [768²→512², {n_rois} ROIs, 7 isotopes]: "
+        f"median {med:.3f} ms ({min(red_ms):.3f}-{max(red_ms):.3f}); "
+        f"4_nanosims_rois_per_s {r['4_nanosims_rois_per_s']:.1f}, CPU baseline "
+        f"{cpu_rois_per_s:.2f} ROIs/s, 4_vs_cpu {r['4_vs_cpu']:.1f}")
+    log(f"phase 11 nanosims: {r['phase_s']:.1f} s wall")
+    return launches, record
+
 
 
 def main() -> int:
@@ -2077,6 +2495,7 @@ def main() -> int:
             raise AssertionError(f"sqrt_f32 on the card: {case} differs from numpy's")
         log(f"phase 3 sqrt_f32 {case}: equal to numpy's float32 sqrt bit for bit")
     del past, d2, got
+    morph_checks(dev, np.stack(planes[:4]), odd, tile_cap, compare)
 
     # ---- phase 3, the refine slice: exact EDT, local maxima, K10/K11, K7 ---
     rcfg = RefineConfig()
@@ -2624,6 +3043,11 @@ def main() -> int:
     # ---- phase 10: config #2 from TIFFs on disk, and the host verbs ---------
     zstack_launches, zstack = zstack_phase(card, dev, reset_counts, read_counts)
 
+    # ---- phase 11: the morphology/EDT API's times, config #4 (NanoSIMS) -----
+    morph_launches, morph_times = morph_phase(card, dev, np.stack(planes[:4]), reset_counts,
+                                              read_counts)
+    nanosims_launches, nanosims = nanosims_phase(card, dev, reset_counts, read_counts)
+
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
     if loaded:
@@ -2642,7 +3066,8 @@ def main() -> int:
     bound_ms = {k: (n_px[k] * planes_of[k] * H * W + table_bytes.get(k, 0))
                 / HBM_BYTES_PER_S * 1e3 for k in n_px}
     paths = {"batch": batch_launches, "analyze": analyze_launches, "refine": refine_launches,
-             "threshold": threshold_launches, "zstack": zstack_launches}
+             "threshold": threshold_launches, "zstack": zstack_launches,
+             "morphology": morph_launches, "nanosims": nanosims_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
          "launches": sum(v[k] for v in paths.values()),
@@ -2651,7 +3076,7 @@ def main() -> int:
          "bound_ms": bound_ms[k], "bound_by": "bytes", "library_ms": library_ms.get(k),
          **({"more_shapes": [more_shapes[k]]} if k in more_shapes else {})}
         for k, name, src, tpu in KERNELS
-    ], "zstack": zstack}
+    ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ the analysis plane of ``analyze`` — full region table, particle fill,
 proximity-merge grouping, DAPI dedup, channel fusion and the folder flows
 that write the reference's CSVs; and watershed refinement, ``refine`` —
 exact EDT, plateau-aware local maxima, marker CCL, two-phase watershed,
-centroid table, nearest-neighbour distances.  Each TPU kernel on those paths
+centroid table, nearest-neighbour distances; and NanoSIMS ROI analysis,
+``nanosims`` (config #4).  Each TPU kernel on those paths
 has a hand-written CUDA kernel for Hopper (``csrc/``, built with nvcc on
 first use, see ``_kernels``) beside a plain PyTorch version; CUDA tensors
 take the kernels, CPU tensors the plain versions (``_dispatch``).
@@ -31,12 +32,14 @@ Layout mirrors the JAX package:
              fusion and run_analysis; refine_plane_device and refine_boundaries
   oracle/, report/, viz/   host helpers, CSV writers, figures
   utils/     stage tracing, logging, the run manifest
-  cli.py     the ``analyze``, ``batch`` and ``refine`` verbs
+  cli.py     the ``analyze``, ``batch``, ``refine``, ``split``, ``normalize``
+             and ``nanosims`` verbs
 """
 
 __version__ = "0.1.0"
 
 from particle_col_image_segmentation_tpu_torch.config import (  # noqa: E402,F401
     AnalysisConfig,
+    NanoSIMSConfig,
     RefineConfig,
 )

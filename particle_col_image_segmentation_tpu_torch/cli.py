@@ -9,6 +9,7 @@
             (split_zstack.py parity)
   normalize — move raw captures into one clean folder an acquisition
             (create_file_structure.py parity)
+  nanosims — NanoSIMS 5-isotope ROI activity/distance analysis (.m parity)
 
 Files and output lines match the JAX package's verbs byte for byte.
 ``--device`` defaults to ``cuda`` (the hand-written kernels; Hopper cards
@@ -137,6 +138,15 @@ def main(argv=None) -> int:
     p = sub.add_parser("normalize", help="normalize raw-capture folder tree")
     p.add_argument("folder")
 
+    p = sub.add_parser("nanosims", help="NanoSIMS 5-isotope ROI analysis")
+    p.add_argument("mat_folder")
+    p.add_argument("rois_png")
+    _add_device_flag(p)
+    p.add_argument("--bound-png", default=None)
+    p.add_argument("--out-dir", default=".")
+    p.add_argument("--compat-green-o-bug", action="store_true")
+    p.add_argument("--no-figures", action="store_true", dest="ns_no_figures")
+
     p = sub.add_parser("refine", help="watershed boundary refinement of a probability .h5")
     p.add_argument("h5_file")
     _add_device_flag(p)
@@ -156,6 +166,8 @@ def main(argv=None) -> int:
         return _analyze(args)
     if args.command == "refine":
         return _refine(args)
+    if args.command == "nanosims":
+        return _nanosims(args)
     if args.command == "split":
         from particle_col_image_segmentation_tpu_torch.models.zsplit import process_folder
 
@@ -180,6 +192,21 @@ def _analyze(args) -> int:
     if args.profile:
         for name, total in sorted(STAGE_TOTALS.items(), key=lambda kv: -kv[1]):
             print(f"profile: {name:24s} {total*1e3:10.1f} ms")
+    return 0
+
+
+def _nanosims(args) -> int:
+    from particle_col_image_segmentation_tpu_torch.config import NanoSIMSConfig
+    from particle_col_image_segmentation_tpu_torch.models.nanosims import run_nanosims
+
+    device = _device(args.device)
+    cfg = NanoSIMSConfig(compat_green_o_bug=args.compat_green_o_bug)
+    result = run_nanosims(args.mat_folder, args.rois_png, args.bound_png, args.out_dir, cfg,
+                          make_figures=not args.ns_no_figures, device=device)
+    print(
+        f"red ROIs: {result.red.num_rois}, green ROIs: {result.green.num_rois}; "
+        f"CSVs written to {args.out_dir}"
+    )
     return 0
 
 

@@ -1,8 +1,8 @@
 """Configuration of the port's pipelines.
 
 The port's own copy of what it reads from the JAX package's ``config.py``
-(the reference's constants as a frozen dataclass; reference:
-tiff_analysis.py:47-82, refine_boundaries.py).  Defaults and field names are
+(the reference's constants as frozen dataclasses; reference:
+tiff_analysis.py:47-82, refine_boundaries.py, the NanoSIMS .m script).  Defaults and field names are
 the JAX package's, field for field, so a configuration carries across with
 ``config_from_fields``.
 """
@@ -137,14 +137,40 @@ class RefineConfig:
     watershed_max_sweeps: int = 16
 
 
+@dataclasses.dataclass(frozen=True)
+class NanoSIMSConfig:
+    """NanoSIMS 5-isotope analysis tunables (reference: the .m script)."""
+
+    # Acquisition field of view in µm (ref .m:265: raster=19).
+    raster_um: float = 19.0
+    # Acquisition size in px after the 1-px frame crop (ref .m:18-28).
+    # Distances are converted via raster / 512 µm per px (ref .m:265-268).
+    distance_size_px: int = 512
+    # Gaussian blur sigmas (ref .m:43,51-62).
+    sigma_display: float = 1.0
+    sigma_ratio: float = 1.5
+    # Reproduce the reference copy-paste bug where the green-ROI O17/O18
+    # activity maps are accumulated into the red images (ref .m:210-213).
+    compat_green_o_bug: bool = False
+    # Reproduce MATLAB imcrop's half-pixel rect convention (ref .m:83-85):
+    # one extra row and column past the content extent (clamped at the image
+    # edge), which shifts every ROI mask resize and so every ROI sum.  False
+    # crops exactly to the content bounding box.
+    compat_imcrop_rect: bool = False
+    # ROI capacity of one painted class; more ROIs raise.
+    max_rois: int = 1024
+
+
 def config_from_fields(obj):
-    """The port's ``AnalysisConfig`` or ``RefineConfig`` with the field
-    values of ``obj``, any object that has every field of one of them (a
-    configuration of the JAX package, say).  Raises if it has neither."""
-    for cls in (AnalysisConfig, RefineConfig):
+    """The port's ``AnalysisConfig``, ``RefineConfig`` or ``NanoSIMSConfig``
+    with the field values of ``obj``, any object that has every field of one
+    of them (a configuration of the JAX package, say).  Raises if it has
+    none."""
+    for cls in (AnalysisConfig, RefineConfig, NanoSIMSConfig):
         names = [f.name for f in dataclasses.fields(cls)]
         if all(hasattr(obj, n) for n in names):
             return cls(**{n: getattr(obj, n) for n in names})
     raise TypeError(
-        f"{type(obj).__name__} has the fields of neither AnalysisConfig nor RefineConfig"
+        f"{type(obj).__name__} has the fields of neither AnalysisConfig, RefineConfig "
+        "nor NanoSIMSConfig"
     )

@@ -13,6 +13,7 @@ from particle_col_image_segmentation_tpu_torch.ops.ccl_tiles import (  # noqa: F
     compact_labels_cuda,
 )
 from particle_col_image_segmentation_tpu_torch.ops.edt import (  # noqa: F401
+    edt,
     edt_exact,
     edt_sq,
     edt_sq_exact,
@@ -39,9 +40,15 @@ from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import (  # noq
     median_label_filter_cuda,
 )
 from particle_col_image_segmentation_tpu_torch.ops.morphology import (  # noqa: F401
+    boundary_mask,
+    close_disk,
     dilate_disk,
+    erode_disk,
+    fill_holes,
+    fill_holes_fixpoint,
     local_maxima,
     local_maxima_auto,
+    open_disk,
 )
 from particle_col_image_segmentation_tpu_torch.ops.pairwise import (  # noqa: F401
     min_dist_to_set,

@@ -30,7 +30,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["edt_sq", "row_dh2_exact", "minplus_rows", "edt_sq_exact", "edt_exact", "sqrt_f32"]
+__all__ = ["edt_sq", "edt", "row_dh2_exact", "minplus_rows", "edt_sq_exact", "edt_exact",
+           "sqrt_f32"]
 
 
 def edt_sq(feature: torch.Tensor, cap: int) -> torch.Tensor:
@@ -77,6 +78,18 @@ def _doubling_dist(d0: torch.Tensor, c1: int, backward: bool) -> torch.Tensor:
         d = torch.minimum(d, shifted + s)
         s *= 2
     return torch.clamp(d, max=c1)
+
+
+def edt(feature: torch.Tensor, cap: int) -> torch.Tensor:
+    """Float32 distance to the nearest nonzero pixel of ``feature``, exact up
+    to ``cap`` (past it, a value in (cap, cap + 1]): the root of the capped
+    int32 d², so K9 on a CUDA tensor and the plain transform on the CPU."""
+    # ops.edt_tiles imports this module, so it is imported here
+    from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import edt_sq_auto
+
+    if feature.dtype not in (torch.bool, torch.uint8):
+        feature = feature != 0
+    return sqrt_f32(edt_sq_auto(feature.contiguous(), cap))
 
 
 def row_dh2_exact(feature: torch.Tensor, inf: int) -> torch.Tensor:

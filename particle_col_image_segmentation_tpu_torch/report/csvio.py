@@ -2,7 +2,8 @@
 
 Schemas, rounding, and row ordering match tiff_analysis.py:1047-1107
 byte-for-byte (including the quirk that single-cell areas are rounded to 5 dp
-while cluster areas are written unrounded, :1057 vs :1063).
+while cluster areas are written unrounded, :1057 vs :1063); the NanoSIMS
+matrices are MATLAB csvwrite's (``write_matrix_csv``).
 """
 
 from __future__ import annotations
@@ -99,6 +100,17 @@ def write_merged_cell_position_info(
                         len(p["regions"]),
                     ]
                 )
+
+
+def write_matrix_csv(csv_output_file: str, matrix, precision: str = "%.5g") -> None:
+    """MATLAB csvwrite/dlmwrite parity: headerless comma-separated matrix,
+    default 5 significant digits (reference .m:237,256,268,309)."""
+    import numpy as np
+
+    with open(csv_output_file, "w") as f:
+        for row in np.atleast_2d(np.asarray(matrix)):
+            f.write(",".join(precision % v for v in row))
+            f.write("\n")
 
 
 def write_density_info(

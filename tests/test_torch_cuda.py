@@ -57,6 +57,7 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
 
 from chip_smoke import (
     config1_plane,
+    config4_painting,
     config2_stack,
     config2_stacks,
     hist_inputs,
@@ -70,9 +71,12 @@ from chip_smoke import (
     k9_inputs,
     off16,
     plain_threshold,
+    plain_morphology,
     plain_threshold_batch,
     scipy_min_index,
+    serpentine,
     stack_stats,
+    write_acquisition,
     ws_budgets,
     ws_corridor,
     ws_mixed,
@@ -726,3 +730,59 @@ def test_config2_tiff_decode_to_card_stack_stats(dev, tmp_path):
     assert bool(got[5].all()) and bool(want[5].all())
     for i in (0, 1, 2, 3, 4):  # mask, labels, count, num_fg, num_total
         assert torch.equal(got[i].cpu(), want[i]), i
+
+
+@pytest.mark.parametrize("radius", [0, 1, 2, 20, 181])
+def test_disk_morphology_and_edt_through_k9(dev, radius):
+    """erode/open/close_disk (K9 on the card) against the plain transform
+    on the card and on the CPU, and edt's float32 bits."""
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        close_disk, edt, erode_disk, open_disk, sqrt_f32)
+
+    m_np = _planes((3, 97, 130), 5) == 1
+    m = torch.from_numpy(m_np).to(dev)
+    plain = plain_morphology()
+    for name, fn in (("erode_disk", erode_disk), ("open_disk", open_disk),
+                     ("close_disk", close_disk)):
+        got = fn(m, radius)
+        _equal([got], [plain[name](m, radius)], name)
+        assert torch.equal(got.cpu(), fn(torch.from_numpy(m_np), radius)), name
+    _equal([edt(m, radius).view(torch.int32)],
+           [sqrt_f32(edt_sq(m, radius)).view(torch.int32)])
+
+
+def test_fill_holes_through_k2(dev):
+    """fill_holes (K2 on the card) equals the plain fixpoint where that
+    converges, reports converged, and ignores a budget the plain flood
+    outlasts."""
+    from particle_col_image_segmentation_tpu_torch.ops import fill_holes, fill_holes_fixpoint
+
+    cases = {"planes": _planes((3, 97, 130), 9) == 1,
+             "serpentine": np.stack([serpentine(97, 130), serpentine(97, 130, 6)])}
+    for case, m_np in cases.items():
+        m = torch.from_numpy(m_np).to(dev)
+        want, conv = fill_holes_fixpoint(torch.from_numpy(m_np), with_flag=True)
+        assert bool(conv), case
+        got, got_conv = fill_holes(m, max_iters=3, with_flag=True)
+        assert bool(got_conv) and got_conv.shape == (), case
+        assert torch.equal(got.cpu(), want), case
+
+
+def test_analyze_nanosims_card_equals_cpu(dev, tmp_path):
+    """Config #4's acquisition at a cut size: the card's run equals the
+    plain CPU run (ROI counts, labels, positions bit for bit, sums rtol
+    1e-6)."""
+    from particle_col_image_segmentation_tpu_torch.models import nanosims as ns
+
+    painted, _ = config4_painting(300, 280, 20, 18, 40, 36)
+    write_acquisition(str(tmp_path / "acq"), painted, seed=3)
+    iso = ns.load_isotope_mats(str(tmp_path / "acq"))
+    got = ns.analyze_nanosims(iso, painted, device=dev)
+    want = ns.analyze_nanosims(iso, painted, device="cpu")
+    for cls in ("red", "green"):
+        g, w = getattr(got, cls), getattr(want, cls)
+        assert g.num_rois == w.num_rois > 0
+        np.testing.assert_array_equal(g.labels, w.labels)
+        np.testing.assert_array_equal(g.positions, w.positions)
+        np.testing.assert_allclose(g.sums, w.sums, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got.nearest, want.nearest, rtol=1e-6)

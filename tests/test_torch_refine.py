@@ -273,7 +273,7 @@ def test_copied_constants_and_defaults_equal_the_jax_package(tmp_path):
     for name in ("CMAP", "BASE_TYPE_MAP", "CELL_TYPES", "CHANNELS", "CHANNEL_MAP", "STRAIN_MAP",
                  "CAPTURE_CHANNELS"):
         assert getattr(port_config, name) == getattr(jax_config, name), name
-    for cls in ("AnalysisConfig", "RefineConfig"):
+    for cls in ("AnalysisConfig", "RefineConfig", "NanoSIMSConfig"):
         ours = {f.name: f.default for f in dataclasses.fields(getattr(port_config, cls))}
         theirs = {f.name: f.default for f in dataclasses.fields(getattr(jax_config, cls))}
         assert ours == theirs, cls

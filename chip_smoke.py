@@ -155,7 +155,22 @@ nonzero and no result line is printed):
      in a fresh interpreter, and times: run_nanosims and the same flow
      stepped, the per-ROI reduction alone (bench.py's
      ``4_nanosims_ms_per_acq``, ``4_nanosims_rois_per_s``) and bench's
-     scipy baseline (``4_vs_cpu``).
+     scipy baseline (``4_vs_cpu``);
+ 12. the tunnelled refine (``tunnel_phase``) — refine_boundaries_stack with
+     tunnel_basins=True over the [8,2048,2048] relief, smooth and at 16
+     levels: K2, K3, K7, K9 and K10 launched and K11 not (counts reset
+     just before each run); labels, cell counts, areas and centroids equal
+     to the plain run on the card on every plane where the plain run
+     converged; every plane's basin segments (K2 on the below-level mask)
+     equal to scipy's min-index labels (``basins_vs_scipy``); boundary IoU
+     of the card's default and tunnelled labels against the port's oracle
+     priority flood (``tunnel_quality``: bench.py's 512² relief, smooth
+     and 16 levels, where the tunnel may lose at most 0.005, and an 8-level
+     sparse-seed relief, where it must gain 0.2); CUDA-event times
+     (tunnelled and default refine_plane_device, phase 2's steps and ms a
+     step, the basin segments and K2 alone) and peak device memory; the
+     ``refine --tunnel-basins`` verb in a fresh interpreter where h5py
+     imports (the card's machine has none: the phase says it skipped it).
 Phase 3 also holds the morphology/EDT API (``morph_checks``): erode, open
 and close_disk (K9) at r 0, 1, 2, 20, the largest one-kernel cap and one
 past it, fill_holes (K2; a serpentine past a budget of 3 compared where
@@ -163,12 +178,12 @@ the plain flood converged), edt at cap 20 (bit patterns) and boundary_mask
 (card against CPU) on the bench planes' cell and particle masks and the
 odd [3,97,130] batch, each against its plain route on the card.
 The line before the last is the per-kernel JSON record (``launches`` sums
-the batch, analyze, refine, threshold, zstack, morphology and nanosims
-paths' runs,
+the batch, analyze, refine, threshold, zstack, morphology, nanosims and
+tunnel paths' runs,
 ``bound_ms`` is the bytes each function must move over 3.35 TB/s,
 ``more_shapes`` holds K2's and K4's threshold-path shapes and K6's device
 time; ``zstack`` holds phase 10's numbers, ``nanosims`` and
-``morphology`` phase 11's); the last line is
+``morphology`` phase 11's, ``tunnel`` phase 12's); the last line is
 {"ok": true, ...}.
 
 The script imports the port, bench.py's plane generator, numpy, scipy and
@@ -860,6 +875,30 @@ def ws_budgets(img, mk, m, conn: int, want):
             raise AssertionError("a one-pass budget reported a converged plane")
         out.append((budget, watershed_cuda.last_passes, conv.tolist()))
     return out
+
+
+def plain_refine(x, cfg):
+    """refine_plane_device through the plain versions on x's device: (labels,
+    num, CentroidTable, per-plane converged).  ``cfg.tunnel_basins`` floods
+    with the tunnelled phase 2."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        centroid_sums, compact_labels, connected_components, edt_sq, edt_sq_exact,
+        local_maxima, watershed)
+
+    bm = x < cfg.boundary_threshold
+    cap = cfg.edt_probe_cap
+    dsq = edt_sq(~bm, cap)
+    if bool((dsq > cap * cap).any()):
+        dsq = edt_sq_exact(~bm)
+    maxima, conv_max = local_maxima(dsq, with_flag=True)
+    raw, conv_ccl = connected_components(maxima.to(torch.uint8), background=0,
+                                         num_classes=2, with_flag=True)
+    markers, num = compact_labels(raw, REFINE_REGIONS)
+    labels, conv_ws = watershed(x, markers, bm, with_flag=True, max_iters=cfg.watershed_max_iters,
+                                tunnel_basins=cfg.tunnel_basins)
+    return labels, num, centroid_sums(labels, REFINE_REGIONS), conv_max & conv_ccl & conv_ws
 
 
 def make_tree(root: str, singles) -> dict:
@@ -2165,6 +2204,258 @@ def nanosims_phase(card: str, dev, reset_counts, read_counts) -> tuple:
 
 
 
+# ---- the tunnelled refine (phase 12) ----------------------------------------
+
+def quantize16(x):
+    """bench.py's 16-level quantization of a relief."""
+    import numpy as np
+
+    return (np.round(x * 15.0) / 15.0).astype(np.float32)
+
+
+def sparse_seeds(n: int = 128, k: int = 8):
+    """The tunnel's regime (the JAX package's test_sparse_quantized_parity_lift):
+    a k-level noise relief with 20 unconfined point seeds, (img, markers)."""
+    import numpy as np
+
+    prob = np.random.default_rng(0).random((n, n)).astype(np.float32)
+    q = (np.round(prob * (k - 1)) / (k - 1)).astype(np.float32)
+    mk = np.zeros((n, n), np.int32)
+    pts = sorted({(int(y), int(x)) for y, x in np.random.default_rng(2).integers(0, n, (20, 2))})
+    for i, (cy, cx) in enumerate(pts):
+        mk[cy, cx] = i + 1
+    return q, mk
+
+
+def basins_vs_scipy(img, mk, m, conn: int):
+    """The card's basin segments (K10's costs, then ``basin_segments``: K2 on
+    the below-level mask) against scipy's min-index labels of the same mask,
+    plus plane offsets.  Returns (basins, pixels in basins, largest basin)."""
+    import numpy as np
+
+    from particle_col_image_segmentation_tpu_torch.ops.watershed import basin_segments
+    from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
+        _INF,
+        minimax_costs_cuda,
+    )
+
+    seeded = (mk > 0) & m
+    cost, busy, _ = minimax_costs_cuda(img, m, seeded, conn)
+    if bool(busy.any()):
+        raise AssertionError("the basins' phase 1 did not converge")
+    seg, inc, conv = basin_segments(cost, img, m, seeded, conn)
+    below = (m & ~seeded & (inc == 0) & (cost < _INF)).cpu().numpy()
+    B, H, W = below.shape
+    ref = scipy_min_index(below.astype(np.uint8), background=0,
+                          connectivity=4 if conn == 1 else 8)
+    lin = np.arange(H * W, dtype=np.int32).reshape(H, W)
+    want = np.where(below, ref, lin) + (np.arange(B, dtype=np.int32) * (H * W))[:, None, None]
+    if not bool(conv.all()) or not np.array_equal(seg.cpu().numpy(), want):
+        raise AssertionError("the card's basin segments differ from scipy's")
+    roots = (ref + (np.arange(B) * (H * W))[:, None, None])[below]
+    sizes = np.unique(roots, return_counts=True)[1]
+    return int(sizes.size), int(sizes.sum()), int(sizes.max(initial=0))
+
+
+def tunnel_quality(dev) -> dict:
+    """Boundary IoU against the port's oracle priority flood, the card's
+    default and tunnelled labels: refine on bench.py's 512² relief (smooth
+    and 16 levels; the tunnel may not lose more than 0.005), and the
+    watershed on ``sparse_seeds`` (the tunnel must gain 0.2)."""
+    import numpy as np
+    import torch
+    from scipy import ndimage as ndi
+
+    from particle_col_image_segmentation_tpu_torch.config import RefineConfig
+    from particle_col_image_segmentation_tpu_torch.models.refine import refine_boundaries
+    from particle_col_image_segmentation_tpu_torch.ops import watershed, watershed_auto
+    from particle_col_image_segmentation_tpu_torch.oracle import ndimage as ond
+    from particle_col_image_segmentation_tpu_torch.utils.metrics import boundary_iou
+
+    out = {}
+    prob = refine_relief(512, 30)  # bench.py's config #3 relief, the same draws
+    for name, p in (("512 smooth", prob), ("512 16-level", quantize16(prob))):
+        binary = p < 0.5
+        omark = ond.label(ond.local_maxima(ndi.distance_transform_edt(binary)).astype(np.uint8))
+        oref = ond.watershed(p, omark, mask=binary)
+        iou = {tun: boundary_iou(refine_boundaries(p, RefineConfig(tunnel_basins=tun),
+                                                   device=dev).labels, oref)
+               for tun in (False, True)}
+        if iou[True] < iou[False] - 0.005:
+            raise AssertionError(f"phase 12 {name}: the tunnel loses boundary IoU: {iou}")
+        out[name] = {"default": iou[False], "tunnel": iou[True]}
+    q, mk = sparse_seeds()
+    orc = ond.watershed(q, mk)
+    x, xm = torch.from_numpy(q).to(dev), torch.from_numpy(mk).to(dev)
+    base = watershed_auto(x, xm, max_iters=4096).cpu().numpy()
+    tun, conv = watershed_auto(x, xm, max_iters=4096, with_flag=True, tunnel_basins=True)
+    want, wconv = watershed(x.cpu(), xm.cpu(), max_iters=4096, with_flag=True, tunnel_basins=True)
+    if not (bool(conv) and bool(wconv)) or not torch.equal(tun.cpu(), want):
+        raise AssertionError("phase 12: the sparse-seed tunnel differs from the plain CPU run")
+    iou = {False: boundary_iou(base, orc), True: boundary_iou(tun.cpu().numpy(), orc)}
+    if iou[True] < iou[False] + 0.2:
+        raise AssertionError(f"phase 12 sparse seeds: the tunnel gains too little: {iou}")
+    out["128 8-level sparse seeds"] = {"default": iou[False], "tunnel": iou[True]}
+    return out
+
+
+def tunnel_phase(card: str, dev, stack8, reset_counts, read_counts) -> tuple:
+    """Phase 12: refine_boundaries_stack with ``tunnel_basins=True`` on the
+    [8,2048,2048] relief, smooth and at 16 levels (launch counts reset just
+    before each run: K2, K3, K7, K9 and K10 must launch, K11 must not);
+    labels, cell counts, areas and centroids equal to the plain run on the
+    card on every plane where it converged; every plane's basins equal to
+    scipy's; the boundary IoU checks (``tunnel_quality``); CUDA-event times
+    and peak device memory; the ``refine --tunnel-basins`` verb where h5py
+    imports.  Returns (launch counts summed over both runs, record)."""
+    import numpy as np
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.config import RefineConfig
+    from particle_col_image_segmentation_tpu_torch.models.refine import (
+        refine_boundaries_stack,
+        refine_plane_device,
+        write_refine_stack_csv,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        ccl_cuda,
+        centroids_f64,
+        connected_components,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.watershed import (
+        _segment_broadcast,
+        basin_segments,
+        claim_labels,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
+        _BIG_LAB,
+        _INF,
+        minimax_costs_cuda,
+    )
+
+    tcfg = RefineConfig(tunnel_basins=True)
+    t_phase = time.perf_counter()
+    launches, record = {}, {"reliefs": {}}
+    for name, arr in (("smooth", stack8), ("16-level", quantize16(stack8))):
+        shape = f"[{arr.shape[0]},{H},{W}] {name}"
+        reset_counts()
+        t0 = time.perf_counter()
+        results = refine_boundaries_stack(arr, tcfg, REFINE_REGIONS, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        got = read_counts()
+        steps = claim_labels.last_steps
+        if any(got[k] <= 0 for k in ("K2", "K3", "K7", "K9", "K10")) or got["K11"] != 0:
+            raise AssertionError(f"phase 12 {shape}: the tunnelled path launched {got}")
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+
+        # the plain run on the card, compared where it converged
+        x = torch.from_numpy(arr).to(dev)
+        t0 = time.perf_counter()
+        p_labels, p_num, p_table, p_conv = plain_refine(x, tcfg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        host = type(p_table)(*(t.cpu().numpy() for t in p_table))
+        cy, cx = centroids_f64(host)
+        compared = []
+        for z in range(arr.shape[0]):
+            if not bool(p_conv[z]):
+                continue
+            r, n = results[z], int(p_num[z])
+            if (r.num_cells != n or not np.array_equal(r.labels, p_labels[z].cpu().numpy())
+                    or not np.array_equal(r.areas, host.area[z][1:n + 1])
+                    or not np.array_equal(r.centroids, np.stack([cy[z], cx[z]], 1)[1:n + 1])):
+                raise AssertionError(f"phase 12 {shape} plane {z}: differs from plain")
+            compared.append(z)
+        del p_labels, p_table
+        # every plane's basins against scipy's, on the markers refine seeds
+        mask = x < tcfg.boundary_threshold
+        markers = refine_plane_device(x, RefineConfig(), REFINE_REGIONS)[1]  # key-independent
+        basins = basins_vs_scipy(x, markers, mask, 1)
+        log(f"phase 12 tunnel {shape}: refine_boundaries_stack {wall_s:.2f} s wall [{card}], "
+            f"{steps} phase-2 steps, launches {got}; == plain on the card on planes {compared} "
+            f"(plain {plain_s:.1f} s); basins == scipy's: "
+            f"{basins[0]} basins, {basins[1]} px, largest {basins[2]} px; cells a plane "
+            f"{[r.num_cells for r in results]}")
+        if not compared:
+            raise AssertionError(f"phase 12 {shape}: the plain run converged on no plane")
+
+        # times by CUDA events
+        seeded = (markers > 0) & mask
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        refine_plane_device(x, tcfg, REFINE_REGIONS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        t = {"refine_ms": time_ms(lambda: refine_plane_device(x, tcfg, REFINE_REGIONS), reps=2),
+             "default_refine_ms": time_ms(lambda: refine_plane_device(x, RefineConfig(),
+                                                                       REFINE_REGIONS), reps=2)}
+        cost = minimax_costs_cuda(x, mask, seeded)[0]
+        t["basins_ms"] = time_ms(lambda: basin_segments(cost, x, mask, seeded), reps=3)
+        seg, inc, _ = basin_segments(cost, x, mask, seeded)
+        below = (mask & ~seeded & (inc == 0) & (cost < _INF)).int()
+        t["basin_k2_ms"] = time_ms(lambda: ccl_cuda(below, background=0, connectivity=4), reps=5)
+        t["basin_plain_ms"] = time_ms(lambda: connected_components(
+            below, background=0, connectivity=4, num_classes=2), reps=1, warmup=0)
+        t["basin_k2_bound_ms"] = 8 * x.numel() / HBM_BYTES_PER_S * 1e3  # int32 in, int32 out
+        t["phase2_ms"] = time_ms(lambda: claim_labels(cost, x, markers, mask, seeded,
+                                                      max_iters=tcfg.watershed_max_iters,
+                                                      basins=(seg, inc)), reps=1)
+        t["phase2_steps"] = claim_labels.last_steps
+        t["ms_a_step"] = t["phase2_ms"] / t["phase2_steps"]
+        # a step's least traffic: cost, img, eimg, lab, dist, markers, seg,
+        # inc (4 B each) and the mask and seed flags (1 B each) read once,
+        # lab, dist and eimg (4 B each) written once
+        t["step_bound_ms"] = 46 * x.numel() / HBM_BYTES_PER_S * 1e3
+        seg_flat = seg.reshape(-1).to(torch.int64)
+        claims = (torch.zeros_like(seg), cost, x, torch.where(seeded, markers, _BIG_LAB))
+        t["broadcast_ms"] = time_ms(lambda: _segment_broadcast(seg_flat, *claims), reps=5)
+        del seg_flat, claims
+        t.update(wall_s=wall_s, plain_s=plain_s, peak_gib=peak / 2**30,
+                 planes_equal_to_plain=compared, basins=basins[0], basin_px=basins[1],
+                 largest_basin_px=basins[2])
+        record["reliefs"][name] = t
+        log(f"phase 12 times [{card}] {shape}: tunnelled refine_plane_device "
+            f"{t['refine_ms']:.3f} ms (default {t['default_refine_ms']:.3f}); phase 2 "
+            f"{t['phase2_ms']:.3f} ms, {t['phase2_steps']} steps, {t['ms_a_step']:.3f} ms a "
+            f"step (bound {t['step_bound_ms']:.3f}; its segment broadcast alone "
+            f"{t['broadcast_ms']:.3f}); basin segments {t['basins_ms']:.3f} ms (K2 alone "
+            f"{t['basin_k2_ms']:.3f}, bound {t['basin_k2_bound_ms']:.3f}, plain "
+            f"{t['basin_plain_ms']:.3f}); peak device memory {t['peak_gib']:.3f} GiB above "
+            f"the input")
+        del x, mask, markers, seeded, cost, seg, inc, below
+        torch.cuda.empty_cache()
+
+    record["boundary_iou"] = tunnel_quality(dev)
+    for k, v in record["boundary_iou"].items():
+        log(f"phase 12 boundary IoU against the port's oracle, {k}: default {v['default']:.4f}, "
+            f"tunnel {v['tunnel']:.4f}")
+
+    if "does not import" in imports("h5py"):
+        log("phase 12 refine --tunnel-basins verb: skipped (h5py does not import here)")
+    else:
+        import h5py
+
+        crop = np.ascontiguousarray(quantize16(stack8[:2, :512, :512]))
+        with tempfile.TemporaryDirectory(prefix="pcis_tunnel_") as tmp:
+            src, card_csv = os.path.join(tmp, "probs.h5"), os.path.join(tmp, "card.csv")
+            with h5py.File(src, "w") as f:
+                f.create_dataset("exported_data", data=crop)
+            run_verbs(["refine", src, "--stack", "--tunnel-basins", "--csv", card_csv])
+            cpu_csv = os.path.join(tmp, "cpu.csv")
+            write_refine_stack_csv(refine_boundaries_stack(crop, tcfg, device="cpu"), cpu_csv)
+            with open(card_csv, "rb") as a, open(cpu_csv, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError("phase 12: the verb's CSV differs from the plain "
+                                         "CPU run's")
+        log("phase 12 refine --tunnel-basins verb (fresh interpreter, --device defaulting to "
+            "cuda): exit 0, CSV == the plain CPU run's")
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12 tunnel: {record['phase_s']:.1f} s wall")
+    return launches, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
@@ -2502,7 +2793,7 @@ def main() -> int:
     t0 = time.perf_counter()
     relief = refine_relief()
     stack8 = np.stack([np.roll(relief, 17 * b, axis=1) for b in range(REFINE_PLANES)])
-    q2 = (np.round(stack8[:2] * 15.0) / 15.0).astype(np.float32)  # the bench's 16 levels
+    q2 = quantize16(stack8[:2])
     log(f"phase 3 refine relief: [{REFINE_PLANES},{H},{W}] built in "
         f"{time.perf_counter() - t0:.1f} s")
     x8r = torch.from_numpy(stack8).to(dev)
@@ -2884,25 +3175,10 @@ def main() -> int:
             f"(torch.profiler); tiles run a pass {list(wl.tiles)} (of "
             f"{REFINE_PLANES * (H // 32) * (W // 32)})")
 
-    def plain_refine(x):
-        """refine_plane_device through the plain versions on x's device."""
-        bm = x < rcfg.boundary_threshold
-        cap = rcfg.edt_probe_cap
-        dsq = edt_sq(~bm, cap)
-        if bool((dsq > cap * cap).any()):
-            dsq = edt_sq_exact(~bm)
-        maxima, conv_max = local_maxima(dsq, with_flag=True)
-        raw, conv_ccl = connected_components(maxima.to(torch.uint8), background=0,
-                                             num_classes=2, with_flag=True)
-        markers, num = compact_labels(raw, REFINE_REGIONS)
-        labels, conv_ws = watershed(x, markers, bm, with_flag=True,
-                                    max_iters=rcfg.watershed_max_iters)
-        return labels, num, centroid_sums(labels, REFINE_REGIONS), conv_max & conv_ccl & conv_ws
-
     rmp = REFINE_PLANES * H * W / 1e6
     refine_ms = time_ms(lambda: refine_plane_device(x8r, rcfg, REFINE_REGIONS), reps=3)
     plain8 = {}
-    plain_refine_ms = time_ms(lambda: plain8.update(out=plain_refine(x8r)), reps=1, warmup=0)
+    plain_refine_ms = time_ms(lambda: plain8.update(out=plain_refine(x8r, rcfg)), reps=1, warmup=0)
     log(f"phase 5 times [{card}]: refine_plane_device [{REFINE_PLANES},{H},{W}] kernels "
         f"{refine_ms:.3f} ms = {rmp / refine_ms * 1e3:.1f} MP/s; plain "
         f"{plain_refine_ms:.3f} ms = {rmp / plain_refine_ms * 1e3:.1f} MP/s")
@@ -3048,6 +3324,9 @@ def main() -> int:
                                               read_counts)
     nanosims_launches, nanosims = nanosims_phase(card, dev, reset_counts, read_counts)
 
+    # ---- phase 12: the tunnelled refine -------------------------------------
+    tunnel_launches, tunnel = tunnel_phase(card, dev, stack8, reset_counts, read_counts)
+
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
     if loaded:
@@ -3065,18 +3344,25 @@ def main() -> int:
                    "K6": 4 * R1, "K7": 20 * REFINE_PLANES * R1r, "K8": 4 * 8}
     bound_ms = {k: (n_px[k] * planes_of[k] * H * W + table_bytes.get(k, 0))
                 / HBM_BYTES_PER_S * 1e3 for k in n_px}
+    more_shapes = {k: [v] for k, v in more_shapes.items()}
+    basins = tunnel["reliefs"]["smooth"]
+    more_shapes["K2"].append({
+        "shape": f"[{REFINE_PLANES},{H},{W}] relief's basin mask int32, background=0, 4-connected",
+        "ms": basins["basin_k2_ms"], "plain_ms": basins["basin_plain_ms"],
+        "bound_ms": basins["basin_k2_bound_ms"], "bound_by": "bytes", "library_ms": None})
     paths = {"batch": batch_launches, "analyze": analyze_launches, "refine": refine_launches,
              "threshold": threshold_launches, "zstack": zstack_launches,
-             "morphology": morph_launches, "nanosims": nanosims_launches}
+             "morphology": morph_launches, "nanosims": nanosims_launches,
+             "tunnel": tunnel_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
          "launches": sum(v[k] for v in paths.values()),
          "launches_by_path": {p: v[k] for p, v in paths.items()},
          "max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bound_ms[k], "bound_by": "bytes", "library_ms": library_ms.get(k),
-         **({"more_shapes": [more_shapes[k]]} if k in more_shapes else {})}
+         **({"more_shapes": more_shapes[k]} if k in more_shapes else {})}
         for k, name, src, tpu in KERNELS
-    ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times}
+    ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

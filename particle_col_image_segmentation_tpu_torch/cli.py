@@ -160,6 +160,12 @@ def main(argv=None) -> int:
         "[Z,H,W,C]) and refine all planes in one batched pass "
         "(4-D inputs take this path automatically)",
     )
+    p.add_argument(
+        "--tunnel-basins", action="store_true",
+        help="model priority-flood basin tunneling (basin-component "
+        "contraction) in the watershed — for plateaued/quantized "
+        "probability maps with sparse markers",
+    )
 
     args = parser.parse_args(argv)
     if args.command == "analyze":
@@ -222,7 +228,8 @@ def _refine(args) -> int:
     )
 
     device = _device(args.device)
-    cfg = RefineConfig(boundary_threshold=args.threshold, boundary_channel=args.channel)
+    cfg = RefineConfig(boundary_threshold=args.threshold, boundary_channel=args.channel,
+                       tunnel_basins=args.tunnel_basins)
     probs = load_h5_plane(args.h5_file, key="exported_data")
     if args.stack or probs.ndim == 4:
         results = refine_boundaries_stack(probs, cfg, device=device)

@@ -126,8 +126,9 @@ class RefineConfig:
     # capped transform runs first and the exact fallback only if some
     # distance exceeds the probe.  Results are the same at any setting.
     edt_probe_cap: int = 32
-    # Priority-flood basin tunneling in the watershed.  Not ported: True
-    # raises NotImplementedError.
+    # Model priority-flood basin tunneling in the watershed via
+    # basin-component contraction (ops.watershed docstring), for plateaued
+    # or quantized probability maps with sparse markers.
     tunnel_basins: bool = False
     # Watershed budgets: ``watershed_max_iters`` bounds the plain Jacobi
     # steps and the kernels' passes of each phase.  ``watershed_max_sweeps``

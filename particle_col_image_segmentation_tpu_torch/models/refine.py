@@ -10,9 +10,13 @@ tensors through K9 (the EDT's capped probe), K2 (plateaus and markers), K3
 through the plain versions.  Every stage is batched over planes, and each
 plane's result equals its single-plane run.
 
-Not ported: ``tunnel_basins=True`` (raises NotImplementedError), the
-space-sharded ``refine_boundaries_sharded`` and its tunneled data-parallel
-path.
+``RefineConfig.tunnel_basins`` floods with basin tunnelling
+(``ops.watershed`` docstring): on CUDA tensors K10 for phase 1, K2 for the
+basins and a plain PyTorch phase 2 in place of K11, bounded by
+``watershed_max_iters`` steps.
+
+Not ported: the multi-device ``refine_boundaries_sharded`` and its
+tunnelled data-parallel path.
 """
 
 from __future__ import annotations

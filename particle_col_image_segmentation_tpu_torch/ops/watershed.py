@@ -16,6 +16,17 @@ package's XLA loop and band sweeps, and the port's CUDA tile passes
 (``ops.watershed_tiles``, K10 and K11) give the same labels bit for bit.
 The plain loop is the XLA loop step for step, so even a plane that runs out
 of ``max_iters`` gets the JAX package's labels and ``converged`` flag.
+
+``tunnel_basins=True`` models the priority flood's basin tunnelling: a
+below-level pixel (img < its flood level) pops before every at-level one,
+so a wave that reaches a basin's rim floods the whole basin in one round.
+Phase 2 then runs on the quotient graph of the basins: the connected
+components of the below-level mask (``basin_segments``; K2 on CUDA
+tensors), where claims cross only segment boundaries, the level distance
+grows only onto at-level pixels, and every basin adopts the least claim of
+its pixels each step (``_segment_broadcast``, four segment minima).  Phase
+1 is unchanged.  There is no tile kernel for this phase 2: it is plain
+PyTorch on both devices, as it is XLA code in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,15 +36,17 @@ from typing import Optional
 import torch
 
 from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
+from particle_col_image_segmentation_tpu_torch.ops.ccl import connected_components_auto
 from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
     _BIG_LAB,
     _INF,
+    minimax_costs_cuda,
     watershed_cuda,
 )
 
 __all__ = [
     "watershed", "watershed_auto", "minimax_costs", "claim_labels",
-    "claim_candidates", "fold_claim",
+    "claim_candidates", "fold_claim", "basin_segments",
 ]
 
 
@@ -55,22 +68,28 @@ def _shifted(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     return out
 
 
-def claim_candidates(cost, img, lab, dist, eimg, dy, dx):
+def claim_candidates(cost, img, lab, dist, eimg, dy, dx, *, inc=1, seg=None):
     """The phase-2 claim of the neighbour at offset (−dy, −dx) of every pixel,
     as (level distance, entry img, claimer img, label); (BIG, INF, INF, BIG)
-    where that edge is not optimal or the neighbour holds no label."""
+    where that edge is not optimal or the neighbour holds no label.
+
+    ``inc`` is the level distance a hop adds: 1 on the pixel graph, the
+    int32 ``at_level`` plane on the basins' quotient graph.  ``seg`` (the
+    quotient graph's segment ids) keeps only edges between segments."""
     nc = _shifted(cost, dy, dx, _INF)
     nim = _shifted(img, dy, dx, _INF)
     nl = _shifted(lab, dy, dx, _BIG_LAB)
     nd = _shifted(dist, dy, dx, _BIG_LAB)
     ne = _shifted(eimg, dy, dx, _INF)
     valid = (torch.maximum(nc, img) == cost) & (nl != _BIG_LAB)
+    if seg is not None:
+        valid &= _shifted(seg, dy, dx, -1) != seg
     reset = nc < cost  # strictly uphill crossing: a new flooding level
     big = torch.full_like(nd, _BIG_LAB)
     inf = torch.full_like(nim, _INF)
     cd = torch.where(
         valid,
-        torch.where(reset, 0, torch.where(nd < _BIG_LAB, nd + 1, big)),
+        torch.where(reset, 0, torch.where(nd < _BIG_LAB, nd + inc, big)),
         big,
     )
     ce = torch.where(valid, torch.where(reset, nim, ne), inf)
@@ -106,12 +125,7 @@ def _inputs(image, markers, mask):
     return img, lab0, m, (lab0 > 0) & m
 
 
-def _check_args(connectivity: int, tunnel_basins: bool) -> None:
-    if tunnel_basins:
-        raise NotImplementedError(
-            "watershed(tunnel_basins=True) is not ported yet (ROADMAP.md, "
-            "Queue 1: tunnel_basins)"
-        )
+def _check_args(connectivity: int) -> None:
     if connectivity not in (1, 2):
         raise ValueError(f"watershed: connectivity must be 1 or 2, got {connectivity}")
 
@@ -136,12 +150,69 @@ def minimax_costs(img, m, seeded, connectivity: int = 1, max_iters: int = 1024):
     return cost, changed
 
 
-def claim_labels(cost, img, lab0, m, seeded, connectivity: int = 1, max_iters: int = 1024):
+def basin_segments(cost, img, m, seeded, connectivity: int = 1):
+    """The tunnel's quotient graph for phase 2.  A basin is a connected
+    component (4-connected for ``connectivity`` 1, else 8) of the
+    below-level mask: masked, unseeded, reached pixels whose relief lies
+    under their cost.  Adjacent below-level pixels share one flood level,
+    so each component floods as one.
+
+    Returns (seg, inc, converged): int32 [..., H, W] segment ids, unique
+    across the whole batch (a basin's id is its least per-plane linear
+    index, any other pixel's its own, each plus its plane's offset); the
+    int32 level distance a hop onto each pixel adds (1 at level, 0 below);
+    and the per-plane flag of the basin CCL (K2 on CUDA tensors, always
+    True; the plain 64-round fixpoint on CPU tensors)."""
+    H, W = img.shape[-2:]
+    at_level = img == cost
+    below = m & ~seeded & ~at_level & (cost < _INF)
+    comp, conv = connected_components_auto(
+        below.int().reshape(-1, H, W), background=0,
+        connectivity=4 if connectivity == 1 else 8, num_classes=2, with_flag=True,
+    )
+    lin = torch.arange(H * W, dtype=torch.int32, device=img.device).reshape(H, W)
+    plane_off = torch.arange(comp.shape[0], dtype=torch.int32,
+                             device=img.device).reshape(-1, 1, 1) * (H * W)
+    seg = torch.where(below.reshape(comp.shape), comp, lin) + plane_off
+    return (seg.reshape(img.shape), at_level.int(),
+            conv.reshape(img.shape[:-2]))
+
+
+def _segment_broadcast(seg_flat, bd, be, bs, bl):
+    """The lexicographic (d, e, s, lab) minimum of each segment, gathered back
+    to its pixels: (d, e, lab).  ``seg_flat`` is the int64 flat segment ids.
+    Four scatter minima, each exact in any order, as the JAX package's four
+    ``segment_min`` calls."""
+    n = seg_flat.numel()
+
+    def seg_min(x, fill):
+        buf = torch.full((n,), fill, dtype=x.dtype, device=x.device)
+        buf.scatter_reduce_(0, seg_flat, x, reduce="amin", include_self=True)
+        return buf[seg_flat]
+
+    d, e, c, lab = (x.reshape(-1) for x in (bd, be, bs, bl))
+    dm = seg_min(d, _BIG_LAB)
+    t = d == dm
+    em = seg_min(torch.where(t, e, _INF), _INF)
+    t &= e == em
+    cm = seg_min(torch.where(t, c, _INF), _INF)
+    t &= c == cm
+    lm = seg_min(torch.where(t, lab, _BIG_LAB), _BIG_LAB)
+    return dm.reshape(bd.shape), em.reshape(bd.shape), lm.reshape(bd.shape)
+
+
+def claim_labels(cost, img, lab0, m, seeded, connectivity: int = 1, max_iters: int = 1024,
+                 basins=None):
     """Phase 2 (plain Jacobi): with ``cost`` fixed, relax the claims from
-    the seeds.  Returns (watershed labels — 0 outside the mask and where no
-    seed reaches —, per-plane bool still changing when the loop stopped)."""
+    the seeds.  ``basins`` = (seg, inc) from ``basin_segments`` runs it on
+    the basins' quotient graph (``tunnel_basins``).  Returns (watershed
+    labels — 0 outside the mask and where no seed reaches —, per-plane bool
+    still changing when the loop stopped); the steps run are kept in
+    ``claim_labels.last_steps``."""
     inf = torch.tensor(_INF, dtype=torch.float32, device=img.device)
     big = torch.full(img.shape, _BIG_LAB, dtype=torch.int32, device=img.device)
+    seg, inc = basins if basins is not None else (None, 1)
+    seg_flat = None if seg is None else seg.reshape(-1).to(torch.int64)
     lab = torch.where(seeded, lab0, big)
     dist = torch.where(seeded, 0, big)
     eimg = torch.where(seeded, -inf, inf)
@@ -150,16 +221,34 @@ def claim_labels(cost, img, lab0, m, seeded, connectivity: int = 1, max_iters: i
     while i < max_iters and bool(changed.any()):
         best = (big, torch.full_like(img, _INF), torch.full_like(img, _INF), big)
         for dy, dx in _offsets(connectivity):
-            best = fold_claim(best, claim_candidates(cost, img, lab, dist, eimg, dy, dx))
-        bd, be, _, bl = best
+            best = fold_claim(best, claim_candidates(cost, img, lab, dist, eimg, dy, dx,
+                                                     inc=inc, seg=seg))
+        bd, be, bs, bl = best
+        if seg_flat is not None:
+            bd, be, bl = _segment_broadcast(seg_flat, bd, be, bs, bl)
         new_l = torch.where(seeded, lab0, torch.where(m, bl, big))
         new_d = torch.where(seeded, 0, torch.where(m, bd, big))
         new_e = torch.where(seeded, -inf, torch.where(m, be, inf))
         changed = ((new_l != lab) | (new_d != dist) | (new_e != eimg)).flatten(-2).any(-1)
         lab, dist, eimg = new_l, new_d, new_e
         i += 1
+    claim_labels.last_steps = i
     reached = m & (cost < inf) & (lab != _BIG_LAB)
     return torch.where(reached, lab, 0), changed
+
+
+claim_labels.last_steps = 0
+
+
+def _tunnelled_phase2(cost, c_changed, img, lab0, m, seeded, connectivity, max_iters,
+                      with_flag):
+    """Phase 2 on the basins' quotient graph after phase 1's ``cost``."""
+    seg, inc, basin_conv = basin_segments(cost, img, m, seeded, connectivity)
+    out, l_changed = claim_labels(cost, img, lab0, m, seeded, connectivity, max_iters,
+                                  basins=(seg, inc))
+    if with_flag:
+        return out, ~(c_changed | l_changed) & basin_conv
+    return out
 
 
 def watershed(
@@ -183,14 +272,20 @@ def watershed(
       max_iters: bound on the Jacobi steps of each phase.
       with_flag: also return a per-plane bool ``converged`` (batch shape);
         False means a phase ran out of ``max_iters`` with that plane still
-        changing, and its labels are not valid.
-      tunnel_basins: not ported; True raises NotImplementedError.
+        changing (or, with ``tunnel_basins``, the basin CCL did not
+        converge), and its labels are not valid.
+      tunnel_basins: model the priority flood's basin tunnelling (module
+        docstring): better agreement with the priority flood on plateaued or
+        quantized reliefs with sparse markers.
 
     Returns [..., H, W] int32 labels.
     """
-    _check_args(connectivity, tunnel_basins)
+    _check_args(connectivity)
     img, lab0, m, seeded = _inputs(image, markers, mask)
     cost, c_changed = minimax_costs(img, m, seeded, connectivity, max_iters)
+    if tunnel_basins:
+        return _tunnelled_phase2(cost, c_changed, img, lab0, m, seeded, connectivity,
+                                 max_iters, with_flag)
     out, l_changed = claim_labels(cost, img, lab0, m, seeded, connectivity, max_iters)
     if with_flag:
         return out, ~(c_changed | l_changed)
@@ -208,11 +303,24 @@ def watershed_auto(
 ):
     """K10 + K11 for CUDA tensors (``max_iters`` bounds the passes of each
     phase), the plain Jacobi loops for CPU tensors (``max_iters`` bounds
-    their steps).  The labels are the same wherever both converge."""
-    _check_args(connectivity, tunnel_basins)
+    their steps).  The labels are the same wherever both converge.
+
+    With ``tunnel_basins``, CUDA tensors take K10 for phase 1 and the
+    tunnelled phase 2 (K2 for the basins, then plain Jacobi steps, at most
+    ``max_iters``); CPU tensors take ``watershed(..., tunnel_basins=True)``."""
+    _check_args(connectivity)
     tensors = [image, markers] + ([] if mask is None else [mask])
-    if use_kernel(*tensors):
+    if not use_kernel(*tensors):
+        return watershed(image, markers, mask, connectivity=connectivity,
+                         max_iters=max_iters, with_flag=with_flag,
+                         tunnel_basins=tunnel_basins)
+    if not tunnel_basins:
         return watershed_cuda(image, markers, mask, connectivity=connectivity,
                               max_iters=max_iters, with_flag=with_flag)
-    return watershed(image, markers, mask, connectivity=connectivity,
-                     max_iters=max_iters, with_flag=with_flag)
+    img, lab0, m, seeded = _inputs(image, markers, mask)
+    H, W = img.shape[-2:]
+    cost, c_changed, _ = minimax_costs_cuda(
+        img.reshape(-1, H, W), m.reshape(-1, H, W), seeded.reshape(-1, H, W),
+        connectivity, max_iters)
+    return _tunnelled_phase2(cost.reshape(img.shape), c_changed.reshape(img.shape[:-2]),
+                             img, lab0, m, seeded, connectivity, max_iters, with_flag)

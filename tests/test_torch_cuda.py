@@ -607,6 +607,34 @@ def test_watershed_kernels_odd_shape_unreachable_mask_and_budget(dev):
     assert not short.any()  # every plane needs more than one pass
 
 
+@pytest.mark.parametrize("connectivity", [1, 2])
+def test_tunnelled_watershed_on_the_card(dev, connectivity):
+    """watershed_auto(tunnel_basins=True) on the card (K10, K2 on the basins,
+    the plain phase 2; no K11) against the plain run on the card, on a batch
+    of 16-level reliefs and on the sparse-seed regime; the card's basins
+    against scipy's."""
+    from chip_smoke import basins_vs_scipy, sparse_seeds
+
+    planes = [_relief_case(256, True, seed) for seed in (0, 1)]
+    q, smk = sparse_seeds()
+    cases = [[torch.from_numpy(np.stack(t)).to(dev) for t in zip(*planes)],
+             [torch.from_numpy(q[None]).to(dev), torch.from_numpy(smk[None]).to(dev),
+              torch.ones((1, 128, 128), dtype=torch.bool, device=dev)]]
+    for img, mk, mask in cases:
+        before = (ccl_cuda.launches, watershed_cost_pass_cuda.launches,
+                  watershed_label_pass_cuda.launches)
+        got, gconv = watershed_auto(img, mk, mask, connectivity=connectivity, max_iters=4096,
+                                    with_flag=True, tunnel_basins=True)
+        assert ccl_cuda.launches == before[0] + 1 and watershed_cost_pass_cuda.launches > before[1]
+        assert watershed_label_pass_cuda.launches == before[2]
+        want, wconv = watershed(img, mk, mask, connectivity=connectivity, max_iters=4096,
+                                with_flag=True, tunnel_basins=True)
+        assert gconv.all() and wconv.all()
+        _equal([got], [want])
+        largest = basins_vs_scipy(img, mk, mask, connectivity)[2]
+    assert largest > 1  # the sparse-seed relief's basins span several pixels
+
+
 def test_local_maxima_and_exact_edt_kernels(dev):
     prob = torch.from_numpy(np.stack([_relief(256, 8, s) for s in (0, 1)])).to(dev)
     feature = prob >= 0.5

@@ -178,11 +178,40 @@ def test_refine_raises_on_unconverged_and_tunnel_basins():
         torch_refine.refine_boundaries(cells(0), tight, device=CPU)
     with pytest.raises(RuntimeError, match="plane\\(s\\) \\[0, 1\\]"):
         torch_refine.refine_boundaries_stack(np.stack([cells(0), cells(1)]), tight, device=CPU)
-    with pytest.raises(NotImplementedError, match="tunnel_basins"):
-        torch_refine.refine_boundaries(
-            cells(0), dataclasses.replace(TCFG, tunnel_basins=True), device=CPU)
+    tight_tunnel = dataclasses.replace(tight, tunnel_basins=True)
+    with pytest.raises(RuntimeError, match="did not converge"):
+        torch_refine.refine_boundaries(cells(0), tight_tunnel, device=CPU)
     with pytest.raises(ValueError, match="cells > max_regions=4"):
         torch_refine.refine_boundaries(cells(0), TCFG, max_regions=4, device=CPU)
+
+
+def tunnel_stack() -> np.ndarray:
+    """cells(0), cells(1) and cells(0) at 16 levels (plateaus, where basins
+    tunnel)."""
+    return np.stack([cells(0), cells(1), (np.round(cells(0) * 15.0) / 15.0).astype(np.float32)])
+
+
+def test_refine_tunnel_basins_matches_jax():
+    """refine_plane_device, refine_boundaries and refine_boundaries_stack
+    with ``tunnel_basins=True`` against the JAX package: labels, markers,
+    counts, tables, flags, areas and centroids exact."""
+    jcfg = dataclasses.replace(JCFG, tunnel_basins=True)
+    tcfg = config_from_fields(jcfg)
+    stack = tunnel_stack()
+    got = torch_refine.refine_plane_device(torch.from_numpy(stack), tcfg, 4095)
+    want = jax_refine.refine_plane_device(jnp.asarray(stack), jcfg, 4095)
+    for g, w in zip(got[:3] + got[5:], want[:3] + want[5:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for name in got[3]._fields:
+        np.testing.assert_array_equal(getattr(got[3], name).numpy(),
+                                      np.asarray(getattr(want[3], name)), name)
+    assert got[5].all()
+    for g, w in zip(torch_refine.refine_boundaries_stack(stack, tcfg, device=CPU),
+                    jax_refine.refine_boundaries_stack(stack, jcfg)):
+        _assert_results_equal(g, w)
+    one = torch_refine.refine_boundaries(stack[2], tcfg, device=CPU)
+    _assert_results_equal(one, jax_refine.refine_boundaries(stack[2], jcfg))
+    np.testing.assert_array_equal(one.labels, got[0][2].numpy())
 
 
 def test_pairwise_and_cross_strain_distances_match_jax():
@@ -215,14 +244,17 @@ def _h5(path, arr):
     return str(path)
 
 
-@pytest.mark.parametrize("layout", ["CHW", "ZHWC-stack"])
+@pytest.mark.parametrize("layout", ["CHW", "ZHWC-stack", "CHW-tunnel", "ZHWC-stack-tunnel"])
 def test_refine_cli_matches_jax_cli(tmp_path, capsys, layout):
-    if layout == "CHW":
+    if layout.startswith("CHW"):
         arr = np.stack([np.zeros((128, 128), np.float32)] * 3 + [cells(1)])
         flags = []
     else:
-        arr = np.stack([cells(0), cells(1)])[..., None].repeat(4, axis=-1)
+        planes = tunnel_stack() if layout.endswith("tunnel") else np.stack([cells(0), cells(1)])
+        arr = planes[..., None].repeat(4, axis=-1)
         flags = ["--stack"]
+    if layout.endswith("tunnel"):
+        flags.append("--tunnel-basins")
     src = _h5(tmp_path / "probs.h5", arr)
     jcsv, tcsv = tmp_path / "jax.csv", tmp_path / "torch.csv"
     assert jax_cli(["refine", src, "--csv", str(jcsv), "--out", str(tmp_path / "jax.h5"), *flags]) == 0
@@ -260,6 +292,7 @@ def test_port_sources_never_import_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
     assert PORT / "io" / "native" / "__init__.py" in files
+    assert {PORT / "oracle" / "ndimage.py", PORT / "utils" / "metrics.py"} <= set(files)
     bad = []
     for path in files:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
@@ -318,6 +351,7 @@ def test_refine_modules_import_neither_jax_nor_the_jax_package():
         "config", "ops.scans", "ops.edt", "ops.edt_tiles", "ops.morphology",
         "ops.regionprops", "ops.regionprops_tiles", "ops.watershed",
         "ops.watershed_tiles", "ops.pairwise", "models.refine", "io.hdf5", "cli",
+        "oracle", "oracle.ndimage", "utils.metrics",
     ]
     code = (
         "import importlib, sys\n"
@@ -328,8 +362,9 @@ def test_refine_modules_import_neither_jax_nor_the_jax_package():
         "from particle_col_image_segmentation_tpu_torch.models.refine import refine_boundaries\n"
         "yy, xx = np.mgrid[:40, :48]\n"
         "prob = np.where((yy - 20) ** 2 + (xx - 24) ** 2 < 90, 0.0, 1.0).astype(np.float32)\n"
-        "res = refine_boundaries(prob, RefineConfig(), device='cpu')\n"
-        "assert res.num_cells == 1, res.num_cells\n"
+        "for tunnel in (False, True):\n"
+        "    res = refine_boundaries(prob, RefineConfig(tunnel_basins=tunnel), device='cpu')\n"
+        "    assert res.num_cells == 1, res.num_cells\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'particle_col_image_segmentation_tpu')))\n"
     )

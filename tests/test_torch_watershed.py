@@ -144,12 +144,19 @@ def test_watershed_budget_runs_out_like_jax():
     np.testing.assert_array_equal(got, want)  # the same two Jacobi steps
 
 
-def test_watershed_tunnel_basins_is_not_ported():
-    x = torch.zeros((8, 8))
-    mk = torch.zeros((8, 8), dtype=torch.int32)
-    for fn in (watershed, watershed_auto):
-        with pytest.raises(NotImplementedError, match="tunnel_basins"):
-            fn(x, mk, tunnel_basins=True)
+def test_watershed_tunnel_basins_matches_jax():
+    """Both entry points with ``tunnel_basins=True`` on a [2, H, W] batch of
+    the smooth and the 16-level bench relief (more in test_torch_tunnel.py)."""
+    prob = bench_relief()
+    mk, mask = markers_of(prob)
+    img = np.stack([prob, quantize16(prob)])
+    mks, masks = np.stack([mk, mk]), np.stack([mask, mask])
+    got, gconv, want, wconv = _both(img, mks, masks, tunnel_basins=True)
+    assert gconv.all() and wconv.all()
+    np.testing.assert_array_equal(got, want)
+    auto = watershed_auto(torch.from_numpy(img), torch.from_numpy(mks), torch.from_numpy(masks),
+                          tunnel_basins=True)
+    np.testing.assert_array_equal(auto.numpy(), want)
 
 
 def test_watershed_auto_takes_the_plain_path_on_cpu_and_the_kernel_refuses_it():

@@ -2456,6 +2456,251 @@ def tunnel_phase(card: str, dev, stack8, reset_counts, read_counts) -> tuple:
     return launches, record
 
 
+def launch_counters() -> tuple:
+    """(reset_counts, read_counts) over every kernel wrapper's launch count,
+    K1-K11: reset just before a path runs, read just after."""
+    from particle_col_image_segmentation_tpu_torch import ops
+    from particle_col_image_segmentation_tpu_torch.ops import watershed_tiles as wt
+
+    counters = {
+        "K1": [ops.median_label_filter_cuda], "K2": [ops.ccl_cuda],
+        "K3": [ops.compact_labels_cuda], "K4": [ops.region_counts_cuda, ops.region_sums_cuda],
+        "K5": [ops.region_table_cuda], "K6": [ops.table_lookup_cuda],
+        "K7": [ops.centroid_sums_cuda], "K8": [ops.particle_fill_step_cuda],
+        "K9": [ops.edt_sq_cuda], "K10": [wt.watershed_cost_pass_cuda],
+        "K11": [wt.watershed_label_pass_cuda],
+    }
+
+    def reset_counts() -> None:
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
+
+    def read_counts() -> dict:
+        return {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
+
+    return reset_counts, read_counts
+
+
+# ---- the data axis (phase 13) ----------------------------------------------
+
+def median_wall_s(fn, reps: int = 3) -> tuple:
+    """(median wall seconds of fn() over reps runs, a sync after each; the
+    last run's result)."""
+    import statistics
+
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), out
+
+
+def same_refine(got, want, case: str) -> None:
+    """Per-plane RefineResults equal at tolerance 0 (labels, counts, areas,
+    centroids, nearest-neighbour distances)."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"phase 13 {case}: {len(got)} planes, expected {len(want)}")
+    for z, (g, w) in enumerate(zip(got, want)):
+        if (g.num_cells != w.num_cells or not np.array_equal(g.labels, w.labels)
+                or not np.array_equal(g.areas, w.areas)
+                or not np.array_equal(g.centroids, w.centroids)
+                or not np.array_equal(g.nn_distances, w.nn_distances)):
+            raise AssertionError(f"phase 13 {case} plane {z}: differs from refine_boundaries_stack")
+
+
+def data_axis_phase(card: str, dev, planes, stats, stack8, results8, cfg, rcfg,
+                    reset_counts, read_counts) -> tuple:
+    """Phase 13: the data axis on emulated meshes (``cuda:0`` named 2 and 4
+    times: the real split, workers, kernels and gather on one card) and, where
+    the machine has more than one card, on all of them.  run_batch over phase
+    4's 40 planes must give phase 4's stats at tolerance 0 with K1-K4 launched
+    k times a batch; ``batch --data-parallel 1`` through the CLI must write
+    the CSV of ``batch`` without the flag; refine_boundaries_sharded of phase
+    8's relief (and, tunnelled, of its first two planes) must equal
+    refine_boundaries_stack on the card, with K9, K2, K3, K10, K11 and K7
+    launched; ``_check_tunnel_chunk_fits`` passes for that chunk and raises
+    for 16 planes of 16384².  Times: run_batch MP/s for 1, 2 and 4 mesh
+    positions (median of 3 walls), the refine data axis's wall against
+    refine_boundaries_stack's, peak device memory.  Returns (launch counts of
+    the mesh runs, record)."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch import cli
+    from particle_col_image_segmentation_tpu_torch.config import RefineConfig
+    from particle_col_image_segmentation_tpu_torch.io import hdf5
+    from particle_col_image_segmentation_tpu_torch.models.batch import run_batch
+    from particle_col_image_segmentation_tpu_torch.models.refine import (
+        _check_tunnel_chunk_fits,
+        refine_boundaries_sharded,
+        refine_boundaries_stack,
+    )
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    paths = [str(i) for i in range(len(planes))]
+    n_batches = -(-len(planes) // BATCH)
+    mp = len(planes) * H * W / 1e6
+    launches, record = {}, {"card": card, "cards": torch.cuda.device_count(), "batch": {}}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def batch_on(name, mesh):
+        kw = dict(batch_size=BATCH, particle_val=2, cell_vals=(1,))
+        if mesh is None:
+            kw["device"] = dev
+        else:
+            kw["mesh"] = mesh
+        used = sorted({d.index for d in (mesh.flat if mesh is not None else [dev])})
+        base = {}
+        for c in used:
+            torch.cuda.synchronize(c)
+            torch.cuda.reset_peak_memory_stats(c)
+            base[c] = torch.cuda.memory_allocated(c)
+        reset_counts()
+        got = dict(run_batch(paths, lambda p: planes[int(p)], cfg, **kw))
+        counts = read_counts()
+        peak = []
+        for c in used:  # GiB above what the card held before, a card
+            torch.cuda.synchronize(c)
+            peak.append((torch.cuda.max_memory_allocated(c) - base[c]) / 2**30)
+        k = 1 if mesh is None else len(mesh.flat)
+        if mesh is not None:
+            add(counts)
+        for key in ("K1", "K2", "K3", "K4"):
+            if counts[key] != k * n_batches:
+                raise AssertionError(f"phase 13 batch {name}: {key} launched {counts[key]} "
+                                     f"times, expected {k} x {n_batches} batches")
+        if list(got) != paths:
+            raise AssertionError(f"phase 13 batch {name}: yielded {list(got)[:5]}...")
+        for p in paths:
+            g, w = got[p], stats[p]
+            if ((g.num_regions, g.particle_px, g.cell_px, g.overflow, g.converged)
+                    != (w.num_regions, w.particle_px, w.cell_px, w.overflow, w.converged)
+                    or not np.array_equal(g.class_px, w.class_px)):
+                raise AssertionError(f"phase 13 batch {name} plane {p}: {g} != phase 4's {w}")
+        wall, _ = median_wall_s(lambda: list(run_batch(paths, lambda p: planes[int(p)], cfg,
+                                                         **kw)))
+        record["batch"][name] = {"mps": mp / wall, "wall_s": wall, "peak_gib": peak,
+                                 "launches": counts}
+        log(f"phase 13 batch {name} [{card}]: run_batch over {len(planes)} planes of {H}x{W}, "
+            f"batches of {BATCH}: stats == phase 4's (tolerance 0); launches {counts}; "
+            f"{mp / wall:.1f} MP/s (median of 3 walls, {wall:.3f} s); peak device memory "
+            f"{[round(p, 3) for p in peak]} GiB above what was allocated before, a card")
+
+    batch_on("one device", None)
+    for k in (2, 4):
+        batch_on(f"cuda:0 x{k}", make_mesh(n_data=k, devices=[dev] * k))
+    cards = torch.cuda.device_count()
+    if cards > 1:  # every card that divides the batch
+        n = max(d for d in range(1, cards + 1) if BATCH % d == 0)
+        batch_on(f"{n} cards", make_mesh(n_data=n))
+
+    # the batch verb with and without --data-parallel 1, reading the planes
+    # through a stand-in for the HDF5 decode (the card's machine has no h5py)
+    with tempfile.TemporaryDirectory(prefix="pcis_dp_") as tmp:
+        seed_of = make_tree(os.path.join(tmp, "tree"), range(8))
+        outs = {}
+        with mock.patch.object(hdf5, "load_h5_plane",
+                               lambda path, key=None: planes[seed_of[path]]):
+            for name, flags in (("single", []), ("dp1", ["--data-parallel", "1"])):
+                csv_path = os.path.join(tmp, f"{name}.csv")
+                printed = io.StringIO()
+                with contextlib.redirect_stdout(printed):
+                    rc = cli.main(["batch", os.path.join(tmp, "tree"), "--csv", csv_path,
+                                   *flags])
+                with open(csv_path, "rb") as f:
+                    outs[name] = (rc, printed.getvalue(), f.read())
+    if outs["single"] != outs["dp1"] or outs["single"][0] != 0 or \
+            outs["single"][2].count(b",ok") != len(seed_of):
+        raise AssertionError("phase 13: batch --data-parallel 1 differs from batch")
+    log(f"phase 13 batch verb: --data-parallel 1 (the mesh path on one card) == without the "
+        f"flag: exit 0, printed lines and CSV ({len(seed_of)} planes) byte for byte")
+
+    # refine on the data axis against refine_boundaries_stack on the card
+    def refine_on(name, mesh):
+        reset_counts()
+        got = refine_boundaries_sharded(stack8, rcfg, REFINE_REGIONS, mesh=mesh, stack=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add(counts)
+        for key in ("K2", "K3", "K7", "K9", "K10", "K11"):
+            if counts[key] <= 0:
+                raise AssertionError(f"phase 13 refine {name}: {key} was never launched")
+        same_refine(got, results8, f"refine {name}")
+        wall, _ = median_wall_s(lambda: refine_boundaries_sharded(
+            stack8, rcfg, REFINE_REGIONS, mesh=mesh, stack=True))
+        record[f"refine {name}"] = {"wall_ms": wall * 1e3, "launches": counts}
+        log(f"phase 13 refine {name} [{card}]: refine_boundaries_sharded over "
+            f"[{REFINE_PLANES},{H},{W}] == refine_boundaries_stack on the card (labels, cells, "
+            f"areas, centroids, NN distances); launches {counts}; {wall * 1e3:.1f} ms wall "
+            f"(median of 3)")
+
+    stack_ms = median_wall_s(lambda: refine_boundaries_stack(stack8, rcfg, REFINE_REGIONS,
+                                                             device=dev))[0] * 1e3
+    record["refine_boundaries_stack_wall_ms"] = stack_ms
+    log(f"phase 13 refine [{card}]: refine_boundaries_stack over [{REFINE_PLANES},{H},{W}] "
+        f"{stack_ms:.1f} ms wall (median of 3)")
+    refine_on("cuda:0 x2", make_mesh(n_data=2, devices=[dev] * 2))
+    if torch.cuda.device_count() > 1:
+        refine_on(f"{torch.cuda.device_count()} cards", make_mesh())
+
+    # the tunnelled data axis: n_space = 2 routes data-parallel
+    tcfg = RefineConfig(tunnel_basins=True)
+    two = np.ascontiguousarray(stack8[:2])
+    _check_tunnel_chunk_fits((H, W), 1, dev)
+    try:
+        _check_tunnel_chunk_fits((16384, 16384), 16, dev)
+    except ValueError as e:
+        if "exceeds one device" not in str(e):
+            raise
+    else:
+        raise AssertionError("phase 13: a 16-plane 16384² tunnel chunk passed the size check")
+    t0 = time.perf_counter()
+    want = refine_boundaries_stack(two, tcfg, REFINE_REGIONS, device=dev)
+    torch.cuda.synchronize()
+    record["tunnel_stack_wall_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def tunnel_on(name, mesh):
+        reset_counts()
+        t0 = time.perf_counter()
+        got = refine_boundaries_sharded(two, tcfg, REFINE_REGIONS, mesh=mesh, stack=True)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        add(counts)
+        if any(counts[k] <= 0 for k in ("K2", "K3", "K7", "K9", "K10")) or counts["K11"] != 0:
+            raise AssertionError(f"phase 13 tunnel {name}: launched {counts}")
+        same_refine(got, want, f"tunnel {name}")
+        record[f"tunnel {name}"] = {"wall_ms": wall_s * 1e3, "launches": counts}
+        log(f"phase 13 tunnel {name} [{card}]: refine_boundaries_sharded(tunnel_basins=True) "
+            f"of [2,{H},{W}], n_space=2 (data-parallel) == refine_boundaries_stack("
+            f"tunnel_basins=True); launches {counts}; {wall_s * 1e3:.1f} ms wall (stack "
+            f"{record['tunnel_stack_wall_ms']:.1f})")
+
+    tunnel_on("cuda:0 x2", make_mesh(n_data=1, n_space=2, devices=[dev] * 2))
+    if cards > 1:
+        tunnel_on("2 cards", make_mesh(n_data=1, n_space=2))
+    log(f"phase 13 tunnel: _check_tunnel_chunk_fits passes (2048², 1) and raises for "
+        f"(16384², 16) on {torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f} GiB")
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 data axis: {record['phase_s']:.1f} s wall")
+    return launches, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
@@ -2539,8 +2784,6 @@ def main() -> int:
     from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
         claim_labels_cuda,
         minimax_costs_cuda,
-        watershed_cost_pass_cuda,
-        watershed_label_pass_cuda,
     )
 
     # ---- phase 1: environment -------------------------------------------
@@ -2897,21 +3140,7 @@ def main() -> int:
     del st
 
     # ---- launch counts: reset just before a path runs, read just after -----
-    counters = {
-        "K1": [median_label_filter_cuda], "K2": [ccl_cuda], "K3": [compact_labels_cuda],
-        "K4": [region_counts_cuda, region_sums_cuda], "K5": [region_table_cuda],
-        "K6": [table_lookup_cuda], "K7": [centroid_sums_cuda], "K8": [particle_fill_step_cuda],
-        "K9": [edt_sq_cuda], "K10": [watershed_cost_pass_cuda],
-        "K11": [watershed_label_pass_cuda],
-    }
-
-    def reset_counts() -> None:
-        for fns in counters.values():
-            for fn in fns:
-                fn.launches = 0
-
-    def read_counts() -> dict:
-        return {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
+    reset_counts, read_counts = launch_counters()
 
     # ---- phase 4: the batch path -------------------------------------------
     paths = [str(i) for i in range(N_MAIN)]
@@ -3327,6 +3556,10 @@ def main() -> int:
     # ---- phase 12: the tunnelled refine -------------------------------------
     tunnel_launches, tunnel = tunnel_phase(card, dev, stack8, reset_counts, read_counts)
 
+    # ---- phase 13: the data axis -----------------------------------------------
+    data_launches, data_axis = data_axis_phase(card, dev, planes, stats, stack8, results, cfg,
+                                               rcfg, reset_counts, read_counts)
+
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
     if loaded:
@@ -3353,7 +3586,7 @@ def main() -> int:
     paths = {"batch": batch_launches, "analyze": analyze_launches, "refine": refine_launches,
              "threshold": threshold_launches, "zstack": zstack_launches,
              "morphology": morph_launches, "nanosims": nanosims_launches,
-             "tunnel": tunnel_launches}
+             "tunnel": tunnel_launches, "data_axis": data_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
          "launches": sum(v[k] for v in paths.values()),
@@ -3362,7 +3595,8 @@ def main() -> int:
          "bound_ms": bound_ms[k], "bound_by": "bytes", "library_ms": library_ms.get(k),
          **({"more_shapes": more_shapes[k]} if k in more_shapes else {})}
         for k, name, src, tpu in KERNELS
-    ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel}
+    ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel,
+        "data_axis": data_axis}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ proximity-merge grouping, DAPI dedup, channel fusion and the folder flows
 that write the reference's CSVs; and watershed refinement, ``refine`` —
 exact EDT, plateau-aware local maxima, marker CCL, two-phase watershed,
 centroid table, nearest-neighbour distances; and NanoSIMS ROI analysis,
-``nanosims`` (config #4).  Each TPU kernel on those paths
+``nanosims`` (config #4); and the data axis of the multi-device path
+(``parallel``: ``batch`` and ``refine`` over a mesh of devices, each
+running the single-device pipeline on its chunk of planes; the spatial
+axis is not ported).  Each TPU kernel on those paths
 has a hand-written CUDA kernel for Hopper (``csrc/``, built with nvcc on
 first use, see ``_kernels``) beside a plain PyTorch version; CUDA tensors
 take the kernels, CPU tensors the plain versions (``_dispatch``).
@@ -31,6 +34,7 @@ Layout mirrors the JAX package:
   models/    fused_segment_batch and run_batch; analyze_plane, channel
              fusion and run_analysis; refine_plane_device and refine_boundaries
   oracle/, report/, viz/   host helpers, CSV writers, figures
+  parallel/  the device mesh and its data axis's worker threads
   utils/     stage tracing, logging, the run manifest
   cli.py     the ``analyze``, ``batch``, ``refine``, ``split``, ``normalize``
              and ``nanosims`` verbs

@@ -7,16 +7,20 @@ The library is built on first use under ``build/`` at the checkout root
 and named by a hash of the sources and flags, so an edited ``.cu`` (or
 ``.cuh``) rebuilds and an unchanged one loads at once.  A missing ``nvcc`` or a
 failed build raises: there is no other path for CUDA tensors.
+
+The data axis (``parallel``) calls the wrappers from one thread per device,
+so the first build and load run under a lock, and each wrapper counts its
+launches through ``count_launch``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -81,12 +85,27 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-@functools.cache
+_lock = threading.Lock()
+_lib = None
+_count_lock = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built first if this source tree has none yet.
 
     ``library().build_log`` holds what nvcc printed (the ptxas register and
-    shared-memory report), empty when an earlier build was loaded."""
+    shared-memory report), empty when an earlier build was loaded.  Threads
+    share one build: the first caller builds and loads under a lock, the
+    others wait for it."""
+    global _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                _lib = _build_and_load()
+    return _lib
+
+
+def _build_and_load() -> ctypes.CDLL:
     build_log = ""
     digest = _digest()
     lib_path = BUILD_DIR / f"libpcis_kernels_{digest}.so"
@@ -129,6 +148,13 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
     lib.build_log = build_log
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: the wrappers run on one thread per
+    device, and ``+=`` on a shared attribute is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(err: int, what: str) -> None:

@@ -15,6 +15,12 @@ Files and output lines match the JAX package's verbs byte for byte.
 ``--device`` defaults to ``cuda`` (the hand-written kernels; Hopper cards
 only); ``--device cpu`` runs the plain PyTorch versions.  ``split`` and
 ``normalize`` run on the host only and take no ``--device``.
+
+``batch`` and ``refine`` take ``--data-parallel N`` (and ``refine`` with
+``--tunnel-basins`` also ``--space-parallel M``): a mesh of N×M devices
+that follows ``--device`` — the first N×M cards from ``cuda`` (or from
+``cuda:K``), or the CPU named N×M times from ``cpu``.  The space axis
+without the tunnel is not ported yet.
 """
 
 from __future__ import annotations
@@ -68,6 +74,27 @@ def _cfg_from_args(args) -> AnalysisConfig:
     )
 
 
+def _add_mesh_flags(p: argparse.ArgumentParser, data_help: str, space_help: str) -> None:
+    p.add_argument("--data-parallel", type=int, default=0, help=data_help)
+    p.add_argument("--space-parallel", type=int, default=0, help=space_help)
+
+
+def _mesh(device, n_data: int, n_space: int):
+    """The mesh of ``n_data × n_space`` devices that ``--device`` names: the
+    cards from its index on (``make_mesh`` raises when there are too few),
+    or the CPU named ``n_data × n_space`` times."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.parallel.mesh import make_mesh
+
+    if device.type == "cuda":
+        first = device.index or 0
+        devices = [torch.device("cuda", i) for i in range(first, torch.cuda.device_count())]
+    else:
+        devices = [device] * (n_data * n_space)
+    return make_mesh(n_data=n_data, n_space=n_space, devices=devices)
+
+
 def _device(name: str):
     import torch
 
@@ -107,6 +134,11 @@ def main(argv=None) -> int:
     _add_device_flag(p)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--max-regions", type=int, default=AnalysisConfig().max_regions)
+    _add_mesh_flags(
+        p, "devices on the data mesh axis (0 = single device)",
+        "accepted so that the JAX CLI's command lines parse; values above 1 "
+        "are rejected (the spatial path is not ported)",
+    )
     p.add_argument(
         "--particle-val", type=int, default=None,
         help="particle class value (default: derive per file from its "
@@ -160,14 +192,36 @@ def main(argv=None) -> int:
         "[Z,H,W,C]) and refine all planes in one batched pass "
         "(4-D inputs take this path automatically)",
     )
+    _add_mesh_flags(
+        p, "devices on the data mesh axis when refining a stack (planes split "
+        "across this many devices; combines with --space-parallel)",
+        "devices on the space mesh axis; only with --tunnel-basins, where "
+        "planes distribute data-parallel over every device of the mesh "
+        "(the spatial refine is not ported, so values above 1 are rejected "
+        "without it)",
+    )
     p.add_argument(
         "--tunnel-basins", action="store_true",
         help="model priority-flood basin tunneling (basin-component "
         "contraction) in the watershed — for plateaued/quantized "
-        "probability maps with sparse markers",
+        "probability maps with sparse markers; with --space-parallel "
+        "planes distribute data-parallel (each plane floods on one chip)",
     )
 
     args = parser.parse_args(argv)
+    if args.command == "batch":
+        if args.data_parallel and args.batch_size % args.data_parallel != 0:
+            parser.error(
+                "--batch-size must be a multiple of --data-parallel "
+                f"(got {args.batch_size} and {args.data_parallel})"
+            )
+        if args.space_parallel > 1:
+            parser.error("--space-parallel > 1: the spatial batch path is not ported "
+                         "yet; use --data-parallel")
+    if (args.command == "refine" and args.space_parallel > 1
+            and not args.tunnel_basins):
+        parser.error("--space-parallel > 1 without --tunnel-basins: the spatial refine "
+                     "is not ported yet; use --data-parallel, or add --tunnel-basins")
     if args.command == "analyze":
         return _analyze(args)
     if args.command == "refine":
@@ -222,6 +276,7 @@ def _refine(args) -> int:
     from particle_col_image_segmentation_tpu_torch.io.hdf5 import load_h5_plane, save_h5_plane
     from particle_col_image_segmentation_tpu_torch.models.refine import (
         refine_boundaries,
+        refine_boundaries_sharded,
         refine_boundaries_stack,
         write_refine_csv,
         write_refine_stack_csv,
@@ -231,8 +286,15 @@ def _refine(args) -> int:
     cfg = RefineConfig(boundary_threshold=args.threshold, boundary_channel=args.channel,
                        tunnel_basins=args.tunnel_basins)
     probs = load_h5_plane(args.h5_file, key="exported_data")
-    if args.stack or probs.ndim == 4:
+    as_stack = args.stack or probs.ndim == 4
+    if args.space_parallel > 1 or args.data_parallel > 1:
+        mesh = _mesh(device, args.data_parallel or 1, max(args.space_parallel, 1))
+        results = refine_boundaries_sharded(probs, cfg, mesh=mesh, stack=as_stack)
+    elif as_stack:
         results = refine_boundaries_stack(probs, cfg, device=device)
+    else:
+        results = [refine_boundaries(probs, cfg, device=device)]
+    if as_stack:
         print(f"planes: {len(results)}, cells: {sum(r.num_cells for r in results)}")
         if args.out:
             save_h5_plane(args.out, np.stack([r.labels for r in results]))
@@ -241,7 +303,7 @@ def _refine(args) -> int:
             write_refine_stack_csv(results, args.csv)
             print("cell stats written to", args.csv)
     else:
-        result = refine_boundaries(probs, cfg, device=device)
+        result = results[0]
         print(f"cells: {result.num_cells}")
         if args.out:
             save_h5_plane(args.out, result.labels)
@@ -264,6 +326,9 @@ def _batch(args) -> int:
     )
 
     device = _device(args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh = _mesh(device, args.data_parallel, 1)
     cfg = AnalysisConfig(max_regions=args.max_regions)
     folder_to_files = get_h5_files_recursively(args.folder)
     paths = [
@@ -315,7 +380,7 @@ def _batch(args) -> int:
             for path, stats in run_batch(
                 group_paths, load_fn, cfg, device=device,
                 batch_size=args.batch_size, particle_val=particle_val,
-                cell_vals=cell_vals, manifest=manifest,
+                cell_vals=cell_vals, manifest=manifest, mesh=mesh,
                 on_error="raise" if args.fail_fast else "skip",
             ):
                 flag = " OVERFLOW(raise --max-regions)" if stats.overflow else ""

@@ -75,6 +75,7 @@
 // no tile of the plane runs again and the plane reports no change.  Each
 // block that changes a pixel sets changed[plane] = 1 (an idempotent store).
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,6 +89,7 @@ constexpr int kBands = kTile / kRows;
 constexpr int kThreads = 32 * kBands;
 constexpr int kWindowLoads = (kSide * kSide + kThreads - 1) / kThreads;
 constexpr int kMaxBlockSteps = 4 * kTile * kTile;  // guards on a tile's steps
+constexpr int kMaxDevices = 64;  // devices whose launch wave is cached
 constexpr int kMaxWarpSteps = 4 * kTile * kRows;
 constexpr float kInf = 3.4e38f;
 constexpr int kBigLab = INT_MAX;
@@ -513,20 +515,22 @@ Pass pass_of(const void* prev_row, void* row, void* tiles, int pass, int B, int 
 }
 
 // Pass 1: a block a tile.  Later passes: one wave of resident blocks.
+// slot names the kernel: 0 and 1 K10 at connectivity 1 and 2, 2 and 3 K11.
 template <typename K>
-int grid_of(K kernel, const Pass& p, int* blocks) {
+int grid_of(K kernel, int slot, const Pass& p, int* blocks) {
   const long long tiles = (long long)p.B * p.TY * p.TX;
   if (p.pass == 1) {
     *blocks = (int)tiles;
     return 0;
   }
-  // the card's SMs times the kernel's resident blocks, cached for the last
-  // (device, kernel) asked: a phase launches one kernel many times
-  static const void* wave_kernel = nullptr;
-  static int wave_dev = -1, wave = 0;
+  // the card's SMs times the kernel's resident blocks, cached for each
+  // (device, kernel): threads of one process launch on several devices, and
+  // two threads that race here store the same value
+  static std::atomic<int> waves[kMaxDevices][4];  // 0: not yet
   int dev = 0;
   if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
-  if (dev != wave_dev || (const void*)kernel != wave_kernel) {
+  int wave = dev < kMaxDevices ? waves[dev][slot].load() : 0;
+  if (wave == 0) {
     int sms = 0, per_sm = 0;
     if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
       return (int)e;
@@ -534,8 +538,7 @@ int grid_of(K kernel, const Pass& p, int* blocks) {
             cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0))
       return (int)e;
     wave = sms * (per_sm > 0 ? per_sm : 1);
-    wave_dev = dev;
-    wave_kernel = (const void*)kernel;
+    if (dev < kMaxDevices) waves[dev][slot].store(wave);
   }
   *blocks = (int)(tiles < wave ? tiles : wave);
   return 0;
@@ -559,7 +562,7 @@ extern "C" int pcis_watershed_cost(const void* img, const void* flags, void* cos
   const Pass p = pass_of(prev_row, row, tiles, pass, B, H, W);
   auto* k = connectivity == 2 ? cost_pass<2> : cost_pass<1>;
   int blocks = 0;
-  if (int e = grid_of(k, p, &blocks)) return e;
+  if (int e = grid_of(k, connectivity - 1, p, &blocks)) return e;
   k<<<blocks, kThreads, 0, (cudaStream_t)stream>>>((const float*)img, (const uint8_t*)flags,
                                                    (float*)cost, p);
   return (int)cudaGetLastError();
@@ -576,7 +579,7 @@ extern "C" int pcis_watershed_label(const void* cost, const void* img, const voi
   const Pass p = pass_of(prev_row, row, tiles, pass, B, H, W);
   auto* k = connectivity == 2 ? label_pass<2> : label_pass<1>;
   int blocks = 0;
-  if (int e = grid_of(k, p, &blocks)) return e;
+  if (int e = grid_of(k, connectivity + 1, p, &blocks)) return e;
   k<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)cost, (const float*)img, (const uint8_t*)flags, (const int*)markers,
       (int*)lab, (int*)dist, (float*)eimg, p);

@@ -77,12 +77,16 @@ def batched_device_iterator(
     load_fn: Callable[[str], np.ndarray],
     paths: Sequence[str],
     batch_size: int,
-    device: torch.device,
+    devices: Sequence[torch.device],
     num_workers: int = 4,
     on_error: str = "raise",
     with_paths: bool = False,
 ) -> Iterator[tuple]:
-    """Yield (device_batch [B,H,W], count) with decode + transfer pipelined.
+    """Yield (chunks, count) with decode + transfer pipelined: ``chunks``
+    holds each padded [B,H,W] batch split over ``devices`` (one device, or
+    the data axis of a mesh) in contiguous chunks, rows
+    ``[i·B/n, (i+1)·B/n)`` on ``devices[i]``; a device may get only padding
+    rows.
 
     The final short batch is padded by repeating its last plane (``count``
     tells the consumer how many rows are real) so every step sees one shape.
@@ -91,42 +95,53 @@ def batched_device_iterator(
     ``count`` real source paths to each yield — REQUIRED under "skip", where
     positional path↔plane alignment no longer holds.
 
-    A yielded CUDA batch is ready for use on the consumer's current stream
-    (which waits for the copy) and is owned by it.
+    A yielded CUDA chunk is ready for use on the consumer's current
+    stream of its device (which waits for the copy) and is owned by it.
     """
     if on_error not in ("raise", "skip"):
         raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
     if on_error == "skip" and not with_paths:
         raise ValueError("on_error='skip' shifts plane positions; consume with_paths=True")
-    device = torch.device(device)
-    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    targets = [torch.device(d) for d in devices]
+    if batch_size % len(targets):
+        raise ValueError(f"batch_size {batch_size} does not split over {len(targets)} devices")
+    per = batch_size // len(targets)
+    # one copy stream a card, shared by the mesh positions on that card
+    copy_streams = {d: torch.cuda.Stream(d) for d in targets if d.type == "cuda"}
 
     def ship(batch, batch_paths):
         n = len(batch)
         if n < batch_size:
             batch = batch + [batch[-1]] * (batch_size - n)
         host = torch.from_numpy(np.stack(batch))
-        ready = None
-        if copy_stream is None:
-            dev = host.to(device)
-        else:
+        if copy_streams:
             # a fresh pinned buffer per batch: the caching host allocator
-            # does not hand it out again until this copy has completed
+            # does not hand it out again until its copies have completed
             host = host.pin_memory()
-            with torch.cuda.stream(copy_stream):
-                dev = host.to(device, non_blocking=True)
+        chunks = []
+        for i, d in enumerate(targets):
+            part = host[i * per:(i + 1) * per]
+            if d.type != "cuda":
+                chunks.append((part.to(d), None))
+                continue
+            with torch.cuda.stream(copy_streams[d]):
+                dev = part.to(d, non_blocking=True)
                 ready = torch.cuda.Event()
-                ready.record(copy_stream)
-        return dev, ready, n, tuple(batch_paths)
+                ready.record(copy_streams[d])
+            chunks.append((dev, ready))
+        return chunks, n, tuple(batch_paths)
 
     def hand_over(item):
-        dev, ready, n, batch_paths = item
-        if ready is not None:
-            consumer = torch.cuda.current_stream(device)
-            consumer.wait_event(ready)
-            # allocated on the copy stream, used on the consumer's
-            dev.record_stream(consumer)
-        return (dev, n, batch_paths) if with_paths else (dev, n)
+        chunks, n, batch_paths = item
+        out = []
+        for dev, ready in chunks:
+            if ready is not None:
+                consumer = torch.cuda.current_stream(dev.device)
+                consumer.wait_event(ready)
+                # allocated on the copy stream, used on the consumer's
+                dev.record_stream(consumer)
+            out.append(dev)
+        return (out, n, batch_paths) if with_paths else (out, n)
 
     batch, batch_paths = [], []
     pending = None

@@ -1,10 +1,11 @@
 """Whole-experiment batch pipeline (bench config #5) on PyTorch.
 
 Counterpart of ``particle_col_image_segmentation_tpu/models/batch.py``:
-prefetching host loader → fused segmentation of each batch on one device →
+prefetching host loader → fused segmentation of each batch on one device, or
+on every device of a mesh's data axis (``make_fused_segment_fn``) →
 per-plane stat tables → caller's sink, with a restartable manifest.  The
-data-parallel mesh, the space-sharded path and 4-bit packed transfers of the
-JAX version are not part of this port.
+space-sharded path (``make_space_sharded_segment_fn``) and the 4-bit packed
+transfers of the JAX version are not part of this port.
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ from particle_col_image_segmentation_tpu_torch.ops.ccl import (
 )
 from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import median_label_filter_auto
 from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import region_counts_auto
+from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SPACE_AXIS,
+    make_mesh,
+    run_per_device,
+)
 from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
 _log = get_logger("batch")
@@ -107,6 +114,49 @@ def fused_segment_batch(
     return seg, num, areas, classes, particle_px, cell_px, class_px, converged
 
 
+def _data_devices(mesh, what: str) -> list:
+    """The devices of ``mesh``'s data axis; a space axis is not ported."""
+    if mesh.shape[SPACE_AXIS] > 1:
+        raise NotImplementedError(
+            f"{what}: the space axis (n_space = {mesh.shape[SPACE_AXIS]}) is not ported "
+            "to PyTorch yet (ROADMAP.md, Queue 1 item 3 (a): the spatial segment and "
+            "analyze path); use a data-axis mesh"
+        )
+    return list(mesh.flat)
+
+
+def make_fused_segment_fn(mesh, cfg: AnalysisConfig, particle_val: int = 2, cell_vals=(1,)):
+    """Data-parallel fused pass over ``mesh``'s data axis: a callable that
+    takes one [b,H,W] chunk a device (in mesh order, each on its device) and
+    returns ``fused_segment_batch``'s outputs for each, in the same order.
+
+    Planes are independent, so each device runs the whole per-plane pipeline
+    on its chunk with no communication (the JAX package's ``shard_map`` over
+    "data"), one worker thread a device (``parallel.run_per_device``)."""
+    devices = _data_devices(mesh, "make_fused_segment_fn")
+    cell_vals = tuple(cell_vals)
+
+    def fn(chunks):
+        return run_per_device(
+            lambda x: fused_segment_batch(x, cfg, particle_val, cell_vals),
+            devices, [(x,) for x in chunks],
+        )
+
+    return fn
+
+
+def _stats_host(out) -> np.ndarray:
+    """The per-plane scalars of one ``fused_segment_batch`` output as one
+    host [B, 4+C] array: num, particle_px, cell_px, converged, class_px.
+    ONE readback (one host sync) a call."""
+    _, num, _, _, particle_px, cell_px, class_px, converged = out
+    return torch.cat(
+        [num[:, None], particle_px[:, None], cell_px[:, None],
+         converged[:, None].to(num.dtype), class_px],
+        dim=-1,
+    ).cpu().numpy()
+
+
 def _pixel_stats_from_tables(areas, classes, cfg: AnalysisConfig,
                              particle_val: int, cell_vals):
     """Per-plane pixel histograms reduced over the [R+1] region tables
@@ -142,10 +192,18 @@ def run_batch(
     cell_vals: Tuple[int, ...] = (1,),
     manifest=None,
     on_error: str = "skip",
+    mesh=None,
 ) -> Iterator[Tuple[str, PlaneStats]]:
     """Stream per-plane stats for every path on ``device`` (default the
     card, ``cuda``; ``"cpu"`` runs the plain versions); skips
     manifest-completed units.
+
+    Pass ``mesh`` (``parallel.make_mesh``; it takes the place of
+    ``device``) to run data-parallel: each batch splits over the data
+    axis's devices (``batch_size`` must be a multiple of its size), each
+    device runs the fused pass on its chunk, and the stats are read back
+    once a device a batch and joined in plane order.  Without one, the
+    batch runs on a one-device mesh of ``device``, in the caller's thread.
 
     By default a plane whose decode raises is logged and skipped — one
     corrupt file must not kill a 100k-plane run.  Skipped planes are never
@@ -153,26 +211,36 @@ def run_batch(
     callers without a manifest should diff the yielded paths against their
     input (or pass ``on_error="raise"`` to fail fast).
     """
-    device = torch.device(device)
     todo = [p for p in paths if manifest is None or not manifest.is_done(p)]
     if len(todo) < len(paths):
         _log.info("manifest: skipping %d completed planes", len(paths) - len(todo))
+    if mesh is None:
+        mesh = make_mesh(devices=[device])
+    devices = _data_devices(mesh, "run_batch")
+    n_data = mesh.shape[DATA_AXIS]
+    if batch_size % n_data:
+        raise ValueError(
+            f"run_batch: batch_size {batch_size} is not a multiple of the mesh's "
+            f"data axis ({n_data})"
+        )
+    segment_fn = make_fused_segment_fn(mesh, cfg, particle_val, cell_vals)
+    # the span's events sit on the first device's stream; the other cards
+    # are synchronised before it closes, so it covers the whole mesh
+    others = {d for d in devices[1:] if d.type == "cuda" and d != devices[0]}
     it = batched_device_iterator(
-        load_fn, todo, batch_size=batch_size, device=device, on_error=on_error,
+        load_fn, todo, batch_size=batch_size, devices=devices, on_error=on_error,
         with_paths=True,
     )
-    for dev_batch, count, batch_paths in it:
-        with stage("fused_segment", device,
-                   megapixels=count * dev_batch.shape[-1] * dev_batch.shape[-2] / 1e6):
-            out = fused_segment_batch(dev_batch, cfg, particle_val, cell_vals)
-        _, num, _, _, particle_px, cell_px, class_px, converged = out
-        # ONE host readback per batch: the per-plane scalars ride a single
-        # packed [B, 4+C] tensor
-        stats_host = torch.cat(
-            [num[:, None], particle_px[:, None], cell_px[:, None],
-             converged[:, None].to(num.dtype), class_px],
-            dim=-1,
-        ).cpu().numpy()
+    for chunks, count, batch_paths in it:
+        H, W = chunks[0].shape[-2:]
+        with stage("fused_segment", devices[0], megapixels=count * H * W / 1e6):
+            outs = segment_fn(chunks)
+            for d in others:
+                torch.cuda.current_stream(d).synchronize()
+        # ONE host readback per device per batch, joined in plane order; the
+        # outputs (the [B,H,W] labels) go before the next batch's pass runs
+        stats_host = np.concatenate([_stats_host(out) for out in outs])
+        del outs
         num = stats_host[:, 0]
         particle_px = stats_host[:, 1]
         cell_px = stats_host[:, 2]

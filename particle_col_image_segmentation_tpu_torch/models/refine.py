@@ -15,8 +15,12 @@ plane's result equals its single-plane run.
 basins and a plain PyTorch phase 2 in place of K11, bounded by
 ``watershed_max_iters`` steps.
 
-Not ported: the multi-device ``refine_boundaries_sharded`` and its
-tunnelled data-parallel path.
+``refine_boundaries_sharded`` runs a stack over a mesh's data axis: plane
+chunks run ``refine_plane_device`` on their own devices, one worker thread a
+device, and each plane's result equals ``refine_boundaries_stack``'s.  With
+``tunnel_basins`` the chunks go to every device of the mesh, as in the JAX
+package.  The space axis without the tunnel (rows sharded across devices,
+halo-exchanged fixpoints) is not ported.
 """
 
 from __future__ import annotations
@@ -46,12 +50,18 @@ from particle_col_image_segmentation_tpu_torch.ops.pairwise import (
 from particle_col_image_segmentation_tpu_torch.ops.regionprops import centroids_f64
 from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import centroid_sums_auto
 from particle_col_image_segmentation_tpu_torch.ops.watershed import watershed_auto
+from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
+    SPACE_AXIS,
+    make_mesh,
+    run_per_device,
+)
 
 __all__ = [
     "RefineResult",
     "refine_plane_device",
     "refine_boundaries",
     "refine_boundaries_stack",
+    "refine_boundaries_sharded",
     "write_refine_csv",
     "write_refine_stack_csv",
     "cross_strain_distances",
@@ -177,15 +187,8 @@ def refine_boundaries_stack(probabilities: np.ndarray, cfg: RefineConfig = Refin
     probs = np.asarray(probabilities)
     _reject_channel_last_plane(probs)
     arr = _extract_boundary_channel(probs, cfg, ndim=3)
-    labels, _, num, table, _, converged = refine_plane_device(
-        torch.as_tensor(np.asarray(arr, np.float32), device=torch.device(device)),
-        cfg, max_regions,
-    )
-    _check_stack_converged(converged.cpu().numpy())
-    return _assemble_stack_results(
-        labels.cpu().numpy(), num.cpu().numpy(), _host_table(table), max_regions,
-        labels.device,
-    )
+    return _refine_data_parallel(arr, cfg, max_regions, [torch.device(device)],
+                                 check_fits=False)
 
 
 def _check_stack_converged(converged) -> None:
@@ -224,6 +227,118 @@ def _assemble_stack_results(labels_np: np.ndarray, nums: np.ndarray, table,
             centroids=pts, nn_distances=nn,
         ))
     return results
+
+
+def refine_boundaries_sharded(probabilities: np.ndarray, cfg: RefineConfig = RefineConfig(),
+                              max_regions: int = 4095, mesh=None,
+                              stack: "bool | None" = None) -> List[RefineResult]:
+    """Refine over a device mesh (default: every CUDA card on the data axis,
+    ``parallel.make_mesh()``); the CLI's ``refine --data-parallel`` and
+    ``--space-parallel --tunnel-basins``.
+
+    ``stack`` selects the input interpretation exactly like the CLI flag:
+    False → a single plane ([H,W] / [C,H,W] / [H,W,C], refine_boundaries
+    semantics, returned as a 1-element list); True → a z-stack ([Z,H,W] /
+    [Z,C,H,W] / [Z,H,W,C], refine_boundaries_stack semantics); None
+    (default) → stack iff 4-D.  Z is padded to a multiple of the device
+    count by repeating the last plane (padding results are dropped), and
+    each device refines its contiguous chunk of planes.  The EDT is always
+    exact on this path (``cfg.edt_cap`` does not apply).  Per-plane results
+    equal ``refine_boundaries_stack``'s.
+
+    ``cfg.tunnel_basins`` runs data-parallel over ALL mesh devices, whatever
+    the space axis (each plane floods on one device; see
+    ``_check_tunnel_chunk_fits``).  Without it a space axis larger than 1
+    raises: the halo-exchanged spatial refine is not ported.
+    """
+    probs = np.asarray(probabilities)
+    if stack is None:
+        stack = probs.ndim == 4
+    if stack:
+        _reject_channel_last_plane(probs)
+        arr = _extract_boundary_channel(probs, cfg, ndim=3)
+    else:
+        arr = _extract_boundary_channel(probs, cfg, ndim=2)[None]
+    if mesh is None:
+        mesh = make_mesh()
+    if cfg.tunnel_basins:
+        # the tunnelled claim key has no halo-exchange schedule: planes go
+        # data-parallel to every device of the mesh, each flooding on one
+        return _refine_data_parallel(arr, cfg, max_regions, list(mesh.flat), check_fits=True)
+    if mesh.shape[SPACE_AXIS] > 1:
+        raise NotImplementedError(
+            f"refine_boundaries_sharded: the space axis (n_space = {mesh.shape[SPACE_AXIS]}) "
+            "without tunnel_basins is not ported to PyTorch yet (ROADMAP.md, Queue 1 "
+            "item 3 (b): the spatial refine); use a data-axis mesh"
+        )
+    return _refine_data_parallel(arr, dataclasses.replace(cfg, edt_cap=None), max_regions,
+                                 list(mesh.flat), check_fits=False)
+
+
+def _refine_data_parallel(arr: np.ndarray, cfg: RefineConfig, max_regions: int, devices,
+                          check_fits: bool) -> List[RefineResult]:
+    """Planes ``arr`` [Z,H,W] in contiguous chunks, chunk i through
+    ``refine_plane_device`` on ``devices[i]`` (one worker thread a device,
+    the caller's thread for one device); Z pads to a multiple of the device
+    count by repeating the last plane (results dropped)."""
+    n_dev = len(devices)
+    Z = arr.shape[0]
+    pad = (-Z) % n_dev
+    if pad:
+        arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
+    per = arr.shape[0] // n_dev
+    if check_fits:
+        _check_tunnel_chunk_fits(arr.shape[-2:], per, devices[0])
+    arr = np.asarray(arr, np.float32)
+
+    def work(i: int, device):
+        chunk = torch.as_tensor(arr[i * per:(i + 1) * per], device=device)
+        labels, _, num, table, _, converged = refine_plane_device(chunk, cfg, max_regions)
+        return labels.cpu(), num.cpu(), _host_table(table), converged.cpu()
+
+    outs = run_per_device(work, devices, list(enumerate(devices)))
+    labels = torch.cat([o[0] for o in outs]).numpy()[:Z]
+    num = torch.cat([o[1] for o in outs]).numpy()[:Z]
+    table = type(outs[0][2])(*(np.concatenate(cols)[:Z] for cols in zip(*(o[2] for o in outs))))
+    _check_stack_converged(torch.cat([o[3] for o in outs]).numpy()[:Z])
+    return _assemble_stack_results(labels, num, table, max_regions, devices[0])
+
+
+# The tunnelled refine's working set, bytes a pixel of a chunk: the smoke
+# measured 4.156 GiB above an [8,2048²] input on the H100 (about 133 B a
+# pixel), rounded up.  Tripping early costs a clearer error; tripping late
+# costs a device OOM.
+_TUNNEL_BYTES_PER_PX = 160
+# A device that reports no memory size (the CPU) is held to 16 GiB, the
+# JAX package's figure.
+_DEFAULT_DEVICE_BYTES = 16 * 1024**3
+
+
+def _check_tunnel_chunk_fits(plane_shape, planes_per_device, device) -> None:
+    """Size guard for the tunnelled data-parallel refine: a plateau-heavy
+    export too large for one device would otherwise head straight for an
+    out-of-memory error (the tunnelled claim key is single-device only — see
+    refine_boundaries_sharded's docstring).  Raises with the alternatives
+    instead.  The limit is the card's memory, ``_DEFAULT_DEVICE_BYTES`` for
+    a device that reports none."""
+    H, W = plane_shape
+    need = H * W * planes_per_device * _TUNNEL_BYTES_PER_PX
+    device = torch.device(device)
+    if device.type == "cuda":
+        limit = torch.cuda.get_device_properties(device).total_memory
+    else:
+        limit = _DEFAULT_DEVICE_BYTES
+    if need > limit:
+        raise ValueError(
+            f"tunnel_basins chunk ({planes_per_device} plane(s) of {H}x{W}, "
+            f"~{need / 1e9:.1f} GB working set) exceeds one device's memory "
+            f"(~{limit / 1e9:.1f} GB); the tunneled claim key runs single-"
+            "device only.  Alternatives: (a) untunneled sharded refine "
+            "(tunnel_basins=False — rows shard across the mesh; the default "
+            "key is >=0.99 IoU in the pipeline regime; the JAX package has it, "
+            "this port not yet), or (b) tile the "
+            "plane and refine tiles independently if its basins are local."
+        )
 
 
 def _refine_rows(result: RefineResult, prefix: tuple = ()):

@@ -61,7 +61,7 @@ def ccl_cuda(
             int(background) if has_bg else 0, _kernels.stream_of(img),
         )
     _kernels.check(err, "ccl_cuda")
-    ccl_cuda.launches += 1
+    _kernels.count_launch(ccl_cuda)
     if with_flag:
         return lab, torch.ones(img.shape[:-2], dtype=torch.bool, device=img.device)
     return lab
@@ -90,7 +90,7 @@ def compact_labels_cuda(raw: torch.Tensor, max_regions: int):
             scratch_len, B, H, W, _kernels.stream_of(raw),
         )
     _kernels.check(err, "compact_labels_cuda")
-    compact_labels_cuda.launches += 1
+    _kernels.count_launch(compact_labels_cuda)
     return seg, (num if raw.ndim == 3 else num[0])
 
 

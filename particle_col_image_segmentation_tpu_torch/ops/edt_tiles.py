@@ -72,7 +72,7 @@ def edt_sq_cuda(feature: torch.Tensor, cap: int, with_flag: bool = False):
             _kernels.stream_of(feature),
         )
     _kernels.check(err, "edt_sq_cuda")
-    edt_sq_cuda.launches += 1
+    _kernels.count_launch(edt_sq_cuda)
     edt_sq_cuda.last_route = "tile" if tiled else "two-kernel"
     return (out, flag) if with_flag else out
 

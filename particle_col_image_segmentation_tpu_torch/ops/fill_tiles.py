@@ -79,7 +79,7 @@ def particle_fill_step_cuda(
                 filled.data_ptr(), out.data_ptr(), count.data_ptr(), scratch.data_ptr(), *args
             )
     _kernels.check(err, "particle_fill_step_cuda")
-    particle_fill_step_cuda.launches += 1
+    _kernels.count_launch(particle_fill_step_cuda)
     particle_fill_step_cuda.last_route = "fused" if fused else "two-kernel"
     return out, (count if filled.ndim == 3 else count[0])
 

@@ -42,7 +42,7 @@ def median_label_filter_cuda(
             _kernels.stream_of(img),
         )
     _kernels.check(err, "median_label_filter_cuda")
-    median_label_filter_cuda.launches += 1
+    _kernels.count_launch(median_label_filter_cuda)
     return out
 
 

@@ -85,7 +85,7 @@ def region_counts_cuda(seg: torch.Tensor, img: torch.Tensor, max_regions: int):
     """K4 on contiguous CUDA int32 ids and uint8/int32 values, [H,W] or
     [B,H,W] → (area, class_id) int32 [..., R+1]."""
     area, cls, _ = _counts(seg, img, max_regions, "region_counts_cuda")
-    region_counts_cuda.launches += 1
+    _kernels.count_launch(region_counts_cuda)
     return area, cls
 
 
@@ -97,7 +97,7 @@ def region_sums_cuda(seg: torch.Tensor, vals: torch.Tensor, max_regions: int):
     int64 sums the kernel keeps for the class division, clamped as the TPU
     kernel's ``_recombine_saturating`` does."""
     area, _, sums = _counts(seg, vals, max_regions, "region_sums_cuda")
-    region_sums_cuda.launches += 1
+    _kernels.count_launch(region_sums_cuda)
     return area, sums.clamp(-(2**31), 2**31 - 1).to(torch.int32)
 
 
@@ -144,7 +144,7 @@ def region_table_cuda(seg: torch.Tensor, img: torch.Tensor, max_regions: int) ->
             buf.data_ptr(), B, H, W, R1, _kernels.stream_of(seg),
         )
     _kernels.check(err, "region_table_cuda")
-    region_table_cuda.launches += 1
+    _kernels.count_launch(region_table_cuda)
     cols = buf[: 24 * n].view(torch.int32).view((6,) + lead + (R1,))
     area, sr_hi, sr_lo, sc_hi, sc_lo, class_id = cols.unbind(0)
     return RegionTable(
@@ -215,7 +215,7 @@ def table_lookup_cuda(seg: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
             table.shape[-1], int(table.ndim == 2), _kernels.stream_of(seg),
         )
     _kernels.check(err, "table_lookup_cuda")
-    table_lookup_cuda.launches += 1
+    _kernels.count_launch(table_lookup_cuda)
     return out
 
 
@@ -252,7 +252,7 @@ def centroid_sums_cuda(seg: torch.Tensor, max_regions: int) -> CentroidTable:
             seg.data_ptr(), cols.data_ptr(), B, H, W, R1, _kernels.stream_of(seg),
         )
     _kernels.check(err, "centroid_sums_cuda")
-    centroid_sums_cuda.launches += 1
+    _kernels.count_launch(centroid_sums_cuda)
     area, sr_hi, sr_lo, sc_hi, sc_lo = cols.unbind(0)
     return CentroidTable(area=area, sr_hi=sr_hi, sr_lo=sr_lo, sc_hi=sc_hi, sc_lo=sc_lo)
 

@@ -72,7 +72,7 @@ def watershed_cost_pass_cuda(img, flags, cost, prev_row, row, tiles, pass_no: in
             _kernels.stream_of(cost),
         )
     _kernels.check(err, "watershed_cost_pass_cuda")
-    watershed_cost_pass_cuda.launches += 1
+    _kernels.count_launch(watershed_cost_pass_cuda)
 
 
 watershed_cost_pass_cuda.launches = 0
@@ -94,7 +94,7 @@ def watershed_label_pass_cuda(cost, img, flags, markers, lab, dist, eimg, prev_r
             _kernels.stream_of(lab),
         )
     _kernels.check(err, "watershed_label_pass_cuda")
-    watershed_label_pass_cuda.launches += 1
+    _kernels.count_launch(watershed_label_pass_cuda)
 
 
 watershed_label_pass_cuda.launches = 0

@@ -138,16 +138,16 @@ def test_run_batch_empty_cell_vals_matches_jax():
 def test_loader_pads_short_batch_and_keeps_paths():
     planes = {f"p{i}": np.full((8, 8), i, np.uint8) for i in range(5)}
     batches = list(batched_device_iterator(
-        planes.__getitem__, list(planes), batch_size=2, device=CPU, with_paths=True,
+        planes.__getitem__, list(planes), batch_size=2, devices=[CPU], with_paths=True,
     ))
     assert [(c, paths) for _, c, paths in batches] == [
         (2, ("p0", "p1")), (2, ("p2", "p3")), (1, ("p4",))
     ]
-    last = batches[-1][0]
+    (last,) = batches[-1][0]
     assert last.shape == (2, 8, 8) and last.device == CPU
     assert (last == 4).all()  # the short batch repeats its last plane
     with pytest.raises(ValueError, match="with_paths"):
-        next(batched_device_iterator(planes.__getitem__, list(planes), 2, CPU,
+        next(batched_device_iterator(planes.__getitem__, list(planes), 2, [CPU],
                                      on_error="skip"))
 
 

@@ -73,6 +73,7 @@ from chip_smoke import (
     plain_threshold,
     plain_morphology,
     plain_threshold_batch,
+    refine_relief,
     scipy_min_index,
     serpentine,
     stack_stats,
@@ -814,3 +815,60 @@ def test_analyze_nanosims_card_equals_cpu(dev, tmp_path):
         np.testing.assert_array_equal(g.positions, w.positions)
         np.testing.assert_allclose(g.sums, w.sums, rtol=1e-6, atol=0)
     np.testing.assert_allclose(got.nearest, want.nearest, rtol=1e-6)
+
+
+def _mesh_batch_planes():
+    planes = {f"p{i}": synthetic_label_plane(seed=70 + i, shape=(192, 192)) for i in range(9)}
+    planes["p3"][::7, ::5] = 1  # salt
+    return planes
+
+
+def _batch_stats(planes, **kw):
+    from particle_col_image_segmentation_tpu_torch import AnalysisConfig
+    from particle_col_image_segmentation_tpu_torch.models.batch import run_batch
+
+    got = dict(run_batch(list(planes), planes.__getitem__, AnalysisConfig(max_regions=1024),
+                         batch_size=4, **kw))
+    return {p: (s.num_regions, s.particle_px, s.cell_px, s.class_px.tolist(), s.overflow,
+                s.converged) for p, s in got.items()}
+
+
+def test_run_batch_on_an_emulated_mesh_and_refine_on_it(dev):
+    """The data axis on ``cuda:0`` named twice (the real split, worker
+    threads, kernels and gather on one card) equals the one-device run:
+    run_batch's stats (the last batch's second chunk is padding), and
+    refine_boundaries_sharded, tunnelled too, against refine_boundaries_stack;
+    the launches add up over the workers."""
+    from particle_col_image_segmentation_tpu_torch import RefineConfig
+    from particle_col_image_segmentation_tpu_torch.models.refine import (
+        refine_boundaries_sharded,
+        refine_boundaries_stack,
+    )
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh
+
+    planes = _mesh_batch_planes()
+    want = _batch_stats(planes, device=dev)
+    median_label_filter_cuda.launches = 0
+    assert _batch_stats(planes, mesh=make_mesh(n_data=2, devices=[dev] * 2)) == want
+    assert median_label_filter_cuda.launches == 2 * 3  # two chunks a batch, three batches
+    stack = np.stack([refine_relief(192, pairs=10, seed=s) for s in (1, 2, 3)])
+    for cfg in (RefineConfig(), RefineConfig(tunnel_basins=True)):
+        mesh = make_mesh(n_data=1 + (not cfg.tunnel_basins), n_space=1 + cfg.tunnel_basins,
+                         devices=[dev] * 2)
+        got = refine_boundaries_sharded(stack, cfg, mesh=mesh, stack=True)
+        for g, w in zip(got, refine_boundaries_stack(stack, cfg, device=dev), strict=True):
+            assert g.num_cells == w.num_cells
+            for name in ("labels", "areas", "centroids", "nn_distances"):
+                np.testing.assert_array_equal(getattr(g, name), getattr(w, name), name)
+
+
+def test_run_batch_on_two_cards(dev):
+    """On a host with two cards, run_batch over both equals the one-device
+    run (each chunk is launched under its own card's device guard)."""
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    planes = _mesh_batch_planes()
+    want = _batch_stats(planes, device=dev)
+    assert _batch_stats(planes, mesh=make_mesh(n_data=2)) == want

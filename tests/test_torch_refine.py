@@ -350,7 +350,8 @@ def test_refine_modules_import_neither_jax_nor_the_jax_package():
     modules = [
         "config", "ops.scans", "ops.edt", "ops.edt_tiles", "ops.morphology",
         "ops.regionprops", "ops.regionprops_tiles", "ops.watershed",
-        "ops.watershed_tiles", "ops.pairwise", "models.refine", "io.hdf5", "cli",
+        "ops.watershed_tiles", "ops.pairwise", "parallel", "parallel.mesh", "models.refine",
+        "io.hdf5", "cli",
         "oracle", "oracle.ndimage", "utils.metrics",
     ]
     code = (

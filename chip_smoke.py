@@ -171,6 +171,21 @@ nonzero and no result line is printed):
      step, the basin segments and K2 alone) and peak device memory; the
      ``refine --tunnel-basins`` verb in a fresh interpreter where h5py
      imports (the card's machine has none: the phase says it skipped it).
+ 13. the data axis (``data_axis_phase``) — see its docstring;
+ 14. the space axis (``space_axis_phase``) — meshes that name ``cuda:0`` 2
+     and 4 times: run_batch over phase 4's 40 planes on 1x2, 1x4 and 2x2
+     (and 1x4 with the positions in the main thread) equal to phase 4's
+     stats; analyze_plane_device_sharded of plane 0 at n_space 2 and 4 and
+     of an [8192,2048] plane at 4 equal to analyze_plane_device field for
+     field; run_analysis on a 1x4 mesh over folder 0 and the RFP+DAPI
+     folder equal to phase 6's CSVs byte for byte; K1-K6, K8 and K9
+     launched; each run's wall, launches, the card's peak, one position's
+     working set and the seam joins' host time.
+Phase 3 also holds the band modes of the space axis (``band_checks``): K1
+on row-padded bands, K5 with a row offset (its value sums too; one offset of
+2^20 + 77 whose digits carry) and K8 counting its own rows (both routes), on
+512-row bands of the bench planes and 48-row bands of the odd batch, where
+the halos reach over several bands, each against its plain version.
 Phase 3 also holds the morphology/EDT API (``morph_checks``): erode, open
 and close_disk (K9) at r 0, 1, 2, 20, the largest one-kernel cap and one
 past it, fill_holes (K2; a serpentine past a budget of 3 compared where
@@ -178,12 +193,13 @@ the plain flood converged), edt at cap 20 (bit patterns) and boundary_mask
 (card against CPU) on the bench planes' cell and particle masks and the
 odd [3,97,130] batch, each against its plain route on the card.
 The line before the last is the per-kernel JSON record (``launches`` sums
-the batch, analyze, refine, threshold, zstack, morphology, nanosims and
-tunnel paths' runs,
+the batch, analyze, refine, threshold, zstack, morphology, nanosims,
+tunnel, data axis and space axis paths' runs,
 ``bound_ms`` is the bytes each function must move over 3.35 TB/s,
 ``more_shapes`` holds K2's and K4's threshold-path shapes and K6's device
 time; ``zstack`` holds phase 10's numbers, ``nanosims`` and
-``morphology`` phase 11's, ``tunnel`` phase 12's); the last line is
+``morphology`` phase 11's, ``tunnel`` phase 12's, ``data_axis`` phase 13's,
+``space_axis`` phase 14's); the last line is
 {"ok": true, ...}.
 
 The script imports the port, bench.py's plane generator, numpy, scipy and
@@ -195,6 +211,7 @@ tests/test_torch_nanosims.py.
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -2463,7 +2480,8 @@ def launch_counters() -> tuple:
     from particle_col_image_segmentation_tpu_torch.ops import watershed_tiles as wt
 
     counters = {
-        "K1": [ops.median_label_filter_cuda], "K2": [ops.ccl_cuda],
+        "K1": [ops.median_label_filter_cuda, ops.median_label_filter_rows_padded_cuda],
+        "K2": [ops.ccl_cuda],
         "K3": [ops.compact_labels_cuda], "K4": [ops.region_counts_cuda, ops.region_sums_cuda],
         "K5": [ops.region_table_cuda], "K6": [ops.table_lookup_cuda],
         "K7": [ops.centroid_sums_cuda], "K8": [ops.particle_fill_step_cuda],
@@ -2701,6 +2719,260 @@ def data_axis_phase(card: str, dev, planes, stats, stack8, results8, cfg, rcfg,
     return launches, record
 
 
+# ---- the space axis: the band modes (phase 3) and the paths (phase 14) -----
+
+def band_checks(x, n_space: int, compare, case: str, max_regions: int = ANALYZE_REGIONS) -> None:
+    """The band modes of K1, K5 and K8 against their plain versions on the
+    card, at tolerance 0.  ``x`` [B,H,W] uint8 on the card is cut into
+    ``n_space`` row bands and each is padded as ``parallel.sharded`` pads
+    it: neighbour rows inside the plane, reflected (K1) or constant (K8)
+    rows at its edges.  K1 reads the row-padded band, K5 tables each band
+    in the plane's rows (its sums too), K8 fills the cap-padded band
+    counting its own rows, on both of its routes.  K3 has no band mode: it
+    ranks each band's own roots, and the offsets and seam-crossing roots
+    reach the pixels through K6's rank tables (phase 14)."""
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        ccl_cuda,
+        compact_labels_cuda,
+        max_fused_cap,
+        median_label_filter_cuda,
+        particle_fill_step,
+        particle_fill_step_cuda,
+        region_props,
+        region_table_cuda,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.filters import (
+        median_label_filter_rows_padded,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import (
+        median_label_filter_rows_padded_cuda,
+    )
+    from particle_col_image_segmentation_tpu_torch.parallel.halo import pad_with_halo
+    from particle_col_image_segmentation_tpu_torch.parallel.sharded import _neutral_value
+
+    h = x.shape[-2] // n_space
+
+    def cut(t):
+        return [t[:, j * h:(j + 1) * h].contiguous() for j in range(n_space)]
+
+    for j, xp in enumerate(pad_with_halo(cut(x), 2, "symmetric")):
+        compare("K1", f"{case} band {j} of {n_space}, 2 halo rows",
+                [median_label_filter_rows_padded_cuda(xp, 5, 8)],
+                [median_label_filter_rows_padded(xp, 5, 8)])
+    den = median_label_filter_cuda(x, 5, 8)
+    seg, _ = compact_labels_cuda(ccl_cuda(den), max_regions)
+    for j, (s, d) in enumerate(zip(cut(seg), cut(den))):
+        got, got_sums = region_table_cuda(s, d, max_regions, row_offset=j * h, with_sums=True)
+        want, want_sums = region_props(s, d, max_regions, row_offset=j * h, with_sums=True)
+        compare("K5", f"{case} band {j} of {n_space}, row_offset {j * h}",
+                list(got) + [got_sums], list(want) + [want_sums])
+    far = (1 << 20) + 77  # rows whose base-128 digits carry within the band
+    got, got_sums = region_table_cuda(cut(seg)[-1], cut(den)[-1], max_regions, far, True)
+    want, want_sums = region_props(cut(seg)[-1], cut(den)[-1], max_regions, far, True)
+    compare("K5", f"{case} last band, row_offset {far}", list(got) + [got_sums],
+            list(want) + [want_sums])
+    neutral = _neutral_value(2, (1,))
+    for cap, dt2, dr2 in ((20, 4, 400), (max_fused_cap() + 1, 9, 4)):
+        for j, xp in enumerate(pad_with_halo(cut(den), cap, "constant", neutral)):
+            params = (2, 1, cap, dt2, dr2)
+            compare("K8", f"{case} band {j} of {n_space}, {cap} halo rows {params}",
+                    list(particle_fill_step_cuda(xp, *params, count_rows=(cap, cap + h))),
+                    list(particle_fill_step(xp, *params, count_rows=(cap, cap + h))))
+
+
+@contextlib.contextmanager
+def stage_workers(workers: bool):
+    """Run ``parallel.sharded``'s band stages through a worker thread a
+    position (True) or one after another in the caller's thread (False),
+    whatever devices the mesh names; the module picks by itself otherwise."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.parallel import mesh, sharded
+
+    real = sharded._each
+
+    def each(fn, devices, args):
+        if workers:
+            return mesh.run_per_device(fn, devices, args)
+        out = []
+        for d, a in zip(devices, args):
+            with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
+                out.append(fn(*a))
+        return out
+
+    sharded._each = each
+    try:
+        yield
+    finally:
+        sharded._each = real
+
+
+def space_axis_phase(card: str, dev, planes, stats, cfg, acfg, analyze_csv,
+                     reset_counts, read_counts) -> tuple:
+    """Phase 14: the space axis on emulated meshes (``cuda:0`` named 2 and
+    4 times: the real band split, halo copies, worker threads, kernels and
+    host seam joins on one card).  run_batch over phase 4's 40 planes on
+    1x2, 1x4 and 2x2 meshes must give phase 4's stats at tolerance 0;
+    analyze_plane_device_sharded of 2048² planes at n_space 2 and 4, and of
+    one [8192,2048] plane at n_space 4, must equal analyze_plane_device on
+    the card field for field; run_analysis with a 1x4 mesh over phase 6's
+    single-file and RFP+DAPI folders must write phase 6's CSVs byte for
+    byte.  Times: each run's wall, its launches, the card's peak above what
+    it held before (all positions share it), one position's working set
+    (the same step on one band alone), the seam joins' host time; the 1x4
+    batch once more through a worker thread a position (the route of a
+    mesh over several cards).  Returns (launch counts of the space runs,
+    record)."""
+    import numpy as np
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.labels.analysis import (
+        analyze_plane_device,
+        analyze_plane_device_sharded,
+    )
+    from particle_col_image_segmentation_tpu_torch.models.batch import run_batch
+    from particle_col_image_segmentation_tpu_torch.models.experiment import run_analysis
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh, sharded
+
+    import scipy.sparse.csgraph  # noqa: F401  (the seam join's; not inside the first wall)
+
+    t_phase = time.perf_counter()
+    paths = [str(i) for i in range(len(planes))]
+    launches = {}
+    record = {"card": card, "batch": {}, "analyze_plane": {}}
+    join_s = [0.0]
+    real_join = sharded._join_seams
+
+    def timed_join(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_join(*a, **kw)
+        join_s[0] += time.perf_counter() - t0
+        return out
+
+    def run(fn, count=True):
+        """(result, wall s, launches, peak GiB above the start, seam join s)"""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        join_s[0] = 0.0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if count:
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        return out, wall, counts, (torch.cuda.max_memory_allocated(dev) - base) / 2**30, join_s[0]
+
+    def emulated(n_data, n_space):
+        return make_mesh(n_data=n_data, n_space=n_space, devices=[dev] * (n_data * n_space))
+
+    sharded._join_seams = timed_join
+    try:
+        kw = dict(batch_size=BATCH, particle_val=2, cell_vals=(1,))
+        _, wall1, _, peak1, _ = run(lambda: list(run_batch(paths, lambda p: planes[int(p)], cfg,
+                                                           device=dev, **kw)), count=False)
+        record["batch"]["one device"] = {"wall_s": wall1, "peak_gib": peak1}
+        log(f"phase 14 batch one device [{card}]: run_batch over {len(planes)} planes of "
+            f"{H}x{W}: {wall1:.3f} s wall, peak {peak1:.3f} GiB")
+        for (nd, ns), workers in (((1, 2), False), ((1, 4), False), ((2, 2), False),
+                                  ((1, 4), True)):
+            name = f"{nd}x{ns}" + (" workers" if workers else "")
+            with stage_workers(workers):
+                got, wall, counts, peak, seam = run(lambda: dict(run_batch(
+                    paths, lambda p: planes[int(p)], cfg, mesh=emulated(nd, ns), **kw)))
+            for key in ("K1", "K2", "K3", "K4", "K6"):
+                if counts[key] <= 0:
+                    raise AssertionError(f"phase 14 batch {name}: {key} was never launched")
+            if list(got) != paths:
+                raise AssertionError(f"phase 14 batch {name}: yielded {list(got)[:5]}...")
+            for p in paths:
+                g, w = got[p], stats[p]
+                if ((g.num_regions, g.particle_px, g.cell_px, g.overflow, g.converged)
+                        != (w.num_regions, w.particle_px, w.cell_px, w.overflow, w.converged)
+                        or not np.array_equal(g.class_px, w.class_px)):
+                    raise AssertionError(f"phase 14 batch {name} plane {p}: {g} != phase 4's {w}")
+            # one position's working set: the same step on one band alone
+            band = torch.from_numpy(np.stack(planes[:BATCH // nd])[:, :H // ns]).to(dev)
+            _, _, _, band_peak, _ = run(lambda: sharded.shard_rows(
+                [band], make_mesh(1, 1, devices=[dev]), cfg, 2, (1,), tables="counts",
+                need_lab=False, need_fill=False), count=False)
+            record["batch"][name] = {"wall_s": wall, "mps": len(planes) * H * W / 1e6 / wall,
+                                     "launches": counts, "peak_gib": peak,
+                                     "position_peak_gib": band_peak, "seam_join_s": seam}
+            log(f"phase 14 batch {name} [{card}]: run_batch == phase 4's stats (tolerance 0); "
+                f"{wall:.3f} s wall ({len(planes) * H * W / 1e6 / wall:.1f} MP/s; one device "
+                f"{wall1:.3f}); launches {counts}; seam joins {seam * 1e3:.1f} ms on the host; "
+                f"peak {peak:.3f} GiB on the card for all positions, {band_peak:.3f} GiB for one "
+                f"position's [{BATCH // nd},{H // ns},{W}] band alone (one device {peak1:.3f})")
+
+        def same_out(got, want, case):
+            for name, g, w in zip(got._fields, got, want, strict=True):
+                gs = list(g) if name == "table" else [g]
+                ws = list(w) if name == "table" else [w]
+                for gg, ww in zip(gs, ws, strict=True):
+                    if gg.shape != ww.shape or gg.dtype != ww.dtype or not torch.equal(gg, ww):
+                        raise AssertionError(f"phase 14 {case}: field {name} differs")
+
+        tall_cfg = dataclasses.replace(acfg, max_regions=65535)
+        tall = np.ascontiguousarray(np.concatenate(planes[:4], axis=0))
+        for case, img, ns, c in (("plane 0", planes[0], 2, acfg), ("plane 0", planes[0], 4, acfg),
+                                 (f"tall [{4 * H},{W}]", tall, 4, tall_cfg)):
+            x = torch.from_numpy(img).to(dev)
+            want, wall1, _, peak1, _ = run(lambda: analyze_plane_device(x, SINGLE, c), count=False)
+            got, wall, counts, peak, seam = run(
+                lambda: analyze_plane_device_sharded(x, SINGLE, c, emulated(1, ns)))
+            same_out(got, want, f"{case} n_space={ns}")
+            for key in ("K1", "K2", "K3", "K5", "K6", "K8", "K9"):
+                if counts[key] <= 0:
+                    raise AssertionError(f"phase 14 {case} n_space={ns}: {key} was never launched")
+            h = img.shape[0] // ns
+            _, _, _, band_peak, _ = run(lambda: sharded.shard_rows(
+                [x[None, :h]], make_mesh(1, 1, devices=[dev]), c, 2, (1,), tables="full",
+                with_merge=True, need_lab=False), count=False)
+            record["analyze_plane"][f"{case} n_space={ns}"] = {
+                "wall_ms": wall * 1e3, "one_device_wall_ms": wall1 * 1e3, "launches": counts,
+                "peak_gib": peak, "position_peak_gib": band_peak, "one_device_peak_gib": peak1,
+                "seam_join_ms": seam * 1e3, "regions": int(want.num)}
+            log(f"phase 14 analyze_plane_device_sharded {case} n_space={ns} [{card}]: every "
+                f"PlaneDeviceOut field == analyze_plane_device ({int(want.num)} regions); "
+                f"{wall * 1e3:.1f} ms wall (one device {wall1 * 1e3:.1f}); launches {counts}; "
+                f"seam joins {seam * 1e3:.1f} ms; peak {peak:.3f} GiB for all positions, "
+                f"{band_peak:.3f} GiB for one [{h},{W}] band alone, one device {peak1:.3f} GiB")
+
+        seed_of = {}
+        with tempfile.TemporaryDirectory(prefix="pcis_space_") as tmp:
+            root = os.path.join(tmp, "tree")
+            seed_of.update(make_tree(root, [0]))
+            _, wall, counts, peak, seam = run(lambda: run_analysis(
+                root, acfg, make_figures=False, mesh=emulated(1, 4),
+                load_fn=lambda p: planes[seed_of[p]]))
+            for key in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9"):
+                if counts[key] <= 0:
+                    raise AssertionError(f"phase 14 run_analysis: {key} was never launched")
+            got_csv = csv_lines(root)
+        for rel, got_lines in got_csv.items():
+            want_lines = analyze_csv[rel]
+            if rel.endswith("_cell_density_info.csv"):  # phase 6 wrote more folders' rows
+                keys = {r.split(b",")[0] for r in got_lines[1:]}
+                want_lines = want_lines[:1] + [r for r in want_lines[1:]
+                                               if r.split(b",")[0] in keys]
+            if got_lines != want_lines or len(got_lines) < 2:
+                raise AssertionError(f"phase 14 run_analysis: {rel} differs from phase 6's")
+        record["run_analysis"] = {"wall_s": wall, "launches": counts, "peak_gib": peak,
+                                  "seam_join_s": seam, "csvs": len(got_csv)}
+        log(f"phase 14 run_analysis 1x4 [{card}]: folder 0 and the RFP+DAPI folder (dedup, "
+            f"fusion, merged re-analysis on bands): {len(got_csv)} CSVs == phase 6's byte for "
+            f"byte; {wall:.2f} s wall; launches {counts}; seam joins {seam * 1e3:.1f} ms")
+    finally:
+        sharded._join_seams = real_join
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14 space axis: {record['phase_s']:.1f} s wall")
+    return launches, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
@@ -2868,6 +3140,11 @@ def main() -> int:
     fill("odd [3,97,130]", den, 2, 1, 5, 9, 4)
     chain(torch.from_numpy(np.ascontiguousarray(planes[7][301:602, 517:1294])).to(dev),
           "2-D [301,777]")
+    # the band modes (the space axis): 512-row bands of the bench planes, and
+    # 48-row bands of the odd batch, where the halos reach over several bands
+    band_checks(x4, 4, compare, "[4,2048,2048] bench planes")
+    band_checks(torch.from_numpy(np.ascontiguousarray(odd[:, :96])).to(dev), 2, compare,
+                "odd [3,96,130]", max_regions=8)
     mask = (x4 == 1).to(torch.uint8)
     for conn in (8, 4):
         raw = ccl_cuda(mask, background=0, connectivity=conn)
@@ -3457,6 +3734,7 @@ def main() -> int:
         run_analysis(ref_root, acfg, make_figures=False, device="cpu", load_fn=load_fn)
         ref_s = time.perf_counter() - t0
         got_csv, want_csv = csv_lines(root), csv_lines(ref_root)
+        analyze_csv = got_csv  # phase 14's reference
         for rel, want_lines in want_csv.items():
             if rel not in got_csv:
                 raise AssertionError(f"phase 6: the card's run wrote no {rel}")
@@ -3560,6 +3838,10 @@ def main() -> int:
     data_launches, data_axis = data_axis_phase(card, dev, planes, stats, stack8, results, cfg,
                                                rcfg, reset_counts, read_counts)
 
+    # ---- phase 14: the space axis ----------------------------------------------
+    space_launches, space_axis = space_axis_phase(card, dev, planes, stats, cfg, acfg,
+                                                  analyze_csv, reset_counts, read_counts)
+
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
     if loaded:
@@ -3586,7 +3868,8 @@ def main() -> int:
     paths = {"batch": batch_launches, "analyze": analyze_launches, "refine": refine_launches,
              "threshold": threshold_launches, "zstack": zstack_launches,
              "morphology": morph_launches, "nanosims": nanosims_launches,
-             "tunnel": tunnel_launches, "data_axis": data_launches}
+             "tunnel": tunnel_launches, "data_axis": data_launches,
+             "space_axis": space_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
          "launches": sum(v[k] for v in paths.values()),
@@ -3596,7 +3879,7 @@ def main() -> int:
          **({"more_shapes": more_shapes[k]} if k in more_shapes else {})}
         for k, name, src, tpu in KERNELS
     ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel,
-        "data_axis": data_axis}
+        "data_axis": data_axis, "space_axis": space_axis}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

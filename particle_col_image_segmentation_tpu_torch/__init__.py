@@ -9,10 +9,11 @@ proximity-merge grouping, DAPI dedup, channel fusion and the folder flows
 that write the reference's CSVs; and watershed refinement, ``refine`` —
 exact EDT, plateau-aware local maxima, marker CCL, two-phase watershed,
 centroid table, nearest-neighbour distances; and NanoSIMS ROI analysis,
-``nanosims`` (config #4); and the data axis of the multi-device path
-(``parallel``: ``batch`` and ``refine`` over a mesh of devices, each
-running the single-device pipeline on its chunk of planes; the spatial
-axis is not ported).  Each TPU kernel on those paths
+``nanosims`` (config #4); and the multi-device path (``parallel``: ``batch``
+and ``refine`` over a mesh's data axis, each device running the
+single-device pipeline on its chunk of planes; ``batch`` and ``analyze``
+over its space axis, each plane's rows in bands over the devices; the
+spatial refine is not ported).  Each TPU kernel on those paths
 has a hand-written CUDA kernel for Hopper (``csrc/``, built with nvcc on
 first use, see ``_kernels``) beside a plain PyTorch version; CUDA tensors
 take the kernels, CPU tensors the plain versions (``_dispatch``).

@@ -36,19 +36,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "pcis_median_u8": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
+    "pcis_median_u8": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "pcis_ccl_scratch_len": (_L, [_I, _I, _I]),
     "pcis_ccl_u8": (_I, [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
     "pcis_ccl_i32": (_I, [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
     "pcis_compact_scratch_len": (_L, [_I, _I, _I]),
     "pcis_compact": (_I, [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "pcis_region_counts": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "pcis_region_table": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _P]),
+    "pcis_region_table": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
     "pcis_table_lookup": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pcis_edt_sq": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "pcis_edt_max_tile_cap": (_I, []),
-    "pcis_particle_fill": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "pcis_particle_fill_fused": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "pcis_particle_fill": (_I, [_P, _P, _P, _P] + [_I] * 10 + [_P]),
+    "pcis_particle_fill_fused": (_I, [_P, _P, _P] + [_I] * 10 + [_P]),
     "pcis_fill_max_fused_cap": (_I, []),
     "pcis_centroid_sums": (_I, [_P, _P, _I, _I, _I, _I, _P]),
     "pcis_watershed_cost": (_I, [_P] * 6 + [_I] * 5 + [_P]),

@@ -16,11 +16,13 @@ Files and output lines match the JAX package's verbs byte for byte.
 only); ``--device cpu`` runs the plain PyTorch versions.  ``split`` and
 ``normalize`` run on the host only and take no ``--device``.
 
-``batch`` and ``refine`` take ``--data-parallel N`` (and ``refine`` with
-``--tunnel-basins`` also ``--space-parallel M``): a mesh of N×M devices
-that follows ``--device`` — the first N×M cards from ``cuda`` (or from
-``cuda:K``), or the CPU named N×M times from ``cpu``.  The space axis
-without the tunnel is not ported yet.
+``batch`` takes ``--data-parallel N`` and ``--space-parallel M``,
+``analyze`` ``--space-parallel M``, and ``refine`` ``--data-parallel N``
+(with ``--tunnel-basins`` also ``--space-parallel M``): a mesh of N×M
+devices that follows ``--device`` — the first N×M cards from ``cuda`` (or
+from ``cuda:K``), or the CPU named N×M times from ``cpu``.  The space axis
+splits each plane's rows into M bands, one a device; the spatial refine
+(``refine --space-parallel`` without the tunnel) is not ported yet.
 """
 
 from __future__ import annotations
@@ -120,9 +122,16 @@ def main(argv=None) -> int:
     _add_device_flag(p)
     _add_analysis_flags(p)
     p.add_argument(
+        "--space-parallel", type=int, default=0,
+        help="devices on the space mesh axis: every plane's ROWS split into "
+        "bands across devices (halo rows and a host seam join; the same "
+        "CSVs) — plane height must be a multiple of this",
+    )
+    p.add_argument(
         "--batch-planes", type=int, default=1,
         help="batch same-shape planes from the whole tree into single "
-        "device launches of up to this many planes (byte-identical CSVs)",
+        "device launches of up to this many planes (byte-identical CSVs; "
+        "mutually exclusive with --space-parallel)",
     )
 
     p = sub.add_parser(
@@ -136,8 +145,9 @@ def main(argv=None) -> int:
     p.add_argument("--max-regions", type=int, default=AnalysisConfig().max_regions)
     _add_mesh_flags(
         p, "devices on the data mesh axis (0 = single device)",
-        "accepted so that the JAX CLI's command lines parse; values above 1 "
-        "are rejected (the spatial path is not ported)",
+        "devices on the space mesh axis: plane ROWS split into bands across "
+        "devices (halo rows and a host seam join) — plane height must be a "
+        "multiple of this (0/1 = planes stay whole per device)",
     )
     p.add_argument(
         "--particle-val", type=int, default=None,
@@ -215,9 +225,10 @@ def main(argv=None) -> int:
                 "--batch-size must be a multiple of --data-parallel "
                 f"(got {args.batch_size} and {args.data_parallel})"
             )
-        if args.space_parallel > 1:
-            parser.error("--space-parallel > 1: the spatial batch path is not ported "
-                         "yet; use --data-parallel")
+    if (args.command == "analyze" and args.space_parallel > 1
+            and args.batch_planes > 1):
+        parser.error("--batch-planes batches whole planes per device and cannot "
+                     "combine with --space-parallel — pass one or the other")
     if (args.command == "refine" and args.space_parallel > 1
             and not args.tunnel_basins):
         parser.error("--space-parallel > 1 without --tunnel-basins: the spatial refine "
@@ -246,9 +257,11 @@ def _analyze(args) -> int:
     from particle_col_image_segmentation_tpu_torch.models.experiment import run_analysis
     from particle_col_image_segmentation_tpu_torch.utils.profiling import STAGE_TOTALS
 
+    device = _device(args.device)
+    mesh = _mesh(device, 1, args.space_parallel) if args.space_parallel > 1 else None
     run_analysis(args.folder, _cfg_from_args(args),
-                 make_figures=not args.no_figures, device=_device(args.device),
-                 batch_planes=args.batch_planes)
+                 make_figures=not args.no_figures, device=device,
+                 batch_planes=args.batch_planes, mesh=mesh)
     if args.profile:
         for name, total in sorted(STAGE_TOTALS.items(), key=lambda kv: -kv[1]):
             print(f"profile: {name:24s} {total*1e3:10.1f} ms")
@@ -327,8 +340,8 @@ def _batch(args) -> int:
 
     device = _device(args.device)
     mesh = None
-    if args.data_parallel:
-        mesh = _mesh(device, args.data_parallel, 1)
+    if args.data_parallel or args.space_parallel > 1:
+        mesh = _mesh(device, args.data_parallel or 1, max(args.space_parallel, 1))
     cfg = AnalysisConfig(max_regions=args.max_regions)
     folder_to_files = get_h5_files_recursively(args.folder)
     paths = [

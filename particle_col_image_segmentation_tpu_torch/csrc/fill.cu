@@ -8,7 +8,12 @@
 // squared EDT of the particle mask (img == pval, edt.cuh),
 //   overlap = img == sval && (d2 < dt2 || d2 <= dr2)
 //   out     = overlap ? pval : img          (a fresh plane: Jacobi)
-//   count[b] = #overlap pixels of plane b
+//   count[b] = #overlap pixels of plane b in rows [count_lo, count_hi)
+//
+// The count's row window serves a plane split into row bands over a mesh:
+// a band is filled with `cap` halo rows above and below it (its neighbours'
+// rows, or rows of a value that is neither pval nor sval past the plane's
+// edges), and only its own rows count.  A whole plane passes [0, H).
 //
 // Bound on this card: memory, one uint8 read and one uint8 write a pixel.
 // Two routes, chosen by the caller from cap alone (pcis_fill_max_fused_cap):
@@ -85,7 +90,8 @@ __device__ __forceinline__ int isqrt(int v) {
 // threshold on d2 (-1: none), or any when fill_all (T >= (cap + 1)^2).
 __global__ void __launch_bounds__(kFillThreads) fused_fill(
     const uint8_t* __restrict__ img, uint8_t* __restrict__ out, int* __restrict__ count,
-    int H, int W, int cap, int pval, int sval, int T, bool fill_all, bool vec) {
+    int H, int W, int cap, int pval, int sval, int T, bool fill_all, bool vec, int count_lo,
+    int count_hi) {
   extern __shared__ __align__(16) uint4 tile16[];  // the tile: [64][8] chunks
   __shared__ int s_count;
   uint8_t* tile = reinterpret_cast<uint8_t*>(tile16);
@@ -168,6 +174,7 @@ __global__ void __launch_bounds__(kFillThreads) fused_fill(
     if (r0 + o >= H || cw <= 0) acc = 0;
     else if (cw < 32) acc &= (1u << cw) - 1;
     uint4* mine = tile16 + o * (kFillW / 16) + 2 * qw;
+    const bool counted = r0 + o >= count_lo && r0 + o < count_hi;
     int n = 0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -179,7 +186,7 @@ __global__ void __launch_bounds__(kFillThreads) fused_fill(
         const unsigned nib = (acc >> (16 * h + 4 * i)) & 0xfu;
         const unsigned m = __vcmpeq4(wv[i], ss) & (((nib * 0x00204081u) & 0x01010101u) * 0xffu);
         wv[i] = (wv[i] & ~m) | (pp & m);
-        n += __popc(m) >> 3;
+        if (counted) n += __popc(m) >> 3;
       }
       mine[h] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
     }
@@ -204,7 +211,7 @@ __global__ void __launch_bounds__(kFillThreads) fused_fill(
 __global__ void fill_tile(const int* __restrict__ dh2, const uint8_t* __restrict__ img,
                           uint8_t* __restrict__ out, int* __restrict__ count,
                           int H, int W, int cap, int pval, int sval, int dt2,
-                          int dr2) {
+                          int dr2, int count_lo, int count_hi) {
   __shared__ int s_count;
   if (threadIdx.x == 0) s_count = 0;
   __syncthreads();
@@ -217,7 +224,7 @@ __global__ void fill_tile(const int* __restrict__ dh2, const uint8_t* __restrict
     const int x = src[p];
     const bool ov = x == sval && (d2 < dt2 || d2 <= dr2);
     dst[p] = (uint8_t)(ov ? pval : x);
-    n += ov;
+    n += ov && r >= count_lo && r < count_hi;
   };
   edt::col_tile(dh2 + off, H, W, cap, fill);
   n = __reduce_add_sync(0xffffffffu, n);
@@ -238,7 +245,7 @@ extern "C" int pcis_fill_max_fused_cap() { return kMaxFusedCap; }
 
 extern "C" int pcis_particle_fill_fused(const void* img, void* out, void* count, int B, int H,
                                         int W, int cap, int pval, int sval, int dt2, int dr2,
-                                        void* stream) {
+                                        int count_lo, int count_hi, void* stream) {
   if (bad_args(B, H, W, cap, pval, sval) || cap > kMaxFusedCap)
     return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned long long> ready{0};
@@ -255,14 +262,15 @@ extern "C" int pcis_particle_fill_fused(const void* img, void* out, void* count,
   const dim3 grid((unsigned)((W + kFillW - 1) / kFillW), (unsigned)((H + kFillH - 1) / kFillH),
                   (unsigned)B);
   fused_fill<<<grid, kFillThreads, fused_smem(cap), s>>>(
-      (const uint8_t*)img, (uint8_t*)out, (int*)count, H, W, cap, pval, sval, T, fill_all, vec);
+      (const uint8_t*)img, (uint8_t*)out, (int*)count, H, W, cap, pval, sval, T, fill_all, vec,
+      count_lo, count_hi);
   return (int)cudaGetLastError();
 }
 
 extern "C" int pcis_particle_fill(const void* img, void* out, void* count,
                                   void* scratch, int B, int H, int W, int cap,
                                   int pval, int sval, int dt2, int dr2,
-                                  void* stream) {
+                                  int count_lo, int count_hi, void* stream) {
   if (bad_args(B, H, W, cap, pval, sval)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(count, 0, sizeof(int) * (size_t)B, s);
@@ -275,6 +283,6 @@ extern "C" int pcis_particle_fill(const void* img, void* out, void* count,
   if (e != cudaSuccess) return (int)e;
   fill_tile<<<edt::tile_grid(B, H, W), edt::kWarps * 32, 0, s>>>(
       dh2, (const uint8_t*)img, (uint8_t*)out, (int*)count, H, W, cap, pval,
-      sval, dt2, dr2);
+      sval, dt2, dr2, count_lo, count_hi);
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,12 @@
 // threads (no bank conflicts); only tiles that touch the plane's edge
 // reflect their indices (scipy 'reflect', periodic, so any halo works on
 // planes narrower than it).  The plane is read once, with no padded copy.
+//
+// Band mode (row_padded = 1), for a plane split into row bands over a mesh:
+// the input holds H + 2*half rows, the band's own H rows between `half`
+// halo rows above and below that the caller took from the neighbouring
+// bands (or reflected at the plane's true edges).  Those rows are read as
+// given; only the columns are reflected.  The output has H rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,7 +63,7 @@ __device__ __forceinline__ unsigned long long indicator(int x, int nthr, int fw,
 template <int HALF>
 __global__ void __launch_bounds__(kThreads)
 median_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int H, int W,
-              int num_classes, int fw, unsigned long long ones,
+              int H_in, int row_shift, int num_classes, int fw, unsigned long long ones,
               unsigned long long add, unsigned long long guard, int aligned) {
   constexpr int SIZE = 2 * HALF + 1;
   constexpr int SW = kTileW + 2 * HALF;  // staged columns
@@ -71,10 +77,13 @@ median_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int H, 
   const int nthr = num_classes - 1;  // thresholds v = 0 .. K-2
 
   const long long plane = (long long)H * W;
-  const uint8_t* src = in + blockIdx.z * plane;
+  const uint8_t* src = in + blockIdx.z * (long long)H_in * W;
   const int r0 = blockIdx.y * kTileH;
   const int c0 = blockIdx.x * kTileW;
-  if (aligned && r0 >= HALF && r0 + kTileH + HALF <= H && c0 >= kChunk &&
+  // the input row of staged row 0: output row r reads input rows
+  // r + row_shift - HALF .. r + row_shift + HALF
+  const int s0 = r0 - HALF + row_shift;
+  if (aligned && s0 >= 0 && s0 + SH <= H_in && c0 >= kChunk &&
       c0 + kTileW + kChunk <= W) {
     // interior: a staged row lies in the four 16-byte chunks c0-16 .. c0+47,
     // copied as they are (consecutive threads, consecutive chunks), then
@@ -82,14 +91,17 @@ median_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int H, 
     uint4* bytes = reinterpret_cast<uint4*>(colsum);
     for (int j = tid; j < SH * 4; j += kThreads)
       bytes[j] = *reinterpret_cast<const uint4*>(
-          src + (long long)(r0 - HALF + (j >> 2)) * W + c0 - kChunk + kChunk * (j & 3));
+          src + (long long)(s0 + (j >> 2)) * W + c0 - kChunk + kChunk * (j & 3));
     __syncthreads();
     const uint8_t* b8 = reinterpret_cast<const uint8_t*>(colsum);
     for (int i = tid; i < SH * SW; i += kThreads)
       word[i] = indicator(b8[(i / SW) * 4 * kChunk + kChunk - HALF + i % SW], nthr, fw, ones);
   } else {
     for (int i = tid; i < SH * SW; i += kThreads) {
-      const int rr = reflect(r0 - HALF + i / SW, H);
+      // band mode: every row an output row reads lies in the input; the
+      // reflection only keeps the staged rows past the last output row
+      // (never read) in bounds
+      const int rr = reflect(s0 + i / SW, H_in);
       const int cc = reflect(c0 - HALF + i % SW, W);
       word[i] = indicator(src[(long long)rr * W + cc], nthr, fw, ones);
     }
@@ -126,13 +138,17 @@ median_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int H, 
 
 }  // namespace
 
+// row_padded: 0 for a whole plane [B, H, W] (rows and columns reflected),
+// 1 for a band [B, H + 2*(size/2), W] whose halo rows are given.
 extern "C" int pcis_median_u8(const void* in, void* out, int B, int H, int W,
-                              int size, int num_classes, void* stream) {
+                              int size, int num_classes, int row_padded, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || (H + kTileH - 1) / kTileH > 65535)
     return (int)cudaErrorInvalidValue;
   if (size % 2 == 0 || size < 3 || size > 9 || num_classes < 1 ||
-      num_classes > 8)
+      num_classes > 8 || (row_padded != 0 && row_padded != 1))
     return (int)cudaErrorInvalidValue;
+  const int row_shift = row_padded ? size / 2 : 0;
+  const int H_in = H + 2 * row_shift;
   // fields of bits + 1: bits = bit length of size^2 holds any window count,
   // the top bit is the guard that `add` sets where count >= half_rank
   const int bits = 32 - __builtin_clz(size * size);
@@ -151,10 +167,10 @@ extern "C" int pcis_median_u8(const void* in, void* out, int B, int H, int W,
   const uint8_t* i8 = (const uint8_t*)in;
   uint8_t* o8 = (uint8_t*)out;
   switch (size / 2) {
-    case 1: median_kernel<1><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, fw, ones, add, guard, aligned); break;
-    case 2: median_kernel<2><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, fw, ones, add, guard, aligned); break;
-    case 3: median_kernel<3><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, fw, ones, add, guard, aligned); break;
-    default: median_kernel<4><<<grid, block, 0, s>>>(i8, o8, H, W, num_classes, fw, ones, add, guard, aligned); break;
+    case 1: median_kernel<1><<<grid, block, 0, s>>>(i8, o8, H, W, H_in, row_shift, num_classes, fw, ones, add, guard, aligned); break;
+    case 2: median_kernel<2><<<grid, block, 0, s>>>(i8, o8, H, W, H_in, row_shift, num_classes, fw, ones, add, guard, aligned); break;
+    case 3: median_kernel<3><<<grid, block, 0, s>>>(i8, o8, H, W, H_in, row_shift, num_classes, fw, ones, add, guard, aligned); break;
+    default: median_kernel<4><<<grid, block, 0, s>>>(i8, o8, H, W, H_in, row_shift, num_classes, fw, ones, add, guard, aligned); break;
   }
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,11 @@
 //   class = floor(sum(val) saturated to int32 / max(area, 1))
 //   bbox  = (min r, min c, max r + 1, max c + 1), and (0, 0, 0, 0) on empty
 //           rows, where every other column is 0 too.
-// Ids outside [0, R1) are dropped.  K7 (ops.regionprops.centroid_sums) is
+// Ids outside [0, R1) are dropped.  K5's row_offset is added to every
+// pixel's row before its digits and extremes are taken: a plane split into
+// row bands over a mesh gives each band's table in the plane's rows (the
+// digit sums need the offset a pixel, since (r + off) >> 7 is not
+// (r >> 7) + (off >> 7) once digits carry).  A whole plane passes 0.  K7 (ops.regionprops.centroid_sums) is
 // the first five columns, int32 [5, B, R1]: the table kernel's instance for
 // V = NoValues reads no values and keeps no value sums, class or extremes.
 //
@@ -220,7 +224,7 @@ __device__ __forceinline__ Add run_cols(const Run& u) {
 template <typename V>
 __global__ void __launch_bounds__(kThreads, 1) table_kernel(
     const int* __restrict__ seg, const V* __restrict__ val, Out o, int W, long long plane,
-    long long chunk, bool vec) {
+    long long chunk, bool vec, int row_off) {
   extern __shared__ __align__(16) unsigned long long smem[];
   unsigned long long* sv = smem;  // K5: value sums, then the int columns
   int* s = reinterpret_cast<int*>(kValues<V> ? smem + kSlots : smem);
@@ -264,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, 1) table_kernel(
           u.scl += c & 127;
         } else {
           if (u.key >= 0) add_run<V>(s, sv, o, row0, u.key, run_cols(u));
-          u = Run{kk, r, c, 1, c >> 7, c & 127, v};
+          u = Run{kk, r + row_off, c, 1, c >> 7, c & 127, v};
         }
         if (++c == W) {
           c = 0;
@@ -354,7 +358,7 @@ cudaError_t sms_of(int* sms) {
 
 template <typename V>
 int launch(const int* seg, const V* val, const Out& o, int B, int W, long long plane,
-           cudaStream_t s) {
+           int row_off, cudaStream_t s) {
   // one memset clears cols (class included), bbox and vsum: 48 B a row (K7:
   // its five columns, 20 B)
   cudaError_t e = cudaMemsetAsync(o.cols, 0, (kValues<V> ? 48 : 20) * (size_t)o.n, s);
@@ -369,7 +373,8 @@ int launch(const int* seg, const V* val, const Out& o, int B, int W, long long p
   per_plane = (plane + chunk - 1) / chunk;
   const bool vec = ((uintptr_t)seg | (uintptr_t)val) % 16 == 0;
   table_kernel<V><<<dim3((unsigned)per_plane, B), kThreads, kSmem<V>, s>>>(seg, val, o, W,
-                                                                           plane, chunk, vec);
+                                                                           plane, chunk, vec,
+                                                                           row_off);
   e = cudaGetLastError();
   if (e != cudaSuccess || !kValues<V>) return (int)e;
   finalize<<<dim3((unsigned)((o.R1 + 255) / 256), B), 256, 0, s>>>(o);
@@ -380,21 +385,26 @@ bool bad_shape(int B, int H, int W, int R1) {
   return B <= 0 || B > 65535 || H <= 0 || W <= 0 || (long long)H * W >= (1ll << 31) || R1 <= 0;
 }
 
+// the plane's rows must stay int32 (and 0 <= row_off)
+bool bad_offset(int H, int row_off) { return row_off < 0 || (long long)row_off + H >= (1ll << 31); }
+
 }  // namespace
 
 // table: one buffer of n = B * R1 rows, 49 B a row: int32 cols [6, n]
 // (area, sr_hi, sr_lo, sc_hi, sc_lo, class_id), int32 bbox [n, 4], int64
-// value sums [n] (scratch), bool valid [n].
+// value sums [n] (the class's numerators), bool valid [n].  row_off: the
+// plane row of the input's first row (0 for a whole plane).
 extern "C" int pcis_region_table(const void* seg, const void* val, int val_is_u8, void* table,
-                                 int B, int H, int W, int R1, void* stream) {
-  if (bad_shape(B, H, W, R1)) return (int)cudaErrorInvalidValue;
+                                 int B, int H, int W, int R1, int row_off, void* stream) {
+  if (bad_shape(B, H, W, R1) || bad_offset(H, row_off)) return (int)cudaErrorInvalidValue;
   const long long plane = (long long)H * W, n = (long long)B * R1;
   char* t = (char*)table;
   const Out o{(int*)t, (int*)(t + 24 * n), (unsigned long long*)(t + 40 * n),
               (bool*)(t + 48 * n), n, R1};
   cudaStream_t s = (cudaStream_t)stream;
-  if (val_is_u8) return launch<uint8_t>((const int*)seg, (const uint8_t*)val, o, B, W, plane, s);
-  return launch<int32_t>((const int*)seg, (const int32_t*)val, o, B, W, plane, s);
+  if (val_is_u8)
+    return launch<uint8_t>((const int*)seg, (const uint8_t*)val, o, B, W, plane, row_off, s);
+  return launch<int32_t>((const int*)seg, (const int32_t*)val, o, B, W, plane, row_off, s);
 }
 
 // K7.  cols: int32 [5, B, R1] (area, sr_hi, sr_lo, sc_hi, sc_lo), zeroed here.
@@ -403,6 +413,6 @@ extern "C" int pcis_centroid_sums(const void* seg, void* cols, int B, int H, int
   if (bad_shape(B, H, W, R1)) return (int)cudaErrorInvalidValue;
   const long long n = (long long)B * R1;
   const Out o{(int*)cols, nullptr, nullptr, nullptr, n, R1};
-  return launch<NoValues>((const int*)seg, nullptr, o, B, W, (long long)H * W,
+  return launch<NoValues>((const int*)seg, nullptr, o, B, W, (long long)H * W, 0,
                           (cudaStream_t)stream);
 }

@@ -81,12 +81,15 @@ def batched_device_iterator(
     num_workers: int = 4,
     on_error: str = "raise",
     with_paths: bool = False,
+    n_space: int = 1,
 ) -> Iterator[tuple]:
     """Yield (chunks, count) with decode + transfer pipelined: ``chunks``
     holds each padded [B,H,W] batch split over ``devices`` (one device, or
     the data axis of a mesh) in contiguous chunks, rows
     ``[i·B/n, (i+1)·B/n)`` on ``devices[i]``; a device may get only padding
-    rows.
+    rows.  With ``n_space`` > 1, ``devices`` is a mesh's ``flat`` list:
+    device ``i·n_space + j`` gets data chunk ``i``'s band ``j`` of plane
+    rows, ``[j·H/n_space, (j+1)·H/n_space)``.
 
     The final short batch is padded by repeating its last plane (``count``
     tells the consumer how many rows are real) so every step sees one shape.
@@ -103,9 +106,12 @@ def batched_device_iterator(
     if on_error == "skip" and not with_paths:
         raise ValueError("on_error='skip' shifts plane positions; consume with_paths=True")
     targets = [torch.device(d) for d in devices]
-    if batch_size % len(targets):
-        raise ValueError(f"batch_size {batch_size} does not split over {len(targets)} devices")
-    per = batch_size // len(targets)
+    if len(targets) % n_space:
+        raise ValueError(f"{len(targets)} devices do not form rows of {n_space}")
+    n_data = len(targets) // n_space
+    if batch_size % n_data:
+        raise ValueError(f"batch_size {batch_size} does not split over {n_data} devices")
+    per = batch_size // n_data
     # one copy stream a card, shared by the mesh positions on that card
     copy_streams = {d: torch.cuda.Stream(d) for d in targets if d.type == "cuda"}
 
@@ -114,13 +120,21 @@ def batched_device_iterator(
         if n < batch_size:
             batch = batch + [batch[-1]] * (batch_size - n)
         host = torch.from_numpy(np.stack(batch))
-        if copy_streams:
-            # a fresh pinned buffer per batch: the caching host allocator
-            # does not hand it out again until its copies have completed
-            host = host.pin_memory()
+        H, W = host.shape[-2:]
+        if H % n_space:
+            raise ValueError(
+                f"plane height {H} is not a multiple of the mesh's space axis ({n_space})"
+            )
+        h = H // n_space
+        # each device's part contiguous: [data chunk, band, plane, row, col]
+        host = host.view(n_data, per, n_space, h, W).transpose(1, 2)
+        # a fresh pinned buffer per batch: the caching host allocator does
+        # not hand it out again until its copies have completed
+        host = torch.empty(host.shape, dtype=host.dtype,
+                           pin_memory=bool(copy_streams)).copy_(host)
         chunks = []
-        for i, d in enumerate(targets):
-            part = host[i * per:(i + 1) * per]
+        for k, d in enumerate(targets):
+            part = host[k // n_space, k % n_space]
             if d.type != "cuda":
                 chunks.append((part.to(d), None))
                 continue

@@ -13,8 +13,9 @@ handed to both as numpy arrays; PyTorch runs eagerly, so the JAX module's
 per-stage ``jit`` has no counterpart here.
 
 Reference counterparts: tiff_analysis.py:742-789 (positions/areas),
-:826-883 (merge), :931-1015 (particle fill), :252-287 (DAPI dedup).  The
-space-sharded ``analyze_plane_device_sharded`` is not ported.
+:826-883 (merge), :931-1015 (particle fill), :252-287 (DAPI dedup).
+``analyze_plane_device_sharded`` runs the same graph with the plane's rows in
+bands over a mesh's space axis (``parallel.sharded``).
 """
 
 from __future__ import annotations
@@ -37,11 +38,16 @@ from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import (
     region_sums_auto,
     table_lookup_auto,
 )
+from particle_col_image_segmentation_tpu_torch.parallel.mesh import DATA_AXIS
+from particle_col_image_segmentation_tpu_torch.parallel.sharded import (
+    make_sharded_full_analysis_fn,
+)
 
 __all__ = [
     "PlaneDeviceOut",
     "analyze_plane_device",
     "analyze_planes_device",
+    "analyze_plane_device_sharded",
     "dapi_dedup_device",
     "split_plane_device_out",
     "strain_values_of",
@@ -227,6 +233,47 @@ def analyze_plane_device(
         raise ValueError(f"expected [H, W], got {tuple(img.shape)}")
     out = analyze_planes_device(img[None], cell_types, cfg, compute_merge, denoise)
     return split_plane_device_out(out, 0)
+
+
+def analyze_plane_device_sharded(
+    img,
+    cell_types: Tuple[Tuple[int, str], ...],
+    cfg: AnalysisConfig,
+    mesh,
+    compute_merge: bool = True,
+    denoise: bool = True,
+) -> PlaneDeviceOut:
+    """``analyze_plane_device`` of one [H, W] plane (NumPy or a tensor) with
+    its rows in bands over ``mesh``'s space axis (``parallel.sharded``):
+    the same PlaneDeviceOut, every leaf equal to the one-device graph's
+    (``g_ctx`` included: both hold each dilated component's minimum linear
+    index), on the mesh's first device."""
+    if mesh.shape[DATA_AXIS] != 1:
+        raise ValueError(
+            f"analyze shards ONE plane at a time: the mesh data axis must "
+            f"be 1, got {dict(mesh.shape)} — build it with "
+            "make_mesh(n_data=1, n_space=N) (use models.batch.run_batch "
+            "for data-parallel many-plane runs)"
+        )
+    strain_vals = tuple(v for v, _ in strain_values_of(cell_types))
+    fn = make_sharded_full_analysis_fn(
+        mesh, cfg, particle_val=_particle_value(cell_types), cell_vals=strain_vals,
+        max_iters=cfg.sharded_max_iters, denoise=denoise, with_merge=compute_merge,
+        need_lab=False,
+    )
+    (den, _, particle_ct, n_comp, filled, overlap_strain, conv, seg,
+     area, class_id, sr_hi, sr_lo, sc_hi, sc_lo, bbox, g_ctx) = fn(img[None])
+    R1 = cfg.max_regions + 1
+    table = RegionTable(
+        area=area[0], sr_hi=sr_hi[0], sr_lo=sr_lo[0], sc_hi=sc_hi[0], sc_lo=sc_lo[0],
+        bbox=bbox[0], class_id=class_id[0],
+        valid=(area[0] > 0) & (torch.arange(R1, device=area.device) > 0),
+    )
+    return PlaneDeviceOut(
+        den=den[0], seg=seg[0], num=n_comp[0], table=table,
+        particle_area=particle_ct[0], filled=filled[0],
+        overlap_counts=overlap_strain[0], g_ctx=g_ctx[0], converged=conv[0],
+    )
 
 
 def dapi_dedup_device(dapi: torch.Tensor, other: torch.Tensor, cfg: AnalysisConfig):

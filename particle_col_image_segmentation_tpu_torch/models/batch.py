@@ -1,11 +1,12 @@
 """Whole-experiment batch pipeline (bench config #5) on PyTorch.
 
 Counterpart of ``particle_col_image_segmentation_tpu/models/batch.py``:
-prefetching host loader → fused segmentation of each batch on one device, or
-on every device of a mesh's data axis (``make_fused_segment_fn``) →
-per-plane stat tables → caller's sink, with a restartable manifest.  The
-space-sharded path (``make_space_sharded_segment_fn``) and the 4-bit packed
-transfers of the JAX version are not part of this port.
+prefetching host loader → fused segmentation of each batch on one device,
+on every device of a mesh's data axis (``make_fused_segment_fn``), or with
+each plane's rows in bands over its space axis as well
+(``make_space_sharded_segment_fn``) → per-plane stat tables → caller's sink,
+with a restartable manifest.  The 4-bit packed transfers of the JAX version
+are not part of this port.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
     make_mesh,
     run_per_device,
 )
+from particle_col_image_segmentation_tpu_torch.parallel.sharded import shard_rows
 from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
 _log = get_logger("batch")
@@ -114,17 +116,6 @@ def fused_segment_batch(
     return seg, num, areas, classes, particle_px, cell_px, class_px, converged
 
 
-def _data_devices(mesh, what: str) -> list:
-    """The devices of ``mesh``'s data axis; a space axis is not ported."""
-    if mesh.shape[SPACE_AXIS] > 1:
-        raise NotImplementedError(
-            f"{what}: the space axis (n_space = {mesh.shape[SPACE_AXIS]}) is not ported "
-            "to PyTorch yet (ROADMAP.md, Queue 1 item 3 (a): the spatial segment and "
-            "analyze path); use a data-axis mesh"
-        )
-    return list(mesh.flat)
-
-
 def make_fused_segment_fn(mesh, cfg: AnalysisConfig, particle_val: int = 2, cell_vals=(1,)):
     """Data-parallel fused pass over ``mesh``'s data axis: a callable that
     takes one [b,H,W] chunk a device (in mesh order, each on its device) and
@@ -133,7 +124,12 @@ def make_fused_segment_fn(mesh, cfg: AnalysisConfig, particle_val: int = 2, cell
     Planes are independent, so each device runs the whole per-plane pipeline
     on its chunk with no communication (the JAX package's ``shard_map`` over
     "data"), one worker thread a device (``parallel.run_per_device``)."""
-    devices = _data_devices(mesh, "make_fused_segment_fn")
+    if mesh.shape[SPACE_AXIS] > 1:
+        raise ValueError(
+            f"make_fused_segment_fn runs whole planes: a mesh with a space axis "
+            f"(n_space = {mesh.shape[SPACE_AXIS]}) takes make_space_sharded_segment_fn"
+        )
+    devices = list(mesh.flat)
     cell_vals = tuple(cell_vals)
 
     def fn(chunks):
@@ -141,6 +137,40 @@ def make_fused_segment_fn(mesh, cfg: AnalysisConfig, particle_val: int = 2, cell
             lambda x: fused_segment_batch(x, cfg, particle_val, cell_vals),
             devices, [(x,) for x in chunks],
         )
+
+    return fn
+
+
+def make_space_sharded_segment_fn(
+    mesh, cfg: AnalysisConfig, particle_val: int = 2, cell_vals=(1,),
+    max_iters=None,
+):
+    """The fused pass with each plane's rows in bands over ``mesh``'s space
+    axis (and its planes over the data axis): a callable that takes one
+    [b, H/n_space, W] band a mesh position (``mesh.flat`` order, each on
+    its device; ``parallel.sharded.split_bands``) and returns, for each data
+    row, ``fused_segment_batch``'s outputs on the row's first device, but
+    ``seg`` as the tuple of the row's bands.
+
+    The band-sharded CCL, compaction and tables run as in
+    ``parallel.sharded``; the per-plane pixel stats come from the summed
+    region tables exactly as in the one-device pass, so the overflow
+    semantics (ids past ``cfg.max_regions`` dropped) match it.
+    ``max_iters`` is kept for the JAX signature (its distributed fixpoints'
+    budget); the seam join is exact in one pass."""
+    del max_iters
+    cell_vals = tuple(cell_vals)
+
+    def fn(bands):
+        outs = []
+        for r in shard_rows(bands, mesh, cfg, particle_val, cell_vals, tables="counts",
+                            need_lab=False, need_fill=False):
+            class_px, particle_px, cell_px = _pixel_stats_from_tables(
+                r["area"], r["class_id"], cfg, particle_val, cell_vals
+            )
+            outs.append((tuple(r["seg"]), r["n_comp"], r["area"], r["class_id"],
+                         particle_px, cell_px, class_px, r["converged"]))
+        return outs
 
     return fn
 
@@ -202,8 +232,11 @@ def run_batch(
     ``device``) to run data-parallel: each batch splits over the data
     axis's devices (``batch_size`` must be a multiple of its size), each
     device runs the fused pass on its chunk, and the stats are read back
-    once a device a batch and joined in plane order.  Without one, the
-    batch runs on a one-device mesh of ``device``, in the caller's thread.
+    once a device a batch and joined in plane order.  A mesh with a space
+    axis also splits each plane's rows into that many bands, one a device
+    (the plane height must be a multiple of it;
+    ``make_space_sharded_segment_fn``).  Without a mesh, the batch runs on a
+    one-device mesh of ``device``, in the caller's thread.
 
     By default a plane whose decode raises is logged and skipped — one
     corrupt file must not kill a 100k-plane run.  Skipped planes are never
@@ -216,29 +249,32 @@ def run_batch(
         _log.info("manifest: skipping %d completed planes", len(paths) - len(todo))
     if mesh is None:
         mesh = make_mesh(devices=[device])
-    devices = _data_devices(mesh, "run_batch")
-    n_data = mesh.shape[DATA_AXIS]
+    devices = list(mesh.flat)
+    n_data, n_space = mesh.shape[DATA_AXIS], mesh.shape[SPACE_AXIS]
     if batch_size % n_data:
         raise ValueError(
             f"run_batch: batch_size {batch_size} is not a multiple of the mesh's "
             f"data axis ({n_data})"
         )
-    segment_fn = make_fused_segment_fn(mesh, cfg, particle_val, cell_vals)
+    if n_space > 1:
+        segment_fn = make_space_sharded_segment_fn(mesh, cfg, particle_val, cell_vals)
+    else:
+        segment_fn = make_fused_segment_fn(mesh, cfg, particle_val, cell_vals)
     # the span's events sit on the first device's stream; the other cards
     # are synchronised before it closes, so it covers the whole mesh
     others = {d for d in devices[1:] if d.type == "cuda" and d != devices[0]}
     it = batched_device_iterator(
         load_fn, todo, batch_size=batch_size, devices=devices, on_error=on_error,
-        with_paths=True,
+        with_paths=True, n_space=n_space,
     )
     for chunks, count, batch_paths in it:
-        H, W = chunks[0].shape[-2:]
+        H, W = chunks[0].shape[-2] * n_space, chunks[0].shape[-1]
         with stage("fused_segment", devices[0], megapixels=count * H * W / 1e6):
             outs = segment_fn(chunks)
             for d in others:
                 torch.cuda.current_stream(d).synchronize()
-        # ONE host readback per device per batch, joined in plane order; the
-        # outputs (the [B,H,W] labels) go before the next batch's pass runs
+        # ONE host readback per device (data row) per batch, joined in plane
+        # order; the outputs (the labels) go before the next batch's pass runs
         stats_host = np.concatenate([_stats_host(out) for out in outs])
         del outs
         num = stats_host[:, 0]

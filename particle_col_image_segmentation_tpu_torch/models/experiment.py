@@ -4,8 +4,9 @@ Counterpart of ``particle_col_image_segmentation_tpu/models/experiment.py``:
 host-side code mirroring the reference tiff_analysis.py's two entry
 flows, ``process_single_h5_file`` (:627-671) and ``process_multiple_h5_files``
 (:92-222), with all pixel work on one torch device (``device``: CUDA runs the
-kernels, the CPU the plain versions).  The CSVs equal the JAX package's byte
-for byte.  The space-sharded ``mesh`` path is not ported.  No learned
+kernels, the CPU the plain versions), or with every plane's rows in bands
+over a mesh's space axis (``mesh``).  The CSVs equal the JAX package's byte
+for byte.  No learned
 weights: what the two packages share is the frozen ``AnalysisConfig``
 (the port's own, same fields) and the label planes, read as numpy arrays.
 
@@ -57,6 +58,7 @@ from particle_col_image_segmentation_tpu_torch.models.single_channel import (
     analyze_plane,
     host,
 )
+from particle_col_image_segmentation_tpu_torch.parallel.sharded import make_sharded_dapi_dedup_fn
 from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
 LoadFn = Callable[[str], np.ndarray]
@@ -71,11 +73,14 @@ def process_h5_folder(
     device,
     device_outs: Optional["_BatchedDeviceOuts"] = None,
     load_fn: LoadFn = load_h5_plane,
+    mesh=None,
 ) -> None:
     """Dispatch single vs multi-channel (reference :85-89).  ``device_outs``
     provides precomputed ``(PlaneDeviceOut, ds_arr)`` pairs from a batched
-    run (``run_analysis(batch_planes=N)``); ``load_fn`` reads one plane."""
-    kw = dict(device=device, device_outs=device_outs, load_fn=load_fn)
+    run (``run_analysis(batch_planes=N)``); ``load_fn`` reads one plane;
+    ``mesh`` splits every plane's rows over its space axis (results
+    identical to the one-device run)."""
+    kw = dict(device=device, device_outs=device_outs, load_fn=load_fn, mesh=mesh)
     if len(h5_files) == 1:
         process_single_h5_file(cur_folder, h5_files[0], cfg, make_figures, **kw)
     else:
@@ -102,6 +107,7 @@ def process_single_h5_file(
     device,
     device_outs: Optional["_BatchedDeviceOuts"] = None,
     load_fn: LoadFn = load_h5_plane,
+    mesh=None,
 ) -> PlaneAnalysis:
     """Single-file flow (reference :627-671)."""
     full_file_path = os.path.join(cur_folder, file_path)
@@ -115,7 +121,7 @@ def process_single_h5_file(
     ds_arr, device_out = _load_or_precomputed(full_file_path, cfg, device_outs, load_fn)
     with stage("analyze_plane", device):
         res = analyze_plane(ds_arr, cell_types, cfg, merged=True,
-                            device_out=device_out, device=device)
+                            device_out=device_out, device=device, mesh=mesh)
 
     # counts/densities use the PRE-fill particle area (reference :647-648)
     cell_count, cell_density, cell_area_ratio = get_cell_counts_and_densities(
@@ -162,6 +168,7 @@ def process_multiple_h5_files(
     device,
     device_outs: Optional["_BatchedDeviceOuts"] = None,
     load_fn: LoadFn = load_h5_plane,
+    mesh=None,
 ) -> Dict[str, PlaneAnalysis]:
     """Multi-channel fusion flow (reference :92-222)."""
     density_path, cell_pos_path = get_pos_and_density_file_names(cur_folder)
@@ -189,7 +196,7 @@ def process_multiple_h5_files(
         )
         with stage("analyze_plane", device):
             res = analyze_plane(ds_arr, cell_types, cfg, merged=False,
-                                device_out=device_out, device=device)
+                                device_out=device_out, device=device, mesh=mesh)
         results[channel] = res
         # keep the device plane — fusion/dedup consume it on the device;
         # figures trigger the host copy lazily via res.denoised
@@ -243,7 +250,22 @@ def process_multiple_h5_files(
                 f"dedup (have: {sorted(channel_ds_arrs)})"
             )
         other = channel_ds_arrs[other_name]
-        dapi_dev, dedup_conv = dapi_dedup_device(channel_ds_arrs["DAPI"], other, cfg)
+        if mesh is not None:
+            dedup_fn = make_sharded_dapi_dedup_fn(mesh, cfg, max_iters=cfg.sharded_max_iters)
+            dapi_b, dedup_num, dedup_conv_b = dedup_fn(channel_ds_arrs["DAPI"][None], other[None])
+            dapi_dev, dedup_conv = dapi_b[0], dedup_conv_b[0]
+            # convergence first: an unconverged plane's region count is
+            # garbage, and a bogus max_regions error would name the wrong
+            # remedy
+            if bool(dedup_conv) and int(dedup_num[0]) > cfg.max_regions:
+                # overflowing regions get no overlap row (sharded contract)
+                raise ValueError(
+                    f"DAPI plane has {int(dedup_num[0])} components > "
+                    f"max_regions={cfg.max_regions}; raise "
+                    "AnalysisConfig.max_regions"
+                )
+        else:
+            dapi_dev, dedup_conv = dapi_dedup_device(channel_ds_arrs["DAPI"], other, cfg)
         if not bool(dedup_conv):
             raise RuntimeError(
                 "DAPI-dedup CCL did not converge within the kernel budget"
@@ -251,7 +273,7 @@ def process_multiple_h5_files(
         # The reference analyzes the already-denoised deduped plane directly
         # (:168) — no second median pass; the plane stays on the device.
         dapi_res = analyze_plane(
-            dapi_dev, dapi_cell_types, cfg, merged=False, denoise=False,
+            dapi_dev, dapi_cell_types, cfg, merged=False, denoise=False, mesh=mesh,
         )
         master_cell_pos["6B07"] = dapi_res.cell_pos.get("6B07", [])
         master_cell_clusters["6B07"] = dapi_res.cell_clusters.get("6B07", [])
@@ -296,7 +318,7 @@ def process_multiple_h5_files(
         ) from e
     with stage("analyze_plane_fused", device):
         fused_res = analyze_plane(
-            fused_dev, BASE_TYPE_MAP, cfg, merged=True, denoise=False,
+            fused_dev, BASE_TYPE_MAP, cfg, merged=True, denoise=False, mesh=mesh,
         )
     merged_clusters = fused_res.merged_clusters
 
@@ -435,18 +457,26 @@ def run_analysis(
     device="cuda",
     batch_planes: int = 1,
     load_fn: LoadFn = load_h5_plane,
+    mesh=None,
 ) -> None:
     """Top-level entry point (reference main, :1126-1134) on one torch ``device``
     (default the card, ``cuda``; ``"cpu"`` runs the plain versions).
+    ``mesh`` (it takes the place of ``device``) splits every plane's rows
+    into bands over the mesh's space axis (CLI ``analyze --space-parallel``).
     ``batch_planes`` > 1 batches same-shape planes from the whole tree into
     single device launches (CLI ``analyze --batch-planes``; byte-identical
-    CSVs).  ``load_fn`` reads one plane from a discovered path (default: the
-    HDF5 reader)."""
-    device = torch.device(device)
+    CSVs, mutually exclusive with ``mesh``).  ``load_fn`` reads one plane
+    from a discovered path (default: the HDF5 reader)."""
+    device = torch.device(device) if mesh is None else mesh.flat[0]
     folders = get_h5_files_recursively(top_level_folder)
     device_outs = None
     if batch_planes > 1:
+        if mesh is not None:
+            raise ValueError(
+                "batch_planes batches whole planes per device and cannot "
+                "combine with space sharding — pass one or the other"
+            )
         device_outs = _BatchedDeviceOuts(folders, cfg, batch_planes, device, load_fn)
     for folder, files in folders.items():
         process_h5_folder(folder, files, cfg, make_figures, device=device,
-                          device_outs=device_outs, load_fn=load_fn)
+                          device_outs=device_outs, load_fn=load_fn, mesh=mesh)

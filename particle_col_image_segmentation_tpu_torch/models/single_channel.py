@@ -24,6 +24,7 @@ from particle_col_image_segmentation_tpu_torch.oracle.ndimage import Region
 from particle_col_image_segmentation_tpu_torch.labels.analysis import (
     PlaneDeviceOut,
     analyze_plane_device,
+    analyze_plane_device_sharded,
     strain_values_of,
 )
 from particle_col_image_segmentation_tpu_torch.ops.regionprops import centroids_f64
@@ -87,6 +88,7 @@ def analyze_plane(
     denoise: bool = True,
     device_out: Optional[PlaneDeviceOut] = None,
     device=None,
+    mesh=None,
 ) -> PlaneAnalysis:
     """Analyze one raw label plane end-to-end.
 
@@ -96,13 +98,20 @@ def analyze_plane(
     NumPy; pass ``device="cpu"`` for the plain versions).  ``denoise=False``
     analyzes the plane as-is (reference re-analysis paths).  Pass
     ``device_out`` to reuse an already-computed device result (e.g. from a
-    batched run).
+    batched run), or ``mesh`` (it takes the place of ``device``) to split
+    the plane's rows into bands over the mesh's space axis (same results as
+    the one-device graph).
     """
     ct = _as_static(cell_types)
     if device_out is None:
-        device_out = analyze_plane_device(
-            as_plane(img, device), ct, cfg, compute_merge=merged, denoise=denoise
-        )
+        if mesh is not None:
+            device_out = analyze_plane_device_sharded(
+                img, ct, cfg, mesh, compute_merge=merged, denoise=denoise
+            )
+        else:
+            device_out = analyze_plane_device(
+                as_plane(img, device), ct, cfg, compute_merge=merged, denoise=denoise
+            )
     out = device_out
 
     num = int(out.num)

@@ -34,10 +34,14 @@ from particle_col_image_segmentation_tpu_torch.ops.fill_tiles import (  # noqa: 
 from particle_col_image_segmentation_tpu_torch.ops.filters import (  # noqa: F401
     gaussian_blur,
     median_label_filter,
+    median_label_filter_padded,
+    median_label_filter_rows_padded,
 )
 from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import (  # noqa: F401
     median_label_filter_auto,
     median_label_filter_cuda,
+    median_label_filter_rows_padded_auto,
+    median_label_filter_rows_padded_cuda,
 )
 from particle_col_image_segmentation_tpu_torch.ops.morphology import (  # noqa: F401
     boundary_mask,

@@ -8,6 +8,10 @@ particle mask (``plane == particle_val``); the cell pixels (``== sval``) with
 ``d² < dt2`` or ``d² ≤ dr2`` become ``particle_val``; the count of those
 pixels per plane.  The step reads the plane it is given and writes a fresh
 one (Jacobi); callers loop over strains for the cumulative semantics.
+
+``count_rows=(lo, hi)`` counts the filled pixels of rows [lo, hi) alone: a
+row band of a plane split over a mesh is filled with ``cap`` halo rows above
+and below it, and only its own rows count (K8's band mode).
 """
 
 from __future__ import annotations
@@ -24,14 +28,23 @@ __all__ = [
 ]
 
 
+def _count_rows(count_rows, H: int):
+    lo, hi = (0, H) if count_rows is None else count_rows
+    if not 0 <= lo <= hi <= H:
+        raise ValueError(f"count_rows {count_rows} is not a row window of {H} rows")
+    return lo, hi
+
+
 def particle_fill_step(
-    filled: torch.Tensor, particle_val: int, sval: int, cap: int, dt2: int, dr2: int
+    filled: torch.Tensor, particle_val: int, sval: int, cap: int, dt2: int, dr2: int,
+    count_rows=None,
 ):
     """Plain fill step of an [H, W] or [B, H, W] plane → (plane, count):
     ``count`` is an int32 scalar for [H, W] and int32 [B] for [B, H, W]."""
+    lo, hi = _count_rows(count_rows, filled.shape[-2])
     d2 = edt_sq(filled == particle_val, cap)
     overlap = (filled == sval) & ((d2 < dt2) | (d2 <= dr2))
-    count = overlap.sum(dim=(-2, -1), dtype=torch.int32)
+    count = overlap[..., lo:hi, :].sum(dim=(-2, -1), dtype=torch.int32)
     return torch.where(overlap, particle_val, filled), count
 
 
@@ -42,7 +55,8 @@ def max_fused_cap() -> int:
 
 
 def particle_fill_step_cuda(
-    filled: torch.Tensor, particle_val: int, sval: int, cap: int, dt2: int, dr2: int
+    filled: torch.Tensor, particle_val: int, sval: int, cap: int, dt2: int, dr2: int,
+    count_rows=None,
 ):
     """K8 on a contiguous CUDA uint8 [H, W] or [B, H, W] plane; same results
     as ``particle_fill_step``.  The route follows from ``cap`` alone: one
@@ -63,11 +77,12 @@ def particle_fill_step_cuda(
         raise ValueError(f"particle_fill_step_cuda: dt2 {dt2} and dr2 {dr2} must be int32")
     check_cap("particle_fill_step_cuda", cap)
     B, H, W = as_planes("particle_fill_step_cuda", filled)
+    lo, hi = _count_rows(count_rows, H)
     out = torch.empty_like(filled)
     count = torch.empty(B, dtype=torch.int32, device=filled.device)
     lib = _kernels.library()
     fused = cap <= max_fused_cap()
-    args = (B, H, W, cap, particle_val, sval, dt2, dr2, _kernels.stream_of(filled))
+    args = (B, H, W, cap, particle_val, sval, dt2, dr2, lo, hi, _kernels.stream_of(filled))
     with torch.cuda.device(filled.device):
         if fused:
             err = lib.pcis_particle_fill_fused(
@@ -89,9 +104,10 @@ particle_fill_step_cuda.last_route = None
 
 
 def particle_fill_step_auto(
-    filled: torch.Tensor, particle_val: int, sval: int, cap: int, dt2: int, dr2: int
+    filled: torch.Tensor, particle_val: int, sval: int, cap: int, dt2: int, dr2: int,
+    count_rows=None,
 ):
     """K8 for a CUDA tensor, the plain step for a CPU tensor."""
     if use_kernel(filled):
-        return particle_fill_step_cuda(filled, particle_val, sval, cap, dt2, dr2)
-    return particle_fill_step(filled, particle_val, sval, cap, dt2, dr2)
+        return particle_fill_step_cuda(filled, particle_val, sval, cap, dt2, dr2, count_rows)
+    return particle_fill_step(filled, particle_val, sval, cap, dt2, dr2, count_rows)

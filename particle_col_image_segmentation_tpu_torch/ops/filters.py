@@ -2,7 +2,8 @@
 and the Gaussian blur.
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/filters.py``
-(``median_label_filter`` and its threshold-packing helpers, ``gaussian_blur``).  The median of
+(``median_label_filter``, ``median_label_filter_padded`` and the
+threshold-packing helpers, ``gaussian_blur``).  The median of
 an integer window with values < K comes from cumulative class counts:
 
     median = #{ v < K-1 : count(window ≤ v) < ⌈n/2⌉ }
@@ -17,7 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["as_float32", "gaussian_blur", "median_label_filter"]
+__all__ = [
+    "as_float32",
+    "gaussian_blur",
+    "median_label_filter",
+    "median_label_filter_padded",
+    "median_label_filter_rows_padded",
+]
 
 # dtypes the float32 cast takes: those the JAX package's astype(jnp.float32)
 # takes without x64, plus torch.uint16
@@ -73,19 +80,42 @@ def median_label_filter(img: torch.Tensor, size: int = 5, num_classes: int = 8) 
     """scipy.ndimage.median_filter(img, size, mode='reflect') for integer
     planes with values in [0, num_classes), on any [..., H, W] batch and any
     odd ``size``; same dtype and device as ``img``."""
-    H, W = img.shape[-2:]
-    half = size // 2
+    H = img.shape[-2]
+    x = img.index_select(-2, reflect_index(H, size // 2, img.device))
+    return median_label_filter_rows_padded(x, size, num_classes)
+
+
+def median_label_filter_padded(
+    xp: torch.Tensor, size: int = 5, num_classes: int = 8
+) -> torch.Tensor:
+    """Median filter of an input already padded by size//2 on both trailing
+    axes: [..., H + 2·half, W + 2·half] → [..., H, W], same dtype."""
     half_rank = (size * size) // 2 + 1
     bits, groups = _threshold_packing(size, num_classes)
-    x = img.to(torch.int32)
-    x = x.index_select(-2, reflect_index(H, half, img.device))
-    x = x.index_select(-1, reflect_index(W, half, img.device))
-    med = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
+    x = xp.to(torch.int32)
+    med = None
     for group in groups:
         packed = pack_thresholds(x, group, bits)
         counts = _valid_window_sum(_valid_window_sum(packed, size, -1), size, -2)
         med = median_from_counts(med, counts, group, bits, half_rank)
-    return med.to(img.dtype)
+    if med is None:  # one class: every median is 0
+        half = size // 2
+        shape = xp.shape[:-2] + (xp.shape[-2] - 2 * half, xp.shape[-1] - 2 * half)
+        return torch.zeros(shape, dtype=xp.dtype, device=xp.device)
+    return med.to(xp.dtype)
+
+
+def median_label_filter_rows_padded(
+    xp: torch.Tensor, size: int = 5, num_classes: int = 8
+) -> torch.Tensor:
+    """The plain version of K1's band mode: a band padded by size//2 rows
+    above and below (its neighbours' rows, or reflected rows at the plane's
+    edges), [..., h + 2·half, W] → [..., h, W]; the columns reflect as
+    scipy's 'reflect'."""
+    W = xp.shape[-1]
+    return median_label_filter_padded(
+        xp.index_select(-1, reflect_index(W, size // 2, xp.device)), size, num_classes
+    )
 
 
 def as_float32(img: torch.Tensor) -> torch.Tensor:

@@ -125,13 +125,22 @@ def region_sums(seg: torch.Tensor, vals: torch.Tensor, max_regions: int):
     return area, sums.to(torch.int32)
 
 
-def region_props(seg: torch.Tensor, img: torch.Tensor, max_regions: int) -> RegionTable:
+def region_props(
+    seg: torch.Tensor, img: torch.Tensor, max_regions: int, row_offset: int = 0,
+    with_sums: bool = False,
+):
     """RegionTable from compact ids ``seg`` [..., H, W] (0 = background) and
     the class image ``img`` — the plain version of kernel K5.
 
     Columns as the JAX ``region_props``; ``class_id`` as ``region_counts``
     (the saturated value sum over the area, which is the segment max on
     every value-homogeneous region).  Ids outside [0, R+1) are dropped.
+
+    ``row_offset`` is the plane row of ``seg``'s first row: a row band of a
+    plane split over a mesh gets its row digits and bbox rows in the plane's
+    rows.  ``with_sums=True`` returns ``(table, sums)``, ``sums`` the int64
+    value sum of each row (not saturated), which bands add before the class
+    division.
     """
     R1 = max_regions + 1
     H, W = seg.shape[-2:]
@@ -141,14 +150,15 @@ def region_props(seg: torch.Tensor, img: torch.Tensor, max_regions: int) -> Regi
     bins = _bins(ids, R1)
     n = B * R1
     pix = torch.arange(H * W, device=seg.device)
-    rows = (pix // W).expand(B, -1)
+    rows = (pix // W + row_offset).expand(B, -1)
     cols = (pix % W).expand(B, -1)
     area = _binned_sum(bins, torch.ones_like(bins), n)
     digits = [
         _binned_sum(bins, d, n).to(torch.int32)
-        for d in _pixel_digits(B, H, W, seg.device)
+        for d in _pixel_digits(B, H, W, seg.device, row_offset)
     ]
-    sums = _binned_sum(bins, img.reshape(B, H * W), n).clamp(_I32_MIN, _I32_MAX)
+    raw_sums = _binned_sum(bins, img.reshape(B, H * W), n)
+    sums = raw_sums.clamp(_I32_MIN, _I32_MAX)
 
     def extreme(src, reduce, init):
         out = torch.full((n + 1,), init, dtype=torch.int64, device=seg.device)
@@ -167,7 +177,7 @@ def region_props(seg: torch.Tensor, img: torch.Tensor, max_regions: int) -> Regi
     def shaped(t):
         return t.reshape(lead + (R1,) + t.shape[1:])
 
-    return RegionTable(
+    table = RegionTable(
         area=shaped(area),
         sr_hi=shaped(digits[0]),
         sr_lo=shaped(digits[1]),
@@ -177,13 +187,14 @@ def region_props(seg: torch.Tensor, img: torch.Tensor, max_regions: int) -> Regi
         class_id=shaped(class_id),
         valid=shaped(valid),
     )
+    return (table, shaped(raw_sums)) if with_sums else table
 
 
-def _pixel_digits(B: int, H: int, W: int, device):
+def _pixel_digits(B: int, H: int, W: int, device, row_offset: int = 0):
     """The four base-128 coordinate digits of every pixel, each [B, H·W]:
-    r // 128, r % 128, c // 128, c % 128."""
+    r // 128, r % 128, c // 128, c % 128 (rows from ``row_offset``)."""
     pix = torch.arange(H * W, device=device)
-    rows = (pix // W).expand(B, -1)
+    rows = (pix // W + row_offset).expand(B, -1)
     cols = (pix % W).expand(B, -1)
     return (rows // HILO_BASE, rows % HILO_BASE, cols // HILO_BASE, cols % HILO_BASE)
 

@@ -126,11 +126,17 @@ def region_sums_auto(seg: torch.Tensor, vals: torch.Tensor, max_regions: int):
     return region_sums(seg, vals, max_regions)
 
 
-def region_table_cuda(seg: torch.Tensor, img: torch.Tensor, max_regions: int) -> RegionTable:
+def region_table_cuda(
+    seg: torch.Tensor, img: torch.Tensor, max_regions: int, row_offset: int = 0,
+    with_sums: bool = False,
+):
     """K5: the full RegionTable of contiguous CUDA int32 ids and uint8/int32
     values, [H,W] or [B,H,W].  Equal to ``ops.regionprops.region_props`` on
-    every row, empty rows (all zeros) included."""
+    every row, empty rows (all zeros) included, with the same ``row_offset``
+    (K5's band mode) and ``with_sums``."""
     B, H, W = _check_table_inputs("region_table_cuda", seg, img, max_regions)
+    if not 0 <= row_offset < 2**31 - H:
+        raise ValueError(f"region_table_cuda: row_offset {row_offset} out of range")
     R1 = max_regions + 1
     lead = seg.shape[:-2]
     n = B * R1
@@ -141,28 +147,34 @@ def region_table_cuda(seg: torch.Tensor, img: torch.Tensor, max_regions: int) ->
     with torch.cuda.device(seg.device):
         err = lib.pcis_region_table(
             seg.data_ptr(), img.data_ptr(), int(img.dtype == torch.uint8),
-            buf.data_ptr(), B, H, W, R1, _kernels.stream_of(seg),
+            buf.data_ptr(), B, H, W, R1, row_offset, _kernels.stream_of(seg),
         )
     _kernels.check(err, "region_table_cuda")
     _kernels.count_launch(region_table_cuda)
     cols = buf[: 24 * n].view(torch.int32).view((6,) + lead + (R1,))
     area, sr_hi, sr_lo, sc_hi, sc_lo, class_id = cols.unbind(0)
-    return RegionTable(
+    table = RegionTable(
         area=area, sr_hi=sr_hi, sr_lo=sr_lo, sc_hi=sc_hi, sc_lo=sc_lo,
         bbox=buf[24 * n : 40 * n].view(torch.int32).view(lead + (R1, 4)),
         class_id=class_id,
         valid=buf[48 * n :].view(torch.bool).view(lead + (R1,)),
     )
+    if with_sums:
+        return table, buf[40 * n : 48 * n].view(torch.int64).view(lead + (R1,))
+    return table
 
 
 region_table_cuda.launches = 0
 
 
-def region_props_auto(seg: torch.Tensor, img: torch.Tensor, max_regions: int) -> RegionTable:
+def region_props_auto(
+    seg: torch.Tensor, img: torch.Tensor, max_regions: int, row_offset: int = 0,
+    with_sums: bool = False,
+):
     """K5 for CUDA tensors, the plain table for CPU tensors."""
     if use_kernel(seg, img):
-        return region_table_cuda(seg, img, max_regions)
-    return region_props(seg, img, max_regions)
+        return region_table_cuda(seg, img, max_regions, row_offset, with_sums)
+    return region_props(seg, img, max_regions, row_offset, with_sums)
 
 
 def _check_lookup(seg: torch.Tensor, table: torch.Tensor) -> None:

@@ -214,17 +214,25 @@ def test_cuda_device_without_cuda_raises(tmp_path):
         torch_cli(["batch", str(tmp_path / "exp"), "--device", "cuda"])
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(monkeypatch):
     """run_batch, run_analysis and refine_boundaries(_stack) run on ``cuda``
     unless the caller asks for the CPU; analyze_plane sends a NumPy plane
-    there when it is given no device."""
+    there when it is given no device.  The space axis's entry points take a
+    mesh, which defaults to the cards, and a mesh's bands go to its devices."""
     import inspect
 
     from particle_col_image_segmentation_tpu_torch.models import experiment, refine, single_channel
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh, sharded
 
     for fn in (torch_batch.run_batch, experiment.run_analysis, refine.refine_boundaries,
                refine.refine_boundaries_stack):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert make_mesh(n_data=1, n_space=4).flat == tuple(torch.device("cuda", i) for i in range(4))
+    monkeypatch.undo()
+    bands = sharded.split_bands(np.zeros((2, 8, 3), np.uint8),
+                                make_mesh(n_data=2, n_space=2, devices=["cpu"] * 4))
+    assert [tuple(b.shape) for b in bands] == [(1, 4, 3)] * 4
     plane = synthetic_label_plane(seed=1, shape=(64, 64))
     assert single_channel.as_plane(torch.from_numpy(plane)).device.type == "cpu"
     assert single_channel.as_plane(plane, "cpu").device.type == "cpu"

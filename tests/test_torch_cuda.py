@@ -872,3 +872,67 @@ def test_run_batch_on_two_cards(dev):
     planes = _mesh_batch_planes()
     want = _batch_stats(planes, device=dev)
     assert _batch_stats(planes, mesh=make_mesh(n_data=2)) == want
+
+
+# ---- the space axis: the band modes, and the paths on emulated meshes ----
+
+
+@pytest.mark.parametrize("n_space", [2, 4])
+def test_band_mode_kernels(dev, n_space):
+    """K1 on row-padded bands, K5 in the plane's rows and K8 counting its
+    own rows (both routes), each band of a [2,192,192] batch against the
+    plain version on the card (``chip_smoke.band_checks``)."""
+    from chip_smoke import band_checks
+
+    x = torch.from_numpy(_planes((2, 192, 192), seed=5)).to(dev)
+
+    def compare(kernel, case, got, want):
+        _equal(got, want, f"{kernel} {case}")
+
+    band_checks(x, n_space, compare, f"[2,192,192] in {n_space} bands", max_regions=4096)
+
+
+def test_space_axis_on_an_emulated_mesh(dev):
+    """The space axis on ``cuda:0`` named 2 and 4 times equals the one-device
+    run: run_batch's stats on 1x2 and 2x2 meshes, analyze_plane_device_sharded
+    field for field, and the band-sharded DAPI dedup."""
+    from particle_col_image_segmentation_tpu_torch import AnalysisConfig
+    from particle_col_image_segmentation_tpu_torch.labels.analysis import (
+        analyze_plane_device,
+        analyze_plane_device_sharded,
+        dapi_dedup_device,
+    )
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh
+    from particle_col_image_segmentation_tpu_torch.parallel.sharded import (
+        make_sharded_dapi_dedup_fn,
+    )
+
+    planes = _mesh_batch_planes()
+    want = _batch_stats(planes, device=dev)
+    for nd, ns in ((1, 2), (2, 2)):
+        assert _batch_stats(planes, mesh=make_mesh(nd, ns, devices=[dev] * (nd * ns))) == want
+    cfg = AnalysisConfig(max_regions=1024)
+    ct = ((1, "3D05"), (2, "Particle"), (3, "Background"))
+    x = torch.from_numpy(planes["p3"]).to(dev)
+    one = analyze_plane_device(x, ct, cfg)
+    got = analyze_plane_device_sharded(x, ct, cfg, make_mesh(1, 4, devices=[dev] * 4))
+    for name, g, w in zip(one._fields, got, one):
+        for gg, ww in zip(*((list(g), list(w)) if name == "table" else ([g], [w]))):
+            _equal([gg], [ww], name)
+    other = torch.from_numpy(planes["p4"]).to(dev)
+    dd, num, conv = make_sharded_dapi_dedup_fn(make_mesh(1, 2, devices=[dev] * 2), cfg)(
+        x[None], other[None])
+    _equal([dd[0]], [dapi_dedup_device(x, other, cfg)[0]], "dedup")
+    assert bool(conv.all()) and int(num[0]) > 0
+
+
+def test_space_axis_on_two_cards(dev):
+    """On a host with two cards, a plane's rows split over both equal the
+    one-device run (halo rows copied between the cards)."""
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    planes = _mesh_batch_planes()
+    want = _batch_stats(planes, device=dev)
+    assert _batch_stats(planes, mesh=make_mesh(n_data=1, n_space=2)) == want

@@ -334,9 +334,9 @@ def test_run_batch_mesh_errors():
     with pytest.raises(ValueError, match="batch_size 6 is not a multiple of the mesh's data axis \\(4\\)"):
         list(torch_batch.run_batch(list(planes), planes.__getitem__, TCFG_BATCH, batch_size=6,
                                    mesh=cpu_mesh(4)))
-    with pytest.raises(NotImplementedError, match="space axis .* not ported"):
+    with pytest.raises(ValueError, match="plane height 64 is not a multiple of the mesh's space axis \\(3\\)"):
         list(torch_batch.run_batch(list(planes), planes.__getitem__, TCFG_BATCH, batch_size=4,
-                                   mesh=cpu_mesh(2, 2)))
+                                   mesh=cpu_mesh(2, 3)))
     with pytest.raises(OSError, match="truncated"):
         list(torch_batch.run_batch(["plane0", "bad"], _load_with_a_bad_file(planes), TCFG_BATCH,
                                    batch_size=2, mesh=cpu_mesh(2), on_error="raise"))
@@ -484,13 +484,14 @@ def test_cli_refine_mesh_matches_jax_cli(tmp_path, capsys, route):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["batch", "{tree}", "--space-parallel", "2"], "spatial batch path is not ported"),
+    (["analyze", "{tree}", "--space-parallel", "2", "--batch-planes", "2"],
+     "--batch-planes batches whole planes per device and cannot combine with --space-parallel"),
     (["batch", "{tree}", "--batch-size", "3", "--data-parallel", "2"],
      "--batch-size must be a multiple of --data-parallel \\(got 3 and 2\\)"),
     (["refine", "{h5}", "--space-parallel", "2"], "spatial refine is not ported"),
     (["refine", "{h5}", "--space-parallel", "2", "--data-parallel", "2"],
      "spatial refine is not ported"),
-], ids=["batch-space", "batch-size", "refine-space", "refine-space-and-data"])
+], ids=["analyze-space-batch-planes", "batch-size", "refine-space", "refine-space-and-data"])
 def test_cli_rejects_the_unported_spatial_path(tmp_path, capsys, argv, message):
     _h5_tree(tmp_path / "exp")
     h5 = _h5(tmp_path / "p.h5", cells(0))

@@ -180,12 +180,28 @@ nonzero and no result line is printed):
      field; run_analysis on a 1x4 mesh over folder 0 and the RFP+DAPI
      folder equal to phase 6's CSVs byte for byte; K1-K6, K8 and K9
      launched; each run's wall, launches, the card's peak, one position's
-     working set and the seam joins' host time.
+     working set and the seam joins' host time;
+ 15. the spatial refine (``space_refine_phase``) — refine_boundaries_sharded
+     over phase 8's [8,2048,2048] relief on 1x2, 1x4 and 2x2 meshes of
+     ``cuda:0`` equal to phase 8's results field for field and its stack
+     CSV byte for byte; an [8192,2048] relief plane (``tall_relief``) at
+     n_space 4 and a [2,2048,2048] relief with a disc deeper than the probe
+     cap across the seam (``deep_seam_relief``: the exact-EDT fallback) at
+     n_space 2 and 4 equal to refine_plane_device (labels, markers, counts,
+     centroid sums); K2, K3, K6, K7, K9, K10 and K11 launched; each run's
+     wall, each watershed phase's rounds, passes a round and host syncs,
+     the card's peak and one position's working set.
 Phase 3 also holds the band modes of the space axis (``band_checks``): K1
 on row-padded bands, K5 with a row offset (its value sums too; one offset of
 2^20 + 77 whose digits carry) and K8 counting its own rows (both routes), on
 512-row bands of the bench planes and 48-row bands of the odd batch, where
-the halos reach over several bands, each against its plain version.
+the halos reach over several bands, each against its plain version; and
+those of the spatial refine (``refine_band_checks``): K7 with a row offset
+(and 2^20 + 77), K9's flag over the band's own rows (cap 32 and 2, 32 halo
+rows) and K10 and K11 resuming each band in every round of the band-coupled
+watershed against the plain band phases from the same state, on 512-row
+bands of a relief plane and 48-row bands of three corridors at the odd
+batch's size (``ws_corridor``, whose flood crosses the seam).
 Phase 3 also holds the morphology/EDT API (``morph_checks``): erode, open
 and close_disk (K9) at r 0, 1, 2, 20, the largest one-kernel cap and one
 past it, fill_holes (K2; a serpentine past a budget of 3 compared where
@@ -194,12 +210,12 @@ the plain flood converged), edt at cap 20 (bit patterns) and boundary_mask
 odd [3,97,130] batch, each against its plain route on the card.
 The line before the last is the per-kernel JSON record (``launches`` sums
 the batch, analyze, refine, threshold, zstack, morphology, nanosims,
-tunnel, data axis and space axis paths' runs,
+tunnel, data axis, space axis and spatial refine paths' runs,
 ``bound_ms`` is the bytes each function must move over 3.35 TB/s,
 ``more_shapes`` holds K2's and K4's threshold-path shapes and K6's device
 time; ``zstack`` holds phase 10's numbers, ``nanosims`` and
 ``morphology`` phase 11's, ``tunnel`` phase 12's, ``data_axis`` phase 13's,
-``space_axis`` phase 14's); the last line is
+``space_axis`` phase 14's, ``space_refine`` phase 15's); the last line is
 {"ok": true, ...}.
 
 The script imports the port, bench.py's plane generator, numpy, scipy and
@@ -2518,19 +2534,20 @@ def median_wall_s(fn, reps: int = 3) -> tuple:
     return statistics.median(walls), out
 
 
-def same_refine(got, want, case: str) -> None:
+def same_refine(got, want, case: str, phase: int = 13) -> None:
     """Per-plane RefineResults equal at tolerance 0 (labels, counts, areas,
     centroids, nearest-neighbour distances)."""
     import numpy as np
 
     if len(got) != len(want):
-        raise AssertionError(f"phase 13 {case}: {len(got)} planes, expected {len(want)}")
+        raise AssertionError(f"phase {phase} {case}: {len(got)} planes, expected {len(want)}")
     for z, (g, w) in enumerate(zip(got, want)):
         if (g.num_cells != w.num_cells or not np.array_equal(g.labels, w.labels)
                 or not np.array_equal(g.areas, w.areas)
                 or not np.array_equal(g.centroids, w.centroids)
                 or not np.array_equal(g.nn_distances, w.nn_distances)):
-            raise AssertionError(f"phase 13 {case} plane {z}: differs from refine_boundaries_stack")
+            raise AssertionError(f"phase {phase} {case} plane {z}: differs from "
+                                 "refine_boundaries_stack")
 
 
 def data_axis_phase(card: str, dev, planes, stats, stack8, results8, cfg, rcfg,
@@ -2970,6 +2987,283 @@ def space_axis_phase(card: str, dev, planes, stats, cfg, acfg, analyze_csv,
         sharded._join_seams = real_join
     record["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 14 space axis: {record['phase_s']:.1f} s wall")
+    return launches, record
+
+
+# ---- the spatial refine: the band modes (phase 3) and the path (phase 15) ----
+
+def tall_relief(h: int = 4 * H, w: int = W, pairs: int = 1600, seed: int = 3):
+    """``refine_relief``'s touching-cell pairs on an [h, w] plane: the space
+    axis's own case, a plane taller than one 2048² plane, with cells across
+    every band seam."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    m = np.zeros((h, w), bool)
+    for _ in range(pairs):
+        cy, cx = int(rng.integers(40, h - 40)), int(rng.integers(40, w - 40))
+        r2 = int(rng.integers(150, 400))
+        dx2 = int(1.5 * np.sqrt(r2))
+        r = int(np.ceil(np.sqrt(r2)))
+        y0, y1, x0, x1 = max(cy - r, 0), min(cy + r + 1, h), max(cx - r, 0), min(cx + dx2 + r + 1, w)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        m[y0:y1, x0:x1] |= (((yy - cy) ** 2 + (xx - cx) ** 2 <= r2)
+                            | ((yy - cy) ** 2 + (xx - cx - dx2) ** 2 <= r2))
+    dist = ndi.distance_transform_edt(m)
+    return (1.0 - dist / max(1.0, dist.max())).astype(np.float32)
+
+
+def deep_seam_relief(relief):
+    """[2, H, W]: ``relief`` and its 17-column roll, each with a disc of
+    radius 150 centred on row H/2 (the seam of two bands) whose depth is far
+    past refine's probe cap, so K9's probe flags and the exact EDT runs."""
+    import numpy as np
+
+    out = np.stack([relief, np.roll(relief, 17, axis=1)])
+    yy, xx = np.mgrid[:H, :W]
+    d = np.sqrt((yy - H / 2) ** 2 + (xx - W / 3) ** 2)
+    out[:, d <= 150] = np.minimum(out[:, d <= 150], (d[d <= 150] / 300.0).astype(np.float32))
+    return out
+
+
+def refine_band_checks(img, mk, m, labels, n_space: int, compare, case: str,
+                       regions: int = REFINE_REGIONS, cap: int = 32) -> None:
+    """The band modes of K7, K9, K10 and K11 against their plain versions on
+    the card, at tolerance 0, on ``n_space`` row bands of [B,H,W] card
+    tensors: K7 tables each band of ``labels`` in the plane's rows (and the
+    last band at 2^20 + 77, whose digits carry); K9 transforms each band of
+    the features ``img >= 0.5`` with ``cap`` halo rows, its flag raised by
+    the band's own rows only; K10 and K11 resume each band of the relief
+    ``img`` (markers ``mk``, mask ``m``) in every round of
+    ``parallel.sharded``'s band-coupled watershed, each round's kernel
+    output held to the plain band phase from the same state and halo rows.
+    The loop's labels must equal the one-plane plain watershed's."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import (
+        centroid_sums,
+        centroid_sums_cuda,
+        edt_sq,
+        edt_sq_cuda,
+        watershed,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.watershed import (
+        claim_labels_band,
+        minimax_costs_band,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
+        claim_labels_band_cuda,
+        minimax_costs_band_cuda,
+    )
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh, sharded
+    from particle_col_image_segmentation_tpu_torch.parallel.halo import pad_with_halo
+
+    h = img.shape[-2] // n_space
+
+    def cut(t):
+        return [t[:, j * h:(j + 1) * h].contiguous() for j in range(n_space)]
+
+    for j, s in enumerate(cut(labels)):
+        compare("K7", f"{case} band {j} of {n_space}, row_offset {j * h}",
+                list(centroid_sums_cuda(s, regions, j * h)),
+                list(centroid_sums(s, regions, j * h)))
+    far = (1 << 20) + 77
+    compare("K7", f"{case} last band, row_offset {far}",
+            list(centroid_sums_cuda(cut(labels)[-1], regions, far)),
+            list(centroid_sums(cut(labels)[-1], regions, far)))
+    for j, fp in enumerate(pad_with_halo(cut(img >= 0.5), cap, "constant", False)):
+        for c in (cap, 2):
+            d, flag = edt_sq_cuda(fp, c, with_flag=True, flag_rows=(cap, cap + h))
+            want = edt_sq(fp, c)
+            compare("K9", f"{case} band {j} of {n_space}, {cap} halo rows, cap {c}, flag over "
+                    f"its own rows", [d, (flag != 0).reshape(())],
+                    [want, (want[:, cap:cap + h] > c * c).any()])
+    rounds = {"K10": 0, "K11": 0}
+
+    def checked(kernel, cuda_fn, plain_fn, n_state):
+        def fn(*args):
+            plain_args = [a.clone() if torch.is_tensor(a) else a for a in args]
+            got = cuda_fn(*args)
+            want = plain_fn(*plain_args)
+            rounds[kernel] += 1
+            compare(kernel, f"{case} band mode, band round {rounds[kernel]} ({got[-1].passes} "
+                    f"passes)", list(got[:n_state + 2]), list(want[:n_state + 2]))
+            return got
+        return fn
+
+    real = sharded.minimax_costs_band_auto, sharded.claim_labels_band_auto
+    sharded.minimax_costs_band_auto = checked("K10", minimax_costs_band_cuda,
+                                              minimax_costs_band, 1)
+    sharded.claim_labels_band_auto = checked("K11", claim_labels_band_cuda,
+                                             claim_labels_band, 3)
+    try:
+        mesh = make_mesh(1, n_space, devices=[img.device] * n_space)
+        stats = {}
+        # a budget the plain steps meet too: a corridor's flood takes a step a
+        # pixel of its length there, a few passes in the kernels
+        bands, conv = sharded._watershed_bands(
+            sharded.split_bands(img, mesh), sharded.split_bands(mk, mesh),
+            sharded.split_bands(m, mesh), mesh, 1, 1 << 14, stats)
+    finally:
+        sharded.minimax_costs_band_auto, sharded.claim_labels_band_auto = real
+    want = watershed(img, mk, m, max_iters=1 << 14)
+    if not bool(conv[0].all()) or not torch.equal(sharded.join_bands(bands, mesh), want):
+        raise AssertionError(f"{case}: the band-coupled watershed differs from the plain one")
+    log(f"phase 3 K10/K11 {case} band mode: {n_space} bands, phase 1 {stats['phase1']}, "
+        f"phase 2 {stats['phase2']}; labels == the one-plane plain watershed")
+
+
+def space_refine_phase(card: str, dev, stack8, results8, rcfg, reset_counts,
+                       read_counts) -> tuple:
+    """Phase 15: the spatial refine on emulated meshes (``cuda:0`` named 2 and
+    4 times, the positions one after another in the caller's thread).
+    refine_boundaries_sharded over phase 8's [8,2048²] relief on 1x2, 1x4
+    and 2x2 must equal refine_boundaries_stack (phase 8's results) field
+    for field, and its stack CSV phase 8's byte for byte; an [8192,2048]
+    relief plane at n_space 4, and a [2,2048²] relief with a disc deeper
+    than the probe cap across the seam (the exact-EDT fallback) at n_space
+    2 and 4, must equal refine_plane_device on one device.  Times: each
+    run's wall, each watershed phase's rounds, passes a round and host
+    syncs, the launches of K2, K3, K6, K7, K9, K10 and K11, the card's peak
+    above what it held before, and one position's working set (the sharded
+    refine of one band alone), beside refine_boundaries_stack's (the stack)
+    and refine_plane_device's (the planes) on one device.  Returns (launch
+    counts of the space runs, record)."""
+    import numpy as np
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.models.refine import (
+        refine_boundaries_sharded,
+        refine_boundaries_stack,
+        refine_plane_device,
+        write_refine_stack_csv,
+    )
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh, sharded
+
+    t_phase = time.perf_counter()
+    launches, record = {}, {"card": card}
+    ws_stats = []
+    real_ws = sharded._watershed_bands
+
+    def traced_ws(*a):
+        out = real_ws(*a)
+        ws_stats.append(a[-1])
+        return out
+
+    def run(fn, count=True):
+        """(result, wall s, launches, peak GiB above the start, watershed stats)"""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        ws_stats.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if count:
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        stats = {k: v for k, v in (ws_stats[-1] if ws_stats else {}).items()}
+        return out, wall, counts, (torch.cuda.max_memory_allocated(dev) - base) / 2**30, stats
+
+    def emulated(n_data, n_space):
+        return make_mesh(n_data=n_data, n_space=n_space, devices=[dev] * (n_data * n_space))
+
+    def check_launches(counts, case):
+        for key in ("K2", "K3", "K6", "K7", "K9", "K10", "K11"):
+            if counts[key] <= 0:
+                raise AssertionError(f"phase 15 {case}: {key} was never launched")
+
+    def position_peak(x, n_data, n_space):
+        """One position's working set: the sharded refine of its band alone."""
+        band = x[:x.shape[0] // n_data, :x.shape[1] // n_space]
+        fn = sharded.make_sharded_refine_fn(make_mesh(1, 1, devices=[dev]),
+                                            max_regions=REFINE_REGIONS, with_tables=True)
+        return run(lambda: fn(band), count=False)[3]
+
+    sharded._watershed_bands = traced_ws
+    try:
+        with tempfile.TemporaryDirectory(prefix="pcis_space_refine_") as tmp:
+            want_csv = os.path.join(tmp, "stack.csv")
+            write_refine_stack_csv(results8, want_csv)
+            with open(want_csv, "rb") as f:
+                want_bytes = f.read()
+            _, wall1, _, peak1, _ = run(lambda: refine_boundaries_stack(
+                stack8, rcfg, REFINE_REGIONS, device=dev), count=False)
+            record["stack"] = {"one_device_wall_s": wall1, "one_device_peak_gib": peak1}
+            run(lambda: refine_boundaries_sharded(stack8, rcfg, REFINE_REGIONS,
+                                                  mesh=emulated(1, 2), stack=True),
+                count=False)  # warm-up: the band modes' and the seam join's first calls
+            for nd, ns in ((1, 2), (1, 4), (2, 2)):
+                name = f"{nd}x{ns}"
+                got, wall, counts, peak, stats = run(lambda: refine_boundaries_sharded(
+                    stack8, rcfg, REFINE_REGIONS, mesh=emulated(nd, ns), stack=True))
+                same_refine(got, results8, f"refine {name}", phase=15)
+                got_csv = os.path.join(tmp, f"{name}.csv")
+                write_refine_stack_csv(got, got_csv)
+                with open(got_csv, "rb") as f:
+                    if f.read() != want_bytes:
+                        raise AssertionError(f"phase 15 refine {name}: the stack CSV differs "
+                                             "from phase 8's")
+                check_launches(counts, f"refine {name}")
+                band_peak = position_peak(torch.from_numpy(stack8).to(dev), nd, ns)
+                record["stack"][name] = {"wall_s": wall, "launches": counts, "peak_gib": peak,
+                                         "position_peak_gib": band_peak, "watershed": stats}
+                log(f"phase 15 refine_boundaries_sharded {name} [{card}]: [{REFINE_PLANES},{H},"
+                    f"{W}] == refine_boundaries_stack (phase 8) field for field, stack CSV "
+                    f"byte for byte ({len(want_bytes.splitlines()) - 1} cells); {wall:.3f} s "
+                    f"wall (one device refine_boundaries_stack {wall1:.3f}); watershed {stats}; "
+                    f"launches {counts}; peak {peak:.3f} GiB for all positions, "
+                    f"{band_peak:.3f} GiB for one position's band alone (one device "
+                    f"{peak1:.3f})")
+        for case, arr, spaces in (
+                (f"tall [{4 * H},{W}]", tall_relief()[None], (4,)),
+                (f"deep disc across the seam [2,{H},{W}]", deep_seam_relief(stack8[0]), (2, 4))):
+            x = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+            want, wall1, _, peak1, _ = run(lambda: refine_plane_device(x, rcfg, REFINE_REGIONS),
+                                           count=False)
+            for ns in spaces:
+                fn = sharded.make_sharded_refine_fn(
+                    emulated(1, ns), max_regions=REFINE_REGIONS, max_iters=rcfg.watershed_max_iters,
+                    with_tables=True, probe_cap=rcfg.edt_probe_cap)
+                got, wall, counts, peak, stats = run(lambda: fn(x))
+                labels, markers, num, conv, sums = got
+                w_labels, w_markers, w_num, w_table, _, w_conv = want
+                if not (bool(conv.all()) and bool(w_conv.all())):
+                    raise AssertionError(f"phase 15 {case} n_space={ns}: not converged")
+                for fld, g, w in (("labels", labels, w_labels), ("markers", markers, w_markers),
+                                  ("num", num, w_num),
+                                  *((f, sums[..., i], getattr(w_table, f)) for i, f in
+                                    enumerate(("area", "sr_hi", "sr_lo", "sc_hi", "sc_lo")))):
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"phase 15 {case} n_space={ns}: {fld} differs "
+                                             "from refine_plane_device")
+                check_launches(counts, f"{case} n_space={ns}")
+                fallback = fn.last_stats["edt_fallback_rows"]
+                if ("deep" in case) != (fallback > 0):
+                    raise AssertionError(f"phase 15 {case} n_space={ns}: exact-EDT fallback "
+                                         f"rows {fallback}")
+                band_peak = position_peak(x, 1, ns)
+                record[f"{case} n_space={ns}"] = {
+                    "wall_ms": wall * 1e3, "one_device_wall_ms": wall1 * 1e3, "launches": counts,
+                    "peak_gib": peak, "position_peak_gib": band_peak,
+                    "one_device_peak_gib": peak1, "watershed": stats,
+                    "edt_fallback_rows": fallback, "cells": num.tolist()}
+                log(f"phase 15 {case} n_space={ns} [{card}]: labels, markers, counts and "
+                    f"centroid sums == refine_plane_device ({num.tolist()} cells; exact-EDT "
+                    f"fallback rows {fallback}); {wall * 1e3:.1f} ms wall (one device "
+                    f"{wall1 * 1e3:.1f}); watershed {stats}; launches {counts}; peak "
+                    f"{peak:.3f} GiB for all positions, {band_peak:.3f} GiB for one band alone, "
+                    f"one device {peak1:.3f}")
+            del x, want
+            torch.cuda.empty_cache()
+    finally:
+        sharded._watershed_bands = real_ws
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15 spatial refine: {record['phase_s']:.1f} s wall")
     return launches, record
 
 
@@ -3415,6 +3709,16 @@ def main() -> int:
         compare("K7", f"{case} max_regions={mr}", list(centroid_sums_cuda(st, mr)),
                 list(centroid_sums(st, mr)))
     del st
+    # the spatial refine's band modes: K7, K9, K10 and K11 on 512-row bands of
+    # one relief plane, and on 48-row bands of three corridors at the odd
+    # batch's size, whose flood crosses the seam
+    refine_band_checks(x8r[:1], mk8[:1], mask8[:1], labels8[:1], 4, compare,
+                       f"[1,{H},{W}] relief")
+    corr = [ws_corridor(96, 130, pitch=3 + i, seed=12 + i) for i in range(3)]
+    cimg, cmk, cm = (torch.from_numpy(np.stack([c[k] for c in corr])).to(dev) for k in range(3))
+    refine_band_checks(cimg, cmk, cm, watershed_auto(cimg, cmk, cm), 2, compare,
+                       "corridors [3,96,130]")
+    del corr, cimg, cmk, cm
 
     # ---- launch counts: reset just before a path runs, read just after -----
     reset_counts, read_counts = launch_counters()
@@ -3842,6 +4146,10 @@ def main() -> int:
     space_launches, space_axis = space_axis_phase(card, dev, planes, stats, cfg, acfg,
                                                   analyze_csv, reset_counts, read_counts)
 
+    # ---- phase 15: the spatial refine --------------------------------------------
+    space_refine_launches, space_refine = space_refine_phase(card, dev, stack8, results, rcfg,
+                                                             reset_counts, read_counts)
+
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
     if loaded:
@@ -3869,7 +4177,7 @@ def main() -> int:
              "threshold": threshold_launches, "zstack": zstack_launches,
              "morphology": morph_launches, "nanosims": nanosims_launches,
              "tunnel": tunnel_launches, "data_axis": data_launches,
-             "space_axis": space_launches}
+             "space_axis": space_launches, "space_refine": space_refine_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
          "launches": sum(v[k] for v in paths.values()),
@@ -3879,7 +4187,7 @@ def main() -> int:
          **({"more_shapes": more_shapes[k]} if k in more_shapes else {})}
         for k, name, src, tpu in KERNELS
     ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel,
-        "data_axis": data_axis, "space_axis": space_axis}
+        "data_axis": data_axis, "space_axis": space_axis, "space_refine": space_refine}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

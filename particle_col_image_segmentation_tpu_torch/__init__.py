@@ -11,9 +11,9 @@ exact EDT, plateau-aware local maxima, marker CCL, two-phase watershed,
 centroid table, nearest-neighbour distances; and NanoSIMS ROI analysis,
 ``nanosims`` (config #4); and the multi-device path (``parallel``: ``batch``
 and ``refine`` over a mesh's data axis, each device running the
-single-device pipeline on its chunk of planes; ``batch`` and ``analyze``
-over its space axis, each plane's rows in bands over the devices; the
-spatial refine is not ported).  Each TPU kernel on those paths
+single-device pipeline on its chunk of planes; ``batch``, ``analyze``
+and ``refine`` over its space axis, each plane's rows in bands over the
+devices).  Each TPU kernel on those paths
 has a hand-written CUDA kernel for Hopper (``csrc/``, built with nvcc on
 first use, see ``_kernels``) beside a plain PyTorch version; CUDA tensors
 take the kernels, CPU tensors the plain versions (``_dispatch``).

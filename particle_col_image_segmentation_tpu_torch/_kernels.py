@@ -45,14 +45,14 @@ _SIGNATURES = {
     "pcis_region_counts": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "pcis_region_table": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
     "pcis_table_lookup": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "pcis_edt_sq": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "pcis_edt_sq": (_I, [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "pcis_edt_max_tile_cap": (_I, []),
     "pcis_particle_fill": (_I, [_P, _P, _P, _P] + [_I] * 10 + [_P]),
     "pcis_particle_fill_fused": (_I, [_P, _P, _P] + [_I] * 10 + [_P]),
     "pcis_fill_max_fused_cap": (_I, []),
-    "pcis_centroid_sums": (_I, [_P, _P, _I, _I, _I, _I, _P]),
-    "pcis_watershed_cost": (_I, [_P] * 6 + [_I] * 5 + [_P]),
-    "pcis_watershed_label": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+    "pcis_centroid_sums": (_I, [_P, _P] + [_I] * 5 + [_P]),
+    "pcis_watershed_cost": (_I, [_P] * 6 + [_I] * 6 + [_P]),
+    "pcis_watershed_label": (_I, [_P] * 10 + [_I] * 6 + [_P]),
     "pcis_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -16,13 +16,14 @@ Files and output lines match the JAX package's verbs byte for byte.
 only); ``--device cpu`` runs the plain PyTorch versions.  ``split`` and
 ``normalize`` run on the host only and take no ``--device``.
 
-``batch`` takes ``--data-parallel N`` and ``--space-parallel M``,
-``analyze`` ``--space-parallel M``, and ``refine`` ``--data-parallel N``
-(with ``--tunnel-basins`` also ``--space-parallel M``): a mesh of N×M
-devices that follows ``--device`` — the first N×M cards from ``cuda`` (or
-from ``cuda:K``), or the CPU named N×M times from ``cpu``.  The space axis
-splits each plane's rows into M bands, one a device; the spatial refine
-(``refine --space-parallel`` without the tunnel) is not ported yet.
+``batch`` and ``refine`` take ``--data-parallel N`` and ``--space-parallel
+M``, and ``analyze`` ``--space-parallel M``: a mesh of N×M devices that
+follows ``--device`` — the first N×M cards from ``cuda`` (or from
+``cuda:K``), or the CPU named N×M times from ``cpu``.  The space axis splits
+each plane's rows into M bands, one a device (``refine --tunnel-basins``
+runs its planes data-parallel over all N×M devices, as the JAX package
+does).  ``batch --pack-transfer``, a relay workaround of the JAX package,
+is refused.
 """
 
 from __future__ import annotations
@@ -162,6 +163,11 @@ def main(argv=None) -> int:
         "--manifest", default=None,
         help="restartable-progress manifest path (skips completed planes)",
     )
+    p.add_argument(
+        "--pack-transfer", action="store_true",
+        help="refused: the JAX package's 4-bit packed transfer is a relay "
+        "workaround that the port drops",
+    )
     p.add_argument("--csv", default=None, help="write per-plane stats CSV here")
     p.add_argument(
         "--fail-fast", action="store_true",
@@ -205,10 +211,9 @@ def main(argv=None) -> int:
     _add_mesh_flags(
         p, "devices on the data mesh axis when refining a stack (planes split "
         "across this many devices; combines with --space-parallel)",
-        "devices on the space mesh axis; only with --tunnel-basins, where "
-        "planes distribute data-parallel over every device of the mesh "
-        "(the spatial refine is not ported, so values above 1 are rejected "
-        "without it)",
+        "devices on the space mesh axis: plane ROWS split into bands across "
+        "this many devices (with --tunnel-basins, planes distribute "
+        "data-parallel over every device of the mesh instead)",
     )
     p.add_argument(
         "--tunnel-basins", action="store_true",
@@ -220,6 +225,10 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     if args.command == "batch":
+        if args.pack_transfer:
+            parser.error("--pack-transfer is not supported: the PyTorch port drops the JAX "
+                         "package's relay workarounds (packed transfers) by its north-star "
+                         "rule; leave the flag out")
         if args.data_parallel and args.batch_size % args.data_parallel != 0:
             parser.error(
                 "--batch-size must be a multiple of --data-parallel "
@@ -229,10 +238,6 @@ def main(argv=None) -> int:
             and args.batch_planes > 1):
         parser.error("--batch-planes batches whole planes per device and cannot "
                      "combine with --space-parallel — pass one or the other")
-    if (args.command == "refine" and args.space_parallel > 1
-            and not args.tunnel_basins):
-        parser.error("--space-parallel > 1 without --tunnel-basins: the spatial refine "
-                     "is not ported yet; use --data-parallel, or add --tunnel-basins")
     if args.command == "analyze":
         return _analyze(args)
     if args.command == "refine":

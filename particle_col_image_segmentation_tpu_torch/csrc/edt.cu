@@ -9,7 +9,11 @@
 // (cap > H included).  The JAX dispatch used its kernel only for cap > 8 on
 // lane-aligned planes; this one serves every cap, so disk dilation (cap 2)
 // rides it too.  With a flag, it also writes 1 there if some d2 > cap^2
-// (the exact transform's certificate, ops/edt_tiles.py), else 0.
+// (the exact transform's certificate, ops/edt_tiles.py), else 0, over the
+// rows [flag_lo, flag_hi) of each plane only: a row band of a plane split
+// over a mesh is transformed with cap halo rows above and below it, whose
+// own distances (rows past the plane's edge are featureless) mean nothing,
+// so only the band's own rows may raise its flag.
 //
 // Bound on this card: memory, 1 B read and 4 B written a pixel.  The
 // capped transform needs no feature further than cap columns or cap rows
@@ -77,7 +81,8 @@ constexpr int kMaxTileCap = max_tile_cap();
 // of pixel pairs (W even, out 8-byte aligned).
 __global__ void __launch_bounds__(kThreads, 5) edt_tile(const uint8_t* __restrict__ feat,
                                                      int* __restrict__ out, int* __restrict__ flag,
-                                                     int H, int W, int cap, bool vec, bool vec2) {
+                                                     int H, int W, int cap, bool vec, bool vec2,
+                                                     int flag_lo, int flag_hi) {
   extern __shared__ __align__(16) unsigned smem[];
   const int e = (cap + 31) / 32, nw = tile_words(cap), nu = 2 * nw;
   const int rows = kOutH + 2 * cap, c1 = cap + 1;
@@ -194,9 +199,10 @@ __global__ void __launch_bounds__(kThreads, 5) edt_tile(const uint8_t* __restric
       if (r >= H || c >= W) continue;
       const int d0 = (int)(best[h] & 0xffffu), d1 = (int)(best[h] >> 16);
       int* px = dst + (long long)r * W + c;
+      const bool counted = r >= flag_lo && r < flag_hi;
       if (c + 1 >= W) {
         *px = d0;
-        deep |= d0 > cap2;
+        deep |= counted && d0 > cap2;
         continue;
       }
       if (vec2) {
@@ -205,21 +211,22 @@ __global__ void __launch_bounds__(kThreads, 5) edt_tile(const uint8_t* __restric
         px[0] = d0;
         px[1] = d1;
       }
-      deep |= max(d0, d1) > cap2;
+      deep |= counted && max(d0, d1) > cap2;
     }
   }
   if (flag != nullptr && __syncthreads_or(deep) && threadIdx.x == 0) *flag = 1;
 }
 
 __global__ void edt_store(const int* __restrict__ dh2, int* __restrict__ out,
-                          int* __restrict__ flag, int H, int W, int cap) {
+                          int* __restrict__ flag, int H, int W, int cap, int flag_lo,
+                          int flag_hi) {
   const long long off = (long long)blockIdx.z * H * W;
   int* dst = out + off;
   bool deep = false;
   const int cap2 = cap * cap;
   auto store = [&](int r, int c, int d2) {
     dst[(long long)r * W + c] = d2;
-    deep |= d2 > cap2;
+    deep |= r >= flag_lo && r < flag_hi && d2 > cap2;
   };
   edt::col_tile(dh2 + off, H, W, cap, store);
   if (flag != nullptr && __syncthreads_or(deep) && threadIdx.x == 0) *flag = 1;
@@ -232,10 +239,12 @@ __global__ void edt_store(const int* __restrict__ dh2, int* __restrict__ out,
 extern "C" int pcis_edt_max_tile_cap() { return kMaxTileCap; }
 
 // scratch: int32 [B, H, W], read only past pcis_edt_max_tile_cap() (may be
-// null below it).  flag: one int32, or null for none.
+// null below it).  flag: one int32, or null for none, raised by the rows
+// [flag_lo, flag_hi) of each plane (0, H for a whole plane).
 extern "C" int pcis_edt_sq(const void* feat, void* out, void* scratch, void* flag, int B,
-                           int H, int W, int cap, void* stream) {
-  if (edt::bad_shape(B, H, W, cap) || (cap > kMaxTileCap && scratch == nullptr))
+                           int H, int W, int cap, int flag_lo, int flag_hi, void* stream) {
+  if (edt::bad_shape(B, H, W, cap) || (cap > kMaxTileCap && scratch == nullptr) ||
+      flag_lo < 0 || flag_lo > flag_hi || flag_hi > H)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
@@ -252,7 +261,8 @@ extern "C" int pcis_edt_sq(const void* feat, void* out, void* scratch, void* fla
     const dim3 grid((unsigned)((W + kOutW - 1) / kOutW), (unsigned)((H + kOutH - 1) / kOutH),
                     (unsigned)B);
     edt_tile<<<grid, kThreads, tile_smem(cap), s>>>((const uint8_t*)feat, (int*)out,
-                                                     (int*)flag, H, W, cap, vec, vec2);
+                                                     (int*)flag, H, W, cap, vec, vec2, flag_lo,
+                                                     flag_hi);
     return (int)cudaGetLastError();
   }
   const long long nrows = (long long)B * H;
@@ -262,6 +272,6 @@ extern "C" int pcis_edt_sq(const void* feat, void* out, void* scratch, void* fla
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   edt_store<<<edt::tile_grid(B, H, W), edt::kWarps * 32, 0, s>>>(
-      dh2, (int*)out, (int*)flag, H, W, cap);
+      dh2, (int*)out, (int*)flag, H, W, cap, flag_lo, flag_hi);
   return (int)cudaGetLastError();
 }

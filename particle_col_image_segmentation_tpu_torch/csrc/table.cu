@@ -19,7 +19,8 @@
 // pixel's row before its digits and extremes are taken: a plane split into
 // row bands over a mesh gives each band's table in the plane's rows (the
 // digit sums need the offset a pixel, since (r + off) >> 7 is not
-// (r >> 7) + (off >> 7) once digits carry).  A whole plane passes 0.  K7 (ops.regionprops.centroid_sums) is
+// (r >> 7) + (off >> 7) once digits carry).  A whole plane passes 0; K7
+// takes the same offset.  K7 (ops.regionprops.centroid_sums) is
 // the first five columns, int32 [5, B, R1]: the table kernel's instance for
 // V = NoValues reads no values and keeps no value sums, class or extremes.
 //
@@ -408,11 +409,12 @@ extern "C" int pcis_region_table(const void* seg, const void* val, int val_is_u8
 }
 
 // K7.  cols: int32 [5, B, R1] (area, sr_hi, sr_lo, sc_hi, sc_lo), zeroed here.
+// row_off as for K5: a row band's sums in the plane's rows.
 extern "C" int pcis_centroid_sums(const void* seg, void* cols, int B, int H, int W, int R1,
-                                  void* stream) {
-  if (bad_shape(B, H, W, R1)) return (int)cudaErrorInvalidValue;
+                                  int row_off, void* stream) {
+  if (bad_shape(B, H, W, R1) || bad_offset(H, row_off)) return (int)cudaErrorInvalidValue;
   const long long n = (long long)B * R1;
   const Out o{(int*)cols, nullptr, nullptr, nullptr, n, R1};
-  return launch<NoValues>((const int*)seg, nullptr, o, B, W, (long long)H * W, 0,
+  return launch<NoValues>((const int*)seg, nullptr, o, B, W, (long long)H * W, row_off,
                           (cudaStream_t)stream);
 }

@@ -19,6 +19,18 @@
 // flags and the markers) and writes every pixel, so the caller allocates
 // the state without filling it.
 //
+// Band mode (the space axis of a mesh, parallel/sharded.py): a plane is a
+// row band with one halo row above and below, copied from the neighbouring
+// bands.  With `resume`, pass 1 reads the state it is given (the band's
+// state after an earlier round) instead of building the starting state,
+// still learns each tile's live bit, and writes only the pixels it changed.
+// A pixel whose flags are 0 (outside the mask: the halo rows carry no
+// flags) is never updatable, so the halo rows are read as neighbours and
+// never written.  Both phases then relax the band to its local fixpoint
+// under the frozen halo rows; that fixpoint is unique (the justification
+// argument of ops/watershed.py with the halo rows as constants), so it
+// equals the plain band version's.
+//
 // Bound on this card: the latency of the tiles the passes run.  A pass reads
 // a tile's state once (about 9 B a pixel for K10 and 21 B for K11) and the
 // number of passes follows the basins' extent in tiles.  A 256-thread block
@@ -60,7 +72,8 @@
 // pass k, i.e. relaxing t against its window (t and its halo) changes
 // nothing.  The window lies inside the neighbourhood, so the window holds in
 // pass k the values it held before the pass (the starting state for pass 1,
-// which pass 1 builds for every window it loads), at every moment of it.
+// which pass 1 builds for every window it loads, or with resume the given
+// state, which no tile of the neighbourhood overwrote), at every moment of it.
 //   - t ran in pass k: it loaded its window during the pass, so it saw those
 //     unchanged values, relaxed them and found no change; relaxation is a
 //     deterministic function of the window, so t is a local fixpoint of them.
@@ -109,6 +122,7 @@ struct Pass {
   int* live;            // [tiles]: 1 if the tile can change (written by pass 1)
   int pass;             // 1, 2, ...
   int B, H, W, TY, TX;  // planes and tiles a plane (TY x TX)
+  bool fresh;           // pass 1 builds the starting state (not resume)
 };
 
 // One tile: its index, plane and origin.
@@ -267,7 +281,7 @@ cost_pass(const float* __restrict__ img, const uint8_t* __restrict__ flags, floa
   __shared__ int s_next;
   const int tid = threadIdx.x, lane = tid & 31, band = tid >> 5;
   const int H = p.H, W = p.W;
-  const bool first = p.pass == 1;
+  const bool first = p.pass == 1, fresh = p.fresh;
   int tiles_run = 0;  // thread 0's count
   // the starting cost of a pixel (pass 1): img at seeds, +INF elsewhere
   auto start = [&](long long g) { return (flags[g] & kSeedBit) ? img[g] : kInf; };
@@ -284,7 +298,7 @@ cost_pass(const float* __restrict__ img, const uint8_t* __restrict__ flags, floa
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const int gy = tile.y0 + band * kRows + r;
-          if (gy < H && gx < W) {
+          if (fresh && gy < H && gx < W) {
             const long long g = tile.off + (long long)gy * W + gx;
             cost[g] = start(g);
           }
@@ -300,7 +314,7 @@ cost_pass(const float* __restrict__ img, const uint8_t* __restrict__ flags, floa
         const int gy = tile.y0 + ly - 1, hx = tile.x0 + lx - 1;
         const long long g = tile.off + (long long)gy * W + hx;
         const bool in = gy >= 0 && gy < H && hx >= 0 && hx < W;
-        s_cost[ly][lx] = !in ? kInf : first ? start(g) : cost[g];
+        s_cost[ly][lx] = !in ? kInf : fresh ? start(g) : cost[g];
       }
     }
     const int top = 1 + band * kRows;
@@ -340,7 +354,7 @@ cost_pass(const float* __restrict__ img, const uint8_t* __restrict__ flags, floa
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int gy = tile.y0 + band * kRows + r;
-      if (gy < H && gx < W && (first || c[r] != c0[r]))
+      if (gy < H && gx < W && (fresh || c[r] != c0[r]))
         cost[tile.off + (long long)gy * W + gx] = c[r];
       mine |= c[r] != c0[r];
     }
@@ -362,7 +376,7 @@ label_pass(const float* __restrict__ cost, const float* __restrict__ img,
   __shared__ int s_next;
   const int tid = threadIdx.x, lane = tid & 31, band = tid >> 5, col = lane + 1;
   const int H = p.H, W = p.W;
-  const bool first = p.pass == 1;
+  const bool first = p.pass == 1, fresh = p.fresh;
   int tiles_run = 0;  // thread 0's count
   // the starting state of a pixel (pass 1): (marker, 0, -INF) at seeds,
   // (BIG, BIG, +INF) elsewhere
@@ -390,7 +404,7 @@ label_pass(const float* __restrict__ cost, const float* __restrict__ img,
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const int gy = tile.y0 + band * kRows + r;
-          if (gy < H && gx < W) {
+          if (fresh && gy < H && gx < W) {
             const long long g = tile.off + (long long)gy * W + gx;
             store(g, start(g));
           }
@@ -407,7 +421,7 @@ label_pass(const float* __restrict__ cost, const float* __restrict__ img,
         const bool in = gy >= 0 && gy < H && hx >= 0 && hx < W;
         const long long g = tile.off + (long long)gy * W + hx;
         const Claim c = !in ? Claim{kBigLab, kBigLab, kInf}
-                            : first ? start(g) : Claim{lab[g], dist[g], eimg[g]};
+                            : fresh ? start(g) : Claim{lab[g], dist[g], eimg[g]};
         s_cost[ly][lx] = in ? cost[g] : kInf;
         s_img[ly][lx] = in ? img[g] : kInf;
         s_lab[0][ly][lx] = c.lab;
@@ -487,7 +501,7 @@ label_pass(const float* __restrict__ cost, const float* __restrict__ img,
       const int gy = tile.y0 + band * kRows + r;
       const bool moved = c[r].lab != c0[r].lab || c[r].dist != c0[r].dist ||
                          c[r].eimg != c0[r].eimg;
-      if (gy < H && gx < W && (first || moved))
+      if (gy < H && gx < W && (fresh || moved))
         store(tile.off + (long long)gy * W + gx, c[r]);
       mine |= moved;
     }
@@ -506,12 +520,13 @@ int check_shape(int B, int H, int W, int connectivity, int pass) {
 
 // The scratch `tiles` (int32, 4 per tile: two lists, stamps, live bits) and
 // the rows cut into one pass's view; pass k reads list k % 2.
-Pass pass_of(const void* prev_row, void* row, void* tiles, int pass, int B, int H, int W) {
+Pass pass_of(const void* prev_row, void* row, void* tiles, int pass, int B, int H, int W,
+             int resume) {
   const int TY = (H + kTile - 1) / kTile, TX = (W + kTile - 1) / kTile;
   const long long n = (long long)B * TY * TX;
   int* s = (int*)tiles;
   return Pass{(const int*)prev_row, (int*)row, s + (pass % 2) * n, s + ((pass + 1) % 2) * n,
-              s + 2 * n, s + 3 * n, pass, B, H, W, TY, TX};
+              s + 2 * n, s + 3 * n, pass, B, H, W, TY, TX, pass == 1 && !resume};
 }
 
 // Pass 1: a block a tile.  Later passes: one wave of resident blocks.
@@ -554,12 +569,15 @@ int grid_of(K kernel, int slot, const Pass& p, int* blocks) {
 // pass's row, whose [B + 1] is the length of this pass's list; pass 1 runs a
 // block a tile and reads no prev_row.  tiles is the
 // phase's int32 scratch, 4 a tile of ceil(H/32) x ceil(W/32) a plane: two
-// lists, stamps (zeroed by the caller before pass 1) and live bits.
+// lists, stamps (zeroed by the caller before pass 1) and live bits.  resume
+// (band mode): pass 1 resumes from the costs in `cost` instead of building
+// the starting costs.
 extern "C" int pcis_watershed_cost(const void* img, const void* flags, void* cost,
                                    const void* prev_row, void* row, void* tiles, int pass,
-                                   int B, int H, int W, int connectivity, void* stream) {
+                                   int B, int H, int W, int connectivity, int resume,
+                                   void* stream) {
   if (int e = check_shape(B, H, W, connectivity, pass)) return e;
-  const Pass p = pass_of(prev_row, row, tiles, pass, B, H, W);
+  const Pass p = pass_of(prev_row, row, tiles, pass, B, H, W, resume);
   auto* k = connectivity == 2 ? cost_pass<2> : cost_pass<1>;
   int blocks = 0;
   if (int e = grid_of(k, connectivity - 1, p, &blocks)) return e;
@@ -570,13 +588,15 @@ extern "C" int pcis_watershed_cost(const void* img, const void* flags, void* cos
 
 // One phase-2 pass: (lab, dist, eimg) relaxed in place against the converged
 // phase-1 cost (pass 1 builds the starting state from flags and the int32
-// markers and writes it); rows and scratch as for K10.
+// markers and writes it, or with resume reads the given state; markers is
+// then not read and may be null); rows and scratch as for K10.
 extern "C" int pcis_watershed_label(const void* cost, const void* img, const void* flags,
                                     const void* markers, void* lab, void* dist, void* eimg,
                                     const void* prev_row, void* row, void* tiles, int pass,
-                                    int B, int H, int W, int connectivity, void* stream) {
+                                    int B, int H, int W, int connectivity, int resume,
+                                    void* stream) {
   if (int e = check_shape(B, H, W, connectivity, pass)) return e;
-  const Pass p = pass_of(prev_row, row, tiles, pass, B, H, W);
+  const Pass p = pass_of(prev_row, row, tiles, pass, B, H, W, resume);
   auto* k = connectivity == 2 ? label_pass<2> : label_pass<1>;
   int blocks = 0;
   if (int e = grid_of(k, connectivity + 1, p, &blocks)) return e;

@@ -18,6 +18,7 @@ from typing import Callable, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
+from particle_col_image_segmentation_tpu_torch._relay import refuse_relay_arg
 from particle_col_image_segmentation_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("loader")
@@ -77,10 +78,14 @@ def batched_device_iterator(
     load_fn: Callable[[str], np.ndarray],
     paths: Sequence[str],
     batch_size: int,
-    devices: Sequence[torch.device],
     num_workers: int = 4,
+    sharding=None,
+    pad_to_full: bool = True,
+    pack: bool = False,
     on_error: str = "raise",
     with_paths: bool = False,
+    *,
+    devices: Sequence[torch.device] = ("cuda",),
     n_space: int = 1,
 ) -> Iterator[tuple]:
     """Yield (chunks, count) with decode + transfer pipelined: ``chunks``
@@ -100,7 +105,15 @@ def batched_device_iterator(
 
     A yielded CUDA chunk is ready for use on the consumer's current
     stream of its device (which waits for the copy) and is owned by it.
+
+    The arguments bind in the JAX package's order, ``devices`` (default the
+    card, ``cuda``) and ``n_space`` after them by keyword; ``sharding``,
+    ``pad_to_full`` and ``pack`` are its relay arguments, and only their
+    defaults bind (every batch is padded to full).
     """
+    refuse_relay_arg("batched_device_iterator", "sharding", sharding, None)
+    refuse_relay_arg("batched_device_iterator", "pad_to_full", pad_to_full, True)
+    refuse_relay_arg("batched_device_iterator", "pack", pack, False)
     if on_error not in ("raise", "skip"):
         raise ValueError(f"on_error must be 'raise' or 'skip', got {on_error!r}")
     if on_error == "skip" and not with_paths:

@@ -18,6 +18,7 @@ from typing import Callable, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
+from particle_col_image_segmentation_tpu_torch._relay import refuse_relay_arg
 from particle_col_image_segmentation_tpu_torch.config import DEFAULT_CONFIG, AnalysisConfig
 from particle_col_image_segmentation_tpu_torch.labels import classmaps
 from particle_col_image_segmentation_tpu_torch.utils.logging import get_logger
@@ -93,13 +94,16 @@ def fused_segment_batch(
     cfg: AnalysisConfig,
     particle_val: int = 2,
     cell_vals: Tuple[int, ...] = (1,),
+    packed: bool = False,
 ):
     """[B,H,W] uint8 → (seg [B,H,W], num [B], area-table [B,R+1],
     class-table [B,R+1], particle_px [B], cell_px [B], class_px
     [B,num_classes], converged [B]); int32 but ``converged`` (bool).
 
     CUDA tensors run the kernels K1-K4, CPU tensors their plain versions.
+    ``packed`` (nibble-packed input) is a relay argument: only False binds.
     """
+    refuse_relay_arg("fused_segment_batch", "packed", packed, False)
     den = median_label_filter_auto(imgs, cfg.denoise_size, cfg.num_classes)
     raw, conv_ccl = connected_components_auto(
         den, background=None, num_classes=cfg.num_classes, with_flag=True,
@@ -116,14 +120,17 @@ def fused_segment_batch(
     return seg, num, areas, classes, particle_px, cell_px, class_px, converged
 
 
-def make_fused_segment_fn(mesh, cfg: AnalysisConfig, particle_val: int = 2, cell_vals=(1,)):
+def make_fused_segment_fn(mesh, cfg: AnalysisConfig, particle_val: int = 2, cell_vals=(1,),
+                          packed: bool = False):
     """Data-parallel fused pass over ``mesh``'s data axis: a callable that
     takes one [b,H,W] chunk a device (in mesh order, each on its device) and
     returns ``fused_segment_batch``'s outputs for each, in the same order.
 
     Planes are independent, so each device runs the whole per-plane pipeline
     on its chunk with no communication (the JAX package's ``shard_map`` over
-    "data"), one worker thread a device (``parallel.run_per_device``)."""
+    "data"), one worker thread a device (``parallel.run_per_device``).
+    ``packed`` is a relay argument: only False binds."""
+    refuse_relay_arg("make_fused_segment_fn", "packed", packed, False)
     if mesh.shape[SPACE_AXIS] > 1:
         raise ValueError(
             f"make_fused_segment_fn runs whole planes: a mesh with a space axis "
@@ -215,14 +222,16 @@ def run_batch(
     paths: Sequence[str],
     load_fn: Callable[[str], np.ndarray],
     cfg: AnalysisConfig = DEFAULT_CONFIG,
-    *,
-    device: torch.device = "cuda",
     batch_size: int = 4,
     particle_val: int = 2,
     cell_vals: Tuple[int, ...] = (1,),
     manifest=None,
-    on_error: str = "skip",
+    sharding=None,
     mesh=None,
+    pack_transfer: bool = False,
+    on_error: str = "skip",
+    *,
+    device: torch.device = "cuda",
 ) -> Iterator[Tuple[str, PlaneStats]]:
     """Stream per-plane stats for every path on ``device`` (default the
     card, ``cuda``; ``"cpu"`` runs the plain versions); skips
@@ -243,7 +252,13 @@ def run_batch(
     marked done, so a resume (after fixing the file) retries exactly those;
     callers without a manifest should diff the yielded paths against their
     input (or pass ``on_error="raise"`` to fail fast).
+
+    The arguments bind in the JAX package's order; ``sharding`` and
+    ``pack_transfer`` are its relay arguments, and only their defaults
+    bind.
     """
+    refuse_relay_arg("run_batch", "sharding", sharding, None)
+    refuse_relay_arg("run_batch", "pack_transfer", pack_transfer, False)
     todo = [p for p in paths if manifest is None or not manifest.is_done(p)]
     if len(todo) < len(paths):
         _log.info("manifest: skipping %d completed planes", len(paths) - len(todo))
@@ -269,7 +284,7 @@ def run_batch(
     )
     for chunks, count, batch_paths in it:
         H, W = chunks[0].shape[-2] * n_space, chunks[0].shape[-1]
-        with stage("fused_segment", devices[0], megapixels=count * H * W / 1e6):
+        with stage("fused_segment", device=devices[0], megapixels=count * H * W / 1e6):
             outs = segment_fn(chunks)
             for d in others:
                 torch.cuda.current_stream(d).synchronize()

@@ -69,11 +69,11 @@ def process_h5_folder(
     h5_files: List[str],
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     make_figures: bool = True,
-    *,
-    device,
-    device_outs: Optional["_BatchedDeviceOuts"] = None,
-    load_fn: LoadFn = load_h5_plane,
     mesh=None,
+    device_outs: Optional["_BatchedDeviceOuts"] = None,
+    *,
+    device="cuda",
+    load_fn: LoadFn = load_h5_plane,
 ) -> None:
     """Dispatch single vs multi-channel (reference :85-89).  ``device_outs``
     provides precomputed ``(PlaneDeviceOut, ds_arr)`` pairs from a batched
@@ -103,11 +103,11 @@ def process_single_h5_file(
     file_path: str,
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     make_figures: bool = True,
-    *,
-    device,
-    device_outs: Optional["_BatchedDeviceOuts"] = None,
-    load_fn: LoadFn = load_h5_plane,
     mesh=None,
+    device_outs: Optional["_BatchedDeviceOuts"] = None,
+    *,
+    device="cuda",
+    load_fn: LoadFn = load_h5_plane,
 ) -> PlaneAnalysis:
     """Single-file flow (reference :627-671)."""
     full_file_path = os.path.join(cur_folder, file_path)
@@ -119,7 +119,7 @@ def process_single_h5_file(
 
     cell_types = classmaps.get_cell_type_map(file_path)
     ds_arr, device_out = _load_or_precomputed(full_file_path, cfg, device_outs, load_fn)
-    with stage("analyze_plane", device):
+    with stage("analyze_plane", device=device):
         res = analyze_plane(ds_arr, cell_types, cfg, merged=True,
                             device_out=device_out, device=device, mesh=mesh)
 
@@ -164,11 +164,11 @@ def process_multiple_h5_files(
     h5_files: List[str],
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     make_figures: bool = True,
-    *,
-    device,
-    device_outs: Optional["_BatchedDeviceOuts"] = None,
-    load_fn: LoadFn = load_h5_plane,
     mesh=None,
+    device_outs: Optional["_BatchedDeviceOuts"] = None,
+    *,
+    device="cuda",
+    load_fn: LoadFn = load_h5_plane,
 ) -> Dict[str, PlaneAnalysis]:
     """Multi-channel fusion flow (reference :92-222)."""
     density_path, cell_pos_path = get_pos_and_density_file_names(cur_folder)
@@ -194,7 +194,7 @@ def process_multiple_h5_files(
         ds_arr, device_out = _load_or_precomputed(
             full_file_path, cfg, device_outs, load_fn
         )
-        with stage("analyze_plane", device):
+        with stage("analyze_plane", device=device):
             res = analyze_plane(ds_arr, cell_types, cfg, merged=False,
                                 device_out=device_out, device=device, mesh=mesh)
         results[channel] = res
@@ -316,7 +316,7 @@ def process_multiple_h5_files(
             f"{e.args[0]!r} needed by the fused analysis "
             f"(have: {sorted(channel_ds_arrs)})"
         ) from e
-    with stage("analyze_plane_fused", device):
+    with stage("analyze_plane_fused", device=device):
         fused_res = analyze_plane(
             fused_dev, BASE_TYPE_MAP, cfg, merged=True, denoise=False, mesh=mesh,
         )
@@ -428,7 +428,7 @@ class _BatchedDeviceOuts:
             if len(sfps) == 1:
                 continue  # odd-shaped straggler: the folder flow runs it
             stack = torch.from_numpy(np.stack([arrs[fp] for fp in sfps])).to(self._device)
-            with stage("analyze_planes_batch", self._device):
+            with stage("analyze_planes_batch", device=self._device):
                 out = analyze_planes_device(stack, ct, self._cfg, compute_merge=merged)
             for b, fp in enumerate(sfps):
                 self._ready[fp] = (split_plane_device_out(out, b), arrs[fp])
@@ -453,11 +453,11 @@ def run_analysis(
     top_level_folder: str,
     cfg: AnalysisConfig = DEFAULT_CONFIG,
     make_figures: bool = True,
+    mesh=None,
+    batch_planes: int = 1,
     *,
     device="cuda",
-    batch_planes: int = 1,
     load_fn: LoadFn = load_h5_plane,
-    mesh=None,
 ) -> None:
     """Top-level entry point (reference main, :1126-1134) on one torch ``device``
     (default the card, ``cuda``; ``"cpu"`` runs the plain versions).

@@ -15,12 +15,14 @@ plane's result equals its single-plane run.
 basins and a plain PyTorch phase 2 in place of K11, bounded by
 ``watershed_max_iters`` steps.
 
-``refine_boundaries_sharded`` runs a stack over a mesh's data axis: plane
-chunks run ``refine_plane_device`` on their own devices, one worker thread a
-device, and each plane's result equals ``refine_boundaries_stack``'s.  With
+``refine_boundaries_sharded`` runs a stack over a mesh.  On a data axis
+alone, plane chunks run ``refine_plane_device`` on their own devices, one
+worker thread a device.  A space axis splits each plane's rows into bands,
+one a device (``parallel.sharded.make_sharded_refine_fn``: K9's windowed
+probe, K2/K3/K6 and a host seam join for the maxima and markers, K10/K11's
+band modes coupled by halo rows, K7 in the plane's rows).  With
 ``tunnel_basins`` the chunks go to every device of the mesh, as in the JAX
-package.  The space axis without the tunnel (rows sharded across devices,
-halo-exchanged fixpoints) is not ported.
+package.  Each plane's result equals ``refine_boundaries_stack``'s.
 """
 
 from __future__ import annotations
@@ -47,14 +49,16 @@ from particle_col_image_segmentation_tpu_torch.ops.pairwise import (
     min_dist_to_set,
     nearest_neighbor_dists,
 )
-from particle_col_image_segmentation_tpu_torch.ops.regionprops import centroids_f64
+from particle_col_image_segmentation_tpu_torch.ops.regionprops import CentroidTable, centroids_f64
 from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import centroid_sums_auto
 from particle_col_image_segmentation_tpu_torch.ops.watershed import watershed_auto
 from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     SPACE_AXIS,
     make_mesh,
     run_per_device,
 )
+from particle_col_image_segmentation_tpu_torch.parallel.sharded import make_sharded_refine_fn
 
 __all__ = [
     "RefineResult",
@@ -234,22 +238,28 @@ def refine_boundaries_sharded(probabilities: np.ndarray, cfg: RefineConfig = Ref
                               stack: "bool | None" = None) -> List[RefineResult]:
     """Refine over a device mesh (default: every CUDA card on the data axis,
     ``parallel.make_mesh()``); the CLI's ``refine --data-parallel`` and
-    ``--space-parallel --tunnel-basins``.
+    ``--space-parallel``.
 
     ``stack`` selects the input interpretation exactly like the CLI flag:
     False → a single plane ([H,W] / [C,H,W] / [H,W,C], refine_boundaries
     semantics, returned as a 1-element list); True → a z-stack ([Z,H,W] /
     [Z,C,H,W] / [Z,H,W,C], refine_boundaries_stack semantics); None
-    (default) → stack iff 4-D.  Z is padded to a multiple of the device
-    count by repeating the last plane (padding results are dropped), and
-    each device refines its contiguous chunk of planes.  The EDT is always
-    exact on this path (``cfg.edt_cap`` does not apply).  Per-plane results
-    equal ``refine_boundaries_stack``'s.
+    (default) → stack iff 4-D.  The EDT is always exact on this path
+    (``cfg.edt_cap`` does not apply).  Per-plane results equal
+    ``refine_boundaries_stack``'s.
+
+    On a data axis alone, Z is padded to a multiple of the device count by
+    repeating the last plane (padding results are dropped), and each device
+    refines its contiguous chunk of planes.  A space axis larger than 1
+    splits each plane's rows into bands, one a device (the plane height
+    must be a multiple of it), with Z padded to a multiple of the data
+    axis: ``make_sharded_refine_fn``, whose watershed counts
+    ``cfg.watershed_max_iters`` rounds of band fixpoints (and as many passes
+    a band a round); a plane that does not converge raises.
 
     ``cfg.tunnel_basins`` runs data-parallel over ALL mesh devices, whatever
     the space axis (each plane floods on one device; see
-    ``_check_tunnel_chunk_fits``).  Without it a space axis larger than 1
-    raises: the halo-exchanged spatial refine is not ported.
+    ``_check_tunnel_chunk_fits``).
     """
     probs = np.asarray(probabilities)
     if stack is None:
@@ -266,13 +276,32 @@ def refine_boundaries_sharded(probabilities: np.ndarray, cfg: RefineConfig = Ref
         # data-parallel to every device of the mesh, each flooding on one
         return _refine_data_parallel(arr, cfg, max_regions, list(mesh.flat), check_fits=True)
     if mesh.shape[SPACE_AXIS] > 1:
-        raise NotImplementedError(
-            f"refine_boundaries_sharded: the space axis (n_space = {mesh.shape[SPACE_AXIS]}) "
-            "without tunnel_basins is not ported to PyTorch yet (ROADMAP.md, Queue 1 "
-            "item 3 (b): the spatial refine); use a data-axis mesh"
-        )
+        return _refine_space_parallel(arr, cfg, max_regions, mesh)
     return _refine_data_parallel(arr, dataclasses.replace(cfg, edt_cap=None), max_regions,
                                  list(mesh.flat), check_fits=False)
+
+
+def _refine_space_parallel(arr: np.ndarray, cfg: RefineConfig, max_regions: int,
+                           mesh) -> List[RefineResult]:
+    """Planes ``arr`` [Z,H,W] through ``make_sharded_refine_fn`` on
+    ``mesh`` (Z padded to a multiple of the data axis by repeating the
+    last plane, results dropped); the CSV's areas and centroids come from
+    the sharded centroid sums."""
+    n_data = mesh.shape[DATA_AXIS]
+    Z = arr.shape[0]
+    pad = (-Z) % n_data
+    if pad:
+        arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
+    fn = make_sharded_refine_fn(
+        mesh, threshold=cfg.boundary_threshold, max_regions=max_regions,
+        max_iters=cfg.watershed_max_iters, with_tables=True, probe_cap=cfg.edt_probe_cap,
+    )
+    labels, _, num, converged, sums = fn(np.asarray(arr, np.float32))
+    _check_stack_converged(converged.cpu().numpy()[:Z])
+    cols = sums.cpu().numpy()[:Z]
+    table = CentroidTable(*(cols[..., i] for i in range(5)))
+    return _assemble_stack_results(labels.cpu().numpy()[:Z], num.cpu().numpy()[:Z], table,
+                                   max_regions, mesh.flat[0])
 
 
 def _refine_data_parallel(arr: np.ndarray, cfg: RefineConfig, max_regions: int, devices,
@@ -335,8 +364,7 @@ def _check_tunnel_chunk_fits(plane_shape, planes_per_device, device) -> None:
             f"(~{limit / 1e9:.1f} GB); the tunneled claim key runs single-"
             "device only.  Alternatives: (a) untunneled sharded refine "
             "(tunnel_basins=False — rows shard across the mesh; the default "
-            "key is >=0.99 IoU in the pipeline regime; the JAX package has it, "
-            "this port not yet), or (b) tile the "
+            "key is >=0.99 IoU in the pipeline regime), or (b) tile the "
             "plane and refine tiles independently if its basins are local."
         )
 
@@ -372,7 +400,7 @@ def write_refine_csv(result: RefineResult, path: str) -> None:
 
 
 def cross_strain_distances(a_centroids: np.ndarray, b_centroids: np.ndarray,
-                           *, device) -> Dict[str, np.ndarray]:
+                           *, device="cuda") -> Dict[str, np.ndarray]:
     """Goal (3b) of the reference docstring: each cell's distance to the
     nearest cell of the *other* strain, both directions."""
     a = torch.as_tensor(np.asarray(a_centroids, np.float32), device=torch.device(device))

@@ -87,8 +87,9 @@ def analyze_plane(
     merged: bool = False,
     denoise: bool = True,
     device_out: Optional[PlaneDeviceOut] = None,
-    device=None,
     mesh=None,
+    *,
+    device=None,
 ) -> PlaneAnalysis:
     """Analyze one raw label plane end-to-end.
 

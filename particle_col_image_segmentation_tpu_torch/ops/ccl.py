@@ -161,12 +161,15 @@ def compact_labels(raw: torch.Tensor, max_regions: int):
 
 
 def compact_labels_auto(
-    raw: torch.Tensor, max_regions: int, with_flag: bool = False
+    raw: torch.Tensor, max_regions: int, val: Optional[torch.Tensor] = None,
+    with_flag: bool = False, max_sweeps: int = 16,
 ):
     """K3 for a CUDA tensor, the plain compaction for a CPU tensor.
 
     ``with_flag=True`` appends a per-plane ``converged`` bool; both paths are
-    one pass and always converged."""
+    one pass and always converged.  ``val`` and ``max_sweeps`` are the JAX
+    package's knobs of its TPU band sweeps, accepted and not read."""
+    del val, max_sweeps
     if use_kernel(raw):
         seg, num = compact_labels_cuda(raw, max_regions)
     else:
@@ -183,10 +186,13 @@ def connected_components_auto(
     num_classes: int = 8,
     with_flag: bool = False,
     max_iters: int = 64,
+    max_sweeps: int = 16,
 ):
     """K2 for a CUDA tensor, the plain fixpoint for a CPU tensor; identical
     labels.  ``with_flag=True`` appends a per-plane ``converged`` bool
-    (always True for the kernel, which is not iterative)."""
+    (always True for the kernel, which is not iterative).  ``max_sweeps``
+    is the JAX package's TPU band-sweep budget, accepted and not read."""
+    del max_sweeps
     if use_kernel(img):
         return ccl_cuda(
             img, background=background, connectivity=connectivity,

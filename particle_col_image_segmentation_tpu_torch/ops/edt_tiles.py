@@ -48,18 +48,29 @@ def max_tile_cap() -> int:
     return _kernels.library().pcis_edt_max_tile_cap()
 
 
-def edt_sq_cuda(feature: torch.Tensor, cap: int, with_flag: bool = False):
+def _flag_rows(flag_rows, H: int):
+    lo, hi = (0, H) if flag_rows is None else flag_rows
+    if not 0 <= lo <= hi <= H:
+        raise ValueError(f"flag_rows {flag_rows} is not a row window of {H} rows")
+    return lo, hi
+
+
+def edt_sq_cuda(feature: torch.Tensor, cap: int, with_flag: bool = False, flag_rows=None):
     """K9 on a contiguous CUDA bool/uint8 [..., H, W] stack (nonzero =
     feature) → int32 squared distances, exact up to ``cap``, in
     (cap², (cap+1)²] past it.  Any H, W ≥ 1 and any cap in [0, MAX_CAP], cap > H
     included.  With ``with_flag``, returns (distances, flag): an int32 [1]
     on the card, nonzero iff some distance exceeds cap², written by the
-    kernel itself (``edt_sq_cuda.last_route`` says which route ran)."""
+    kernel itself (``edt_sq_cuda.last_route`` says which route ran).
+    ``flag_rows=(lo, hi)`` lets only the rows [lo, hi) of each plane raise
+    the flag: a row band transformed with halo rows around it (K9's band
+    mode)."""
     _kernels.require_cuda("edt_sq_cuda", feature)
     if feature.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"edt_sq_cuda: expected bool or uint8 features, got {feature.dtype}")
     check_cap("edt_sq_cuda", cap)
     B, H, W = as_planes("edt_sq_cuda", feature)
+    lo, hi = _flag_rows(flag_rows, H)
     out = torch.empty(feature.shape, dtype=torch.int32, device=feature.device)
     tiled = cap <= max_tile_cap()
     scratch = None if tiled else torch.empty_like(out)  # row-pass distances
@@ -68,7 +79,7 @@ def edt_sq_cuda(feature: torch.Tensor, cap: int, with_flag: bool = False):
     with torch.cuda.device(feature.device):
         err = lib.pcis_edt_sq(
             feature.data_ptr(), out.data_ptr(), None if tiled else scratch.data_ptr(),
-            None if flag is None else flag.data_ptr(), B, H, W, cap,
+            None if flag is None else flag.data_ptr(), B, H, W, cap, lo, hi,
             _kernels.stream_of(feature),
         )
     _kernels.check(err, "edt_sq_cuda")
@@ -81,15 +92,19 @@ edt_sq_cuda.launches = 0
 edt_sq_cuda.last_route = None
 
 
-def edt_sq_auto(feature: torch.Tensor, cap: int, with_flag: bool = False):
+def edt_sq_auto(feature: torch.Tensor, cap: int, with_flag: bool = False, flag_rows=None):
     """K9 for a CUDA tensor, whatever the cap; the plain transform for a CPU
     tensor.  The values are the same either way.  With ``with_flag``,
-    returns (distances, flag), the flag nonzero iff some distance exceeds
-    cap² (K9 writes it on the card)."""
+    returns (distances, flag), the flag nonzero iff some distance of the
+    rows ``flag_rows`` (default every row) exceeds cap² (K9 writes it on
+    the card)."""
     if use_kernel(feature):
-        return edt_sq_cuda(feature, cap, with_flag=with_flag)
+        return edt_sq_cuda(feature, cap, with_flag=with_flag, flag_rows=flag_rows)
     out = edt_sq(feature, cap)
-    return (out, (out > cap * cap).any()) if with_flag else out
+    if not with_flag:
+        return out
+    lo, hi = _flag_rows(flag_rows, out.shape[-2])
+    return out, (out[..., lo:hi, :] > cap * cap).any()
 
 
 def edt_sq_exact_auto(feature: torch.Tensor, probe_cap: int = 32,

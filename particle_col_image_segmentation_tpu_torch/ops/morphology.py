@@ -153,10 +153,13 @@ def _local_maxima_ccl(img: torch.Tensor, connectivity: int) -> torch.Tensor:
 
 
 def local_maxima_auto(img: torch.Tensor, connectivity: int = 2, max_iters: int = 256,
-                      with_flag: bool = False):
+                      with_flag: bool = False, max_sweeps: int = 16):
     """K2 for a CUDA tensor (uint8 or int32 values; other types raise), the
     plain fixpoint for a CPU tensor; the same maxima.  With ``with_flag``
-    the kernel path reports every plane converged: it is not iterative."""
+    the kernel path reports every plane converged: it is not iterative.
+    ``max_sweeps`` is the JAX package's TPU band-sweep budget, accepted and
+    not read."""
+    del max_sweeps
     if use_kernel(img):
         if img.dtype not in (torch.uint8, torch.int32):
             raise ValueError(

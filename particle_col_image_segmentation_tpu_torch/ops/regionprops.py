@@ -199,11 +199,13 @@ def _pixel_digits(B: int, H: int, W: int, device, row_offset: int = 0):
     return (rows // HILO_BASE, rows % HILO_BASE, cols // HILO_BASE, cols % HILO_BASE)
 
 
-def centroid_sums(seg: torch.Tensor, max_regions: int) -> CentroidTable:
+def centroid_sums(seg: torch.Tensor, max_regions: int, row_offset: int = 0) -> CentroidTable:
     """CentroidTable of compact ids ``seg`` [..., H, W] (0 = background),
     batched over any leading axes — the plain version of kernel K7.  Each
     digit column is summed on its own, as in ``region_props``; ids outside
-    [0, R+1) are dropped."""
+    [0, R+1) are dropped.  ``row_offset`` is the plane row of ``seg``'s
+    first row, as in ``region_props``: a row band's sums in the plane's
+    rows."""
     R1 = max_regions + 1
     H, W = seg.shape[-2:]
     lead = seg.shape[:-2]
@@ -213,7 +215,7 @@ def centroid_sums(seg: torch.Tensor, max_regions: int) -> CentroidTable:
     n = B * R1
     area = _binned_sum(bins, torch.ones_like(bins), n)
     sr_hi, sr_lo, sc_hi, sc_lo = (
-        _binned_sum(bins, d, n) for d in _pixel_digits(B, H, W, seg.device)
+        _binned_sum(bins, d, n) for d in _pixel_digits(B, H, W, seg.device, row_offset)
     )
 
     def shaped(t):

@@ -168,10 +168,12 @@ region_table_cuda.launches = 0
 
 
 def region_props_auto(
-    seg: torch.Tensor, img: torch.Tensor, max_regions: int, row_offset: int = 0,
-    with_sums: bool = False,
+    seg: torch.Tensor, img: torch.Tensor, max_regions: int, val_bound: Optional[int] = None,
+    row_offset: int = 0, with_sums: bool = False,
 ):
-    """K5 for CUDA tensors, the plain table for CPU tensors."""
+    """K5 for CUDA tensors, the plain table for CPU tensors.  ``val_bound``
+    is the JAX package's MXU channel knob, accepted and not read."""
+    del val_bound
     if use_kernel(seg, img):
         return region_table_cuda(seg, img, max_regions, row_offset, with_sums)
     return region_props(seg, img, max_regions, row_offset, with_sums)
@@ -241,9 +243,10 @@ def table_lookup_auto(seg: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table_lookup(seg, table)
 
 
-def centroid_sums_cuda(seg: torch.Tensor, max_regions: int) -> CentroidTable:
-    """K7: the CentroidTable of contiguous CUDA int32 ids, [H,W] or [B,H,W].
-    Equal to ``ops.regionprops.centroid_sums`` on every row."""
+def centroid_sums_cuda(seg: torch.Tensor, max_regions: int, row_offset: int = 0) -> CentroidTable:
+    """K7: the CentroidTable of contiguous CUDA int32 ids, [H,W] or [B,H,W],
+    rows counted from ``row_offset`` (K7's band mode).  Equal to
+    ``ops.regionprops.centroid_sums`` on every row."""
     _kernels.require_cuda("centroid_sums_cuda", seg)
     if seg.dtype != torch.int32:
         raise ValueError(f"centroid_sums_cuda: expected int32 ids, got {seg.dtype}")
@@ -251,7 +254,8 @@ def centroid_sums_cuda(seg: torch.Tensor, max_regions: int) -> CentroidTable:
         raise ValueError(
             f"centroid_sums_cuda: expected non-empty [H,W] or [B,H,W] ids, got {tuple(seg.shape)}"
         )
-    if seg.shape[-2] * seg.shape[-1] >= 2**31 or not 0 <= max_regions < 2**31 - 1:
+    if (seg.shape[-2] * seg.shape[-1] >= 2**31 or not 0 <= max_regions < 2**31 - 1
+            or not 0 <= row_offset < 2**31 - seg.shape[-2]):
         raise ValueError("centroid_sums_cuda: sizes exceed int32 indices")
     B = seg.shape[0] if seg.ndim == 3 else 1
     H, W = seg.shape[-2:]
@@ -261,7 +265,7 @@ def centroid_sums_cuda(seg: torch.Tensor, max_regions: int) -> CentroidTable:
     lib = _kernels.library()
     with torch.cuda.device(seg.device):
         err = lib.pcis_centroid_sums(
-            seg.data_ptr(), cols.data_ptr(), B, H, W, R1, _kernels.stream_of(seg),
+            seg.data_ptr(), cols.data_ptr(), B, H, W, R1, row_offset, _kernels.stream_of(seg),
         )
     _kernels.check(err, "centroid_sums_cuda")
     _kernels.count_launch(centroid_sums_cuda)
@@ -272,8 +276,9 @@ def centroid_sums_cuda(seg: torch.Tensor, max_regions: int) -> CentroidTable:
 centroid_sums_cuda.launches = 0
 
 
-def centroid_sums_auto(seg: torch.Tensor, max_regions: int) -> CentroidTable:
-    """K7 for a CUDA tensor, the plain table for a CPU tensor."""
+def centroid_sums_auto(seg: torch.Tensor, max_regions: int, row_offset: int = 0) -> CentroidTable:
+    """K7 for a CUDA tensor, the plain table for a CPU tensor; rows counted
+    from ``row_offset``."""
     if use_kernel(seg):
-        return centroid_sums_cuda(seg, max_regions)
-    return centroid_sums(seg, max_regions)
+        return centroid_sums_cuda(seg, max_regions, row_offset)
+    return centroid_sums(seg, max_regions, row_offset)

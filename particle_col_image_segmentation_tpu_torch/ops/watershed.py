@@ -40,6 +40,9 @@ from particle_col_image_segmentation_tpu_torch.ops.ccl import connected_componen
 from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
     _BIG_LAB,
     _INF,
+    PhaseLog,
+    claim_labels_band_cuda,
+    minimax_costs_band_cuda,
     minimax_costs_cuda,
     watershed_cuda,
 )
@@ -47,6 +50,8 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
 __all__ = [
     "watershed", "watershed_auto", "minimax_costs", "claim_labels",
     "claim_candidates", "fold_claim", "basin_segments",
+    "minimax_costs_band", "claim_labels_band", "minimax_costs_band_auto",
+    "claim_labels_band_auto",
 ]
 
 
@@ -68,14 +73,23 @@ def _shifted(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     return out
 
 
-def claim_candidates(cost, img, lab, dist, eimg, dy, dx, *, inc=1, seg=None):
+def claim_candidates(cost, img, lab, dist, eimg, dy, dx, shifted=None, inc=1, seg=None):
     """The phase-2 claim of the neighbour at offset (−dy, −dx) of every pixel,
     as (level distance, entry img, claimer img, label); (BIG, INF, INF, BIG)
     where that edge is not optimal or the neighbour holds no label.
 
     ``inc`` is the level distance a hop adds: 1 on the pixel graph, the
     int32 ``at_level`` plane on the basins' quotient graph.  ``seg`` (the
-    quotient graph's segment ids) keeps only edges between segments."""
+    quotient graph's segment ids) keeps only edges between segments.
+
+    The JAX package takes a ``shifted`` callback here, one for each of its
+    schedules; the port's schedules all read neighbours through this
+    module's own shift, so ``shifted`` holds JAX's slot and only None binds."""
+    if shifted is not None:
+        raise ValueError(
+            "claim_candidates: the port takes no shifted callback (its neighbour "
+            "view is ops.watershed's own shift); pass shifted=None"
+        )
     nc = _shifted(cost, dy, dx, _INF)
     nim = _shifted(img, dy, dx, _INF)
     nl = _shifted(lab, dy, dx, _BIG_LAB)
@@ -251,6 +265,99 @@ def _tunnelled_phase2(cost, c_changed, img, lab0, m, seeded, connectivity, max_i
     return out
 
 
+def _own_rows(x: torch.Tensor) -> torch.Tensor:
+    """bool [..., h+2, W]: True on a band's own rows 1..h."""
+    own = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    own[..., 0, :] = False
+    own[..., -1, :] = False
+    return own
+
+
+def _band_edges(state, before) -> torch.Tensor:
+    H = state.shape[-2]
+    return (state[..., [1, H - 2], :] != before).flatten(-2).any(-1)
+
+
+def _band_log(steps: int) -> PhaseLog:
+    """The plain loop's steps as a PhaseLog (a step a pass, a sync a step)."""
+    return PhaseLog(steps, steps, steps, ())
+
+
+def minimax_costs_band(img, m, seeded, cost, connectivity: int = 1, max_iters: int = 1024):
+    """Phase 1 on a row band of a plane (plain Jacobi): [..., h+2, W]
+    ``img``, bool ``m`` and ``seeded`` and the float32 ``cost`` to resume
+    from, whose rows 0 and h+1 are frozen halo rows (the neighbouring bands'
+    rows, or ``_INF`` past the plane's edge: read, never written).  Relaxes
+    the band's own rows to their local fixpoint under the halo rows, at most
+    ``max_iters`` steps.  Returns (cost, per-plane bool still changing,
+    per-plane bool whether the first or last own row changed, PhaseLog)."""
+    upd = m & ~seeded & _own_rows(cost)
+    before = cost[..., [1, cost.shape[-2] - 2], :]
+    changed = torch.ones(cost.shape[:-2], dtype=torch.bool, device=cost.device)
+    i = 0
+    while i < max_iters and bool(changed.any()):
+        best = cost
+        for dy, dx in _offsets(connectivity):
+            best = torch.minimum(best, torch.maximum(_shifted(cost, dy, dx, _INF), img))
+        new = torch.where(upd, best, cost)
+        changed = (new != cost).flatten(-2).any(-1)
+        cost = new
+        i += 1
+    return cost, changed, _band_edges(cost, before), _band_log(i)
+
+
+def claim_labels_band(cost, img, m, seeded, lab, dist, eimg, connectivity: int = 1,
+                      max_iters: int = 1024):
+    """Phase 2 on a row band (plain Jacobi): resume the claims (``lab``,
+    ``dist``, ``eimg``) of [..., h+2, W] bands with frozen halo rows against
+    the converged ``cost`` (halo rows included), to the band's local
+    fixpoint, at most ``max_iters`` steps.  Returns (lab, dist, eimg, still
+    changing, own edge rows changed, PhaseLog), as ``minimax_costs_band``."""
+    upd = m & ~seeded & _own_rows(lab)
+    H = lab.shape[-2]
+    before = [x[..., [1, H - 2], :] for x in (lab, dist, eimg)]
+    big = torch.full(lab.shape, _BIG_LAB, dtype=torch.int32, device=lab.device)
+    changed = torch.ones(lab.shape[:-2], dtype=torch.bool, device=lab.device)
+    i = 0
+    while i < max_iters and bool(changed.any()):
+        best = (big, torch.full_like(img, _INF), torch.full_like(img, _INF), big)
+        for dy, dx in _offsets(connectivity):
+            best = fold_claim(best, claim_candidates(cost, img, lab, dist, eimg, dy, dx))
+        bd, be, _, bl = best
+        new_l = torch.where(upd, bl, lab)
+        new_d = torch.where(upd, bd, dist)
+        new_e = torch.where(upd, be, eimg)
+        changed = ((new_l != lab) | (new_d != dist) | (new_e != eimg)).flatten(-2).any(-1)
+        lab, dist, eimg = new_l, new_d, new_e
+        i += 1
+    edges = (_band_edges(lab, before[0]) | _band_edges(dist, before[1])
+             | _band_edges(eimg, before[2]))
+    return lab, dist, eimg, changed, edges, _band_log(i)
+
+
+def minimax_costs_band_auto(img, m, seeded, cost, connectivity: int = 1,
+                            max_iters: int = 1024):
+    """K10's band mode for CUDA [B, h+2, W] bands (``cost`` relaxed in
+    place; ``max_iters`` bounds the passes), ``minimax_costs_band`` for CPU
+    tensors (the steps); the same costs wherever both reach the band's local
+    fixpoint."""
+    _check_args(connectivity)
+    if use_kernel(img, m, seeded, cost):
+        return minimax_costs_band_cuda(img, m, seeded, cost, connectivity, max_iters)
+    return minimax_costs_band(img, m, seeded, cost, connectivity, max_iters)
+
+
+def claim_labels_band_auto(cost, img, m, seeded, lab, dist, eimg, connectivity: int = 1,
+                           max_iters: int = 1024):
+    """K11's band mode for CUDA bands (the claims relaxed in place), or
+    ``claim_labels_band`` for CPU tensors."""
+    _check_args(connectivity)
+    if use_kernel(cost, img, m, seeded, lab, dist, eimg):
+        return claim_labels_band_cuda(cost, img, m, seeded, lab, dist, eimg, connectivity,
+                                      max_iters)
+    return claim_labels_band(cost, img, m, seeded, lab, dist, eimg, connectivity, max_iters)
+
+
 def watershed(
     image: torch.Tensor,
     markers: torch.Tensor,
@@ -299,15 +406,21 @@ def watershed_auto(
     connectivity: int = 1,
     with_flag: bool = False,
     max_iters: int = 1024,
+    max_sweeps: int = 16,
+    *,
     tunnel_basins: bool = False,
 ):
     """K10 + K11 for CUDA tensors (``max_iters`` bounds the passes of each
     phase), the plain Jacobi loops for CPU tensors (``max_iters`` bounds
     their steps).  The labels are the same wherever both converge.
+    ``max_sweeps`` is the JAX package's band-sweep budget, accepted and not
+    read (as ``RefineConfig.watershed_max_sweeps``); ``tunnel_basins`` binds
+    by keyword only.
 
     With ``tunnel_basins``, CUDA tensors take K10 for phase 1 and the
     tunnelled phase 2 (K2 for the basins, then plain Jacobi steps, at most
     ``max_iters``); CPU tensors take ``watershed(..., tunnel_basins=True)``."""
+    del max_sweeps
     _check_args(connectivity)
     tensors = [image, markers] + ([] if mask is None else [mask])
     if not use_kernel(*tensors):

@@ -14,6 +14,11 @@ so a plane that changed nothing runs no tile again and the passes enqueued
 past the fixpoint cost one idle wave each.  Both phases have a unique
 fixpoint, so the labels equal the plain ``ops.watershed.watershed`` exactly
 wherever both report ``converged``.
+
+The band mode (``minimax_costs_band_cuda``, ``claim_labels_band_cuda``)
+runs the same loop on row bands of a plane split over a mesh: each band
+carries one frozen halo row above and below, and pass 1 resumes from the
+band's state instead of the seeds (``parallel.sharded`` couples the bands).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import as_planes
 
 __all__ = [
     "watershed_cuda", "minimax_costs_cuda", "claim_labels_cuda",
+    "minimax_costs_band_cuda", "claim_labels_band_cuda",
     "watershed_cost_pass_cuda", "watershed_label_pass_cuda", "passes_from_history",
     "PhaseLog",
 ]
@@ -54,9 +60,10 @@ class PhaseLog(NamedTuple):
 
 
 def watershed_cost_pass_cuda(img, flags, cost, prev_row, row, tiles, pass_no: int,
-                             connectivity: int) -> None:
+                             connectivity: int, resume: bool = False) -> None:
     """K10: pass ``pass_no`` (1, 2, …) of phase 1 over [B, H, W] planes,
-    ``cost`` relaxed in place; pass 1 writes the starting costs itself.
+    ``cost`` relaxed in place; pass 1 writes the starting costs itself, or
+    with ``resume`` (the band mode) relaxes the costs it is given.
     ``prev_row`` / ``row`` are the previous and this pass's int32 rows of
     the history, B + 3 each, ``row`` zeroed by the caller: changed[b] = 1
     where plane b changed, then the tiles run, the length of the next
@@ -68,7 +75,7 @@ def watershed_cost_pass_cuda(img, flags, cost, prev_row, row, tiles, pass_no: in
     with torch.cuda.device(cost.device):
         err = lib.pcis_watershed_cost(
             img.data_ptr(), flags.data_ptr(), cost.data_ptr(), prev_row.data_ptr(),
-            row.data_ptr(), tiles.data_ptr(), pass_no, B, H, W, connectivity,
+            row.data_ptr(), tiles.data_ptr(), pass_no, B, H, W, connectivity, int(resume),
             _kernels.stream_of(cost),
         )
     _kernels.check(err, "watershed_cost_pass_cuda")
@@ -79,18 +86,21 @@ watershed_cost_pass_cuda.launches = 0
 
 
 def watershed_label_pass_cuda(cost, img, flags, markers, lab, dist, eimg, prev_row, row,
-                              tiles, pass_no: int, connectivity: int) -> None:
+                              tiles, pass_no: int, connectivity: int,
+                              resume: bool = False) -> None:
     """K11: pass ``pass_no`` of phase 2, (``lab``, ``dist``, ``eimg``)
     relaxed in place against the converged ``cost``; pass 1 writes the
-    starting state from ``flags`` and the int32 ``markers``.  Rows and
-    scratch as for K10."""
+    starting state from ``flags`` and the int32 ``markers``, or with
+    ``resume`` relaxes the state it is given (``markers`` may then be
+    None).  Rows and scratch as for K10."""
     B, H, W = as_planes("watershed_label_pass_cuda", lab)
     lib = _kernels.library()
     with torch.cuda.device(lab.device):
         err = lib.pcis_watershed_label(
-            cost.data_ptr(), img.data_ptr(), flags.data_ptr(), markers.data_ptr(),
+            cost.data_ptr(), img.data_ptr(), flags.data_ptr(),
+            None if markers is None else markers.data_ptr(),
             lab.data_ptr(), dist.data_ptr(), eimg.data_ptr(), prev_row.data_ptr(),
-            row.data_ptr(), tiles.data_ptr(), pass_no, B, H, W, connectivity,
+            row.data_ptr(), tiles.data_ptr(), pass_no, B, H, W, connectivity, int(resume),
             _kernels.stream_of(lab),
         )
     _kernels.check(err, "watershed_label_pass_cuda")
@@ -190,6 +200,63 @@ def claim_labels_cuda(cost, img, lab0, m, seeded, connectivity: int = 1,
         B, H, W, img.device, max_iters)
     reached = m & (cost < _INF) & (lab != _BIG_LAB)
     return torch.where(reached, lab, 0), ~converged, log
+
+
+def _band_flags(m: torch.Tensor, seeded: torch.Tensor) -> torch.Tensor:
+    """The kernels' flags of [B, h+2, W] bands: the halo rows (0 and h+1)
+    carry none, so the kernels read them and never write them."""
+    flags = _flags(m.contiguous(), seeded.contiguous())
+    flags[:, 0] = 0
+    flags[:, -1] = 0
+    return flags
+
+
+def _edge_rows_changed(state, before) -> torch.Tensor:
+    """Per plane: whether the band's first or last own row (rows 1 and h of
+    [B, h+2, W]) differs from ``before``."""
+    H = state.shape[-2]
+    return (state[:, [1, H - 2]] != before).flatten(1).any(1)
+
+
+def minimax_costs_band_cuda(img, m, seeded, cost, connectivity: int = 1,
+                            max_iters: int = 1024):
+    """Phase 1 on K10's band mode: resume the costs ``cost`` (relaxed in
+    place) of CUDA [B, h+2, W] bands, whose rows 0 and h+1 are frozen halo
+    rows, to the bands' local fixpoint (at most ``max_iters`` passes).
+    Returns (cost, per-plane bool still changing, per-plane bool whether the
+    first or last own row changed, PhaseLog); equal to
+    ``ops.watershed.minimax_costs_band``."""
+    img = img.contiguous()
+    flags = _band_flags(m, seeded)
+    _kernels.require_cuda("minimax_costs_band_cuda", img, flags, cost)
+    B, H, W = cost.shape
+    before = cost[:, [1, H - 2]]
+    converged, log = _run(
+        lambda *state: watershed_cost_pass_cuda(img, flags, cost, *state, connectivity,
+                                                resume=True),
+        B, H, W, img.device, max_iters)
+    return cost, ~converged, _edge_rows_changed(cost, before), log
+
+
+def claim_labels_band_cuda(cost, img, m, seeded, lab, dist, eimg, connectivity: int = 1,
+                           max_iters: int = 1024):
+    """Phase 2 on K11's band mode: resume the claims (``lab``, ``dist``,
+    ``eimg``, relaxed in place) of CUDA [B, h+2, W] bands with frozen halo
+    rows against the converged ``cost``.  Returns (lab, dist, eimg, still
+    changing, own edge rows changed, PhaseLog); equal to
+    ``ops.watershed.claim_labels_band``."""
+    img = img.contiguous()
+    flags = _band_flags(m, seeded)
+    _kernels.require_cuda("claim_labels_band_cuda", cost, img, flags, lab, dist, eimg)
+    B, H, W = lab.shape
+    before = [x[:, [1, H - 2]] for x in (lab, dist, eimg)]
+    converged, log = _run(
+        lambda *state: watershed_label_pass_cuda(cost, img, flags, None, lab, dist, eimg,
+                                                 *state, connectivity, resume=True),
+        B, H, W, img.device, max_iters)
+    edges = (_edge_rows_changed(lab, before[0]) | _edge_rows_changed(dist, before[1])
+             | _edge_rows_changed(eimg, before[2]))
+    return lab, dist, eimg, ~converged, edges, log
 
 
 def watershed_cuda(

@@ -1,13 +1,13 @@
 """Plane rows in bands over the mesh's space axis: the band-sharded segment,
-region tables, particle fill, merge grouping and DAPI dedup.
+region tables, particle fill, merge grouping, DAPI dedup and refine.
 
 Counterpart of ``particle_col_image_segmentation_tpu/parallel/sharded.py``
 (``make_sharded_segment_fn``, ``make_sharded_analysis_fn``,
 ``make_sharded_full_analysis_fn``, ``sharded_segment_batch``,
-``make_sharded_dapi_dedup_fn``); its spatial refine (``make_sharded_refine_fn``,
-``make_sharded_watershed_fn``) is not ported.  Planes split over the mesh's
-"data" axis and each plane's rows into ``n_space`` contiguous bands, one a
-mesh position.  The outputs equal the single-device graph's.
+``make_sharded_dapi_dedup_fn``, ``make_sharded_refine_fn``,
+``make_sharded_watershed_fn``).  Planes split over the mesh's "data" axis
+and each plane's rows into ``n_space`` contiguous bands, one a mesh
+position.  The outputs equal the single-device graph's.
 
 The JAX package runs one ``shard_map`` whose fixpoints exchange halos every
 round.  Here each step runs on every band's device at once (one worker
@@ -28,12 +28,21 @@ them:
   found on the band that owns it), and its local roots to the global
   minimum linear index, the JAX package's labels.  The join is exact in one
   pass, so no iteration budget applies to it (``max_iters`` is kept for the
-  JAX signatures only; the bands' own CCL keeps ``cfg.ccl_max_iters``).
+  JAX signatures only; the bands' own CCL keeps ``cfg.ccl_max_iters``);
+* the refine's EDT runs K9 on each band with a cap-row halo, its flag
+  raised by the band's own rows, and the exact transform over the gathered
+  plane where a band flags; its maxima and markers take the CCL above (a
+  plateau is "bad" if any band's piece of it is, the markers' join skips
+  background); its watershed runs rounds of band fixpoints (K10 and K11
+  resume each band under frozen halo rows) with the halo rows exchanged
+  between rounds until no band's edge rows change, which reaches the
+  plane's unique fixpoint (``ops.watershed``).
 """
 
 from __future__ import annotations
 
 import contextlib
+from functools import lru_cache
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,16 +53,32 @@ from particle_col_image_segmentation_tpu_torch.ops.ccl import (
     compact_labels_auto,
     connected_components_auto,
 )
+from particle_col_image_segmentation_tpu_torch.ops.edt import minplus_rows, row_dh2_exact
+from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import edt_sq_auto
 from particle_col_image_segmentation_tpu_torch.ops.fill_tiles import particle_fill_step_auto
 from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import (
     median_label_filter_rows_padded_auto,
 )
-from particle_col_image_segmentation_tpu_torch.ops.morphology import dilate_disk
+from particle_col_image_segmentation_tpu_torch.ops.morphology import (
+    _OFFSETS8,
+    _has_higher,
+    _marked_components,
+    dilate_disk,
+)
 from particle_col_image_segmentation_tpu_torch.ops.regionprops import RegionTable, centroids_int
 from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import (
+    centroid_sums_auto,
     region_props_auto,
     region_sums_auto,
     table_lookup_auto,
+)
+from particle_col_image_segmentation_tpu_torch.ops.watershed import (
+    claim_labels_band_auto,
+    minimax_costs_band_auto,
+)
+from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
+    _BIG_LAB,
+    _INF as _WS_INF,
 )
 from particle_col_image_segmentation_tpu_torch.parallel.halo import pad_with_halo
 from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
@@ -70,6 +95,8 @@ __all__ = [
     "make_sharded_analysis_fn",
     "make_sharded_full_analysis_fn",
     "make_sharded_dapi_dedup_fn",
+    "make_sharded_refine_fn",
+    "make_sharded_watershed_fn",
 ]
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
@@ -162,18 +189,20 @@ def _edge_rows(*planes) -> tuple:
     )
 
 
-def _band_ccl(val: torch.Tensor, cfg: AnalysisConfig, num_classes: int, ranks: bool):
+def _band_ccl(val: torch.Tensor, max_iters: int, max_regions: int, num_classes: int,
+              ranks: bool, background: Optional[int] = None):
     """K2 (and, with ``ranks``, K3) on one band [b, h, W]: labels hold the
-    band's own minimum linear indices.  Returns (lab, converged, seg_l,
-    num_l, edges): ``seg_l`` the roots' raster ranks within the band,
-    ``edges`` the host rows the seam join reads."""
+    band's own minimum linear indices (−1 on ``background``).  Returns
+    (lab, converged, seg_l, num_l, edges): ``seg_l`` the roots' raster ranks
+    within the band (0 on background), ``edges`` the host rows the seam
+    join reads.  ``max_iters`` bounds the plain CCL of a CPU band."""
     lab, conv = connected_components_auto(
-        val, background=None, num_classes=num_classes, with_flag=True,
-        max_iters=cfg.ccl_max_iters,
+        val, background=background, num_classes=num_classes, with_flag=True,
+        max_iters=max_iters,
     )
     if not ranks:
         return lab, conv, None, None, _edge_rows(val, lab, None)
-    seg_l, num_l = compact_labels_auto(lab, cfg.max_regions)
+    seg_l, num_l = compact_labels_auto(lab, max_regions)
     return lab, conv, seg_l, num_l, _edge_rows(val, lab, seg_l) + (num_l.cpu().numpy(),)
 
 
@@ -198,29 +227,35 @@ class _Join(NamedTuple):
     dead: list
 
 
-def _join_seams(edges: Sequence[tuple], h: int, W: int, ranks: bool) -> _Join:
+def _keys_of(j: int, lab_row, b: int, h: int, W: int, n: int):
+    """[b, W] local labels of band j → seam keys, plane·H·W + the global
+    linear index."""
+    planes = np.arange(b, dtype=np.int64)[:, None]
+    return planes * (n * h * W) + j * (h * W) + lab_row
+
+
+def _seam_roots(edges: Sequence[tuple], h: int, W: int, background=None):
     """One union-find over every seam of a data row's planes: the
     equal-valued 8-connected pairs between band j's last row and band
-    j+1's first row.  Keys are plane·H·W + the pixel's global linear root
-    index, so a component's global root is the minimum key it reaches."""
+    j+1's first row (pairs on ``background`` skipped).  Keys are
+    plane·H·W + the pixel's global linear root index, so a component's
+    global root is the minimum key it reaches.  Returns (keys, root): the
+    sorted keys met on a seam and each one's global root."""
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
 
     n = len(edges)
     b = edges[0][0].shape[0]
-    band_px, plane_px = h * W, n * h * W
-    planes = np.arange(b, dtype=np.int64)[:, None]
-
-    def keys_of(j: int, lab_row):  # [b, W] local labels → keys
-        return planes * plane_px + j * band_px + lab_row
 
     ea, eb = [], []
     for j in range(n - 1):
-        vt, kt = edges[j][0][:, 1], keys_of(j, edges[j][1][:, 1])
-        vb, kb = edges[j + 1][0][:, 0], keys_of(j + 1, edges[j + 1][1][:, 0])
+        vt, kt = edges[j][0][:, 1], _keys_of(j, edges[j][1][:, 1], b, h, W, n)
+        vb, kb = edges[j + 1][0][:, 0], _keys_of(j + 1, edges[j + 1][1][:, 0], b, h, W, n)
         for dx in (-1, 0, 1):  # top column c meets bottom column c + dx
             c0, c1 = max(0, -dx), W - max(0, dx)
             same = vt[:, c0:c1] == vb[:, c0 + dx:c1 + dx]
+            if background is not None:
+                same &= vt[:, c0:c1] != background
             ea.append(kt[:, c0:c1][same])
             eb.append(kb[:, c0 + dx:c1 + dx][same])
     a = np.concatenate(ea) if ea else np.zeros(0, np.int64)
@@ -237,21 +272,46 @@ def _join_seams(edges: Sequence[tuple], h: int, W: int, ranks: bool) -> _Join:
         root = low[comp]
     else:
         root = keys
-    plane = keys // plane_px
-    glob = keys - plane * plane_px
-    band = glob // band_px
-    local = glob - band * band_px
+    return keys, root
+
+
+def _key_parts(keys, h: int, W: int, n: int):
+    """(plane, band, local linear index) of seam keys."""
+    plane = keys // (n * h * W)
+    glob = keys - plane * (n * h * W)
+    band = glob // (h * W)
+    return plane, band, glob - band * (h * W)
+
+
+def _value_at_keys(edges: Sequence[tuple], col: int, keys, h: int, W: int):
+    """The component-constant edge value ``edges[j][col]`` of each seam key,
+    read where the key's label shows in its band's first or last row
+    (background pixels, label −1, hold no key)."""
+    n = len(edges)
+    b = edges[0][0].shape[0]
+    at = [(j, r) for j in range(n) for r in (0, 1)]
+    all_keys = np.concatenate([_keys_of(j, edges[j][1][:, r], b, h, W, n).ravel()
+                               for j, r in at])
+    values = np.concatenate([edges[j][col][:, r].ravel() for j, r in at])
+    fg = np.concatenate([edges[j][1][:, r].ravel() >= 0 for j, r in at])
+    all_keys, values = all_keys[fg], values[fg]
+    keep = _first_of_runs(all_keys)
+    uk, first = np.unique(all_keys[keep], return_index=True)
+    return values[keep][first][np.searchsorted(uk, keys)]
+
+
+def _join_seams(edges: Sequence[tuple], h: int, W: int, ranks: bool, background=None) -> _Join:
+    """The seam join of a data row (``_seam_roots``): what each band needs
+    to map its local roots and ranks to global ones."""
+    n = len(edges)
+    b = edges[0][0].shape[0]
+    band_px, plane_px = h * W, n * h * W
+    keys, root = _seam_roots(edges, h, W, background)
+    plane, band, local = _key_parts(keys, h, W, n)
     dead = keys != root
 
     if ranks:
-        # each key's local rank, read where its root's label shows in the rows
-        all_keys = np.concatenate([
-            keys_of(j, edges[j][1][:, r]).ravel() for j in range(n) for r in (0, 1)
-        ])
-        all_rank = np.concatenate([edges[j][2][:, r].ravel() for j in range(n) for r in (0, 1)])
-        keep = _first_of_runs(all_keys)
-        uk, first = np.unique(all_keys[keep], return_index=True)
-        rank = all_rank[keep][first][np.searchsorted(uk, keys)]
+        rank = _value_at_keys(edges, 2, keys, h, W)
         num_l = np.stack([edges[j][3] for j in range(n)]).astype(np.int64)  # [n, b]
         ndead = np.zeros((n, b), np.int64)
         np.add.at(ndead, (band[dead], plane[dead]), 1)
@@ -380,7 +440,8 @@ def _merge_groups(den_bands, table: RegionTable, cfg: AnalysisConfig, strain_val
 
     def label(ctx_p):
         dil = dilate_disk(ctx_p, r)[..., r:r + h, :].to(torch.uint8).contiguous()
-        lab, conv, _, _, edges = _band_ccl(dil, cfg, 2, ranks=False)
+        lab, conv, _, _, edges = _band_ccl(dil, cfg.ccl_max_iters, cfg.max_regions, 2,
+                                           ranks=False)
         return dil, lab, conv, edges
 
     outs = _each(label, devices, [(p,) for p in padded])
@@ -455,7 +516,8 @@ def shard_rows(
     def stage_segment(x):
         den = (median_label_filter_rows_padded_auto(x, cfg.denoise_size, cfg.num_classes)
                if denoise else x)
-        lab, conv, seg_l, num_l, edges = _band_ccl(den, cfg, cfg.num_classes, ranks=True)
+        lab, conv, seg_l, num_l, edges = _band_ccl(den, cfg.ccl_max_iters, cfg.max_regions,
+                                                   cfg.num_classes, ranks=True)
         particle = (den == particle_val).sum(dim=(-2, -1), dtype=torch.int32)
         return den, lab, conv, seg_l, num_l, edges, particle
 
@@ -687,7 +749,8 @@ def dedup_rows(dapi_bands, other_bands, mesh, cfg: AnalysisConfig) -> List[tuple
     R1 = cfg.max_regions + 1
 
     def stage_label(dapi):
-        return _band_ccl((dapi == 1).to(torch.uint8), cfg, 2, ranks=True)
+        return _band_ccl((dapi == 1).to(torch.uint8), cfg.ccl_max_iters, cfg.max_regions, 2,
+                         ranks=True)
 
     outs = _each(stage_label, devices, [(d,) for d in dapi_bands])
     joins = {}
@@ -741,4 +804,326 @@ def make_sharded_dapi_dedup_fn(mesh, cfg: AnalysisConfig, max_iters: int = 128):
             _cat([r[2] for r in rows], dev),
         )
 
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# the spatial refine (models/refine.refine_plane_device on bands; JAX
+# _refine_shard)
+# ---------------------------------------------------------------------------
+
+
+def _edt_bands(feature_bands, mesh, probe_cap: int, stats: dict):
+    """Exact squared EDT of each band's own rows (``ops.edt.edt_sq_exact``
+    of the whole plane, ``_edt_sq_exact_shard``): K9 on each band with a
+    ``probe_cap``-row halo, its flag raised by the band's own rows only.
+    Where no band of a data row flags, the capped result is exact;
+    otherwise that row takes the exact transform: each band's row pass,
+    the plane's dh² gathered onto every band, and each band's own rows
+    min-plussed with global row indices."""
+    devices = list(mesh.flat)
+    b, h, W = feature_bands[0].shape
+    n_space = mesh.shape[SPACE_AXIS]
+    H = n_space * h
+    inf = (H + W + 2) * (H + W + 2)  # the whole plane's, as on one device
+    padded = _pad_rows(feature_bands, mesh, probe_cap, "constant", False)
+
+    def probe(x):
+        d2, flag = edt_sq_auto(x.contiguous(), probe_cap, with_flag=True,
+                               flag_rows=(probe_cap, probe_cap + h))
+        return d2[:, probe_cap:probe_cap + h].contiguous(), flag
+
+    outs = _each(probe, devices, [(x,) for x in padded])
+    deep = [bool(o[1]) for o in outs]
+    d2 = [o[0] for o in outs]
+    stats["edt_fallback_rows"] = 0
+    for row in _rows_of(mesh):
+        if not any(deep[k] for k in row):
+            continue
+        stats["edt_fallback_rows"] += 1
+        row_devices = [devices[k] for k in row]
+        dh2 = _each(lambda f: row_dh2_exact(f, inf), row_devices,
+                    [(feature_bands[k],) for k in row])
+
+        def exact(j, dev):
+            g = torch.cat([x.to(dev) for x in dh2], dim=-2)
+            r_idx = torch.arange(j * h, (j + 1) * h, dtype=torch.int32, device=dev)
+            return minplus_rows(g, r_idx, inf)
+
+        for j, out in enumerate(_each(exact, row_devices, list(enumerate(row_devices)))):
+            d2[row[j]] = out
+    return d2
+
+
+def _seam_or(edges: Sequence[tuple], h: int, W: int) -> list:
+    """OR a component-constant flag (``edges[j][2]``) over the components
+    the seams join: for each band, (plane, local root) of its components
+    whose flag is off while another piece of their joined component has it
+    on, as host int64 arrays."""
+    n = len(edges)
+    keys, root = _seam_roots(edges, h, W)
+    if not len(keys):
+        return [(np.zeros(0, np.int64),) * 2 for _ in range(n)]
+    flag = _value_at_keys(edges, 2, keys, h, W) != 0
+    roots, comp = np.unique(root, return_inverse=True)
+    any_on = np.zeros(len(roots), bool)
+    np.logical_or.at(any_on, comp, flag)
+    need = any_on[comp] & ~flag
+    plane, band, local = _key_parts(keys, h, W, n)
+    return [(plane[need & (band == j)], local[need & (band == j)]) for j in range(n)]
+
+
+def _maxima_bands(d2_bands, mesh, max_iters: int):
+    """Plateau-aware local maxima (8-connected) of int32 d² bands
+    (``_local_maxima_shard``): ``has_higher`` with a 1-row halo, K2 on each
+    band with the values' own classes and the seam join; a plateau is
+    "bad" where any of its pixels, on any band, has a higher neighbour.
+    Returns (maxima bands, converged [b] a position)."""
+    devices = list(mesh.flat)
+    b, h, W = d2_bands[0].shape
+    padded = _pad_rows(d2_bands, mesh, 1, "constant", _I32_MIN)  # never "higher"
+
+    def local(x, xp):
+        higher = _has_higher(xp, _OFFSETS8)[:, 1:h + 1]
+        lab, conv, _, _, edges = _band_ccl(x, max_iters, 0, _I32_MAX, ranks=False)
+        bad = _marked_components(lab, higher)
+        return lab, bad, conv, edges[:2] + _edge_rows(bad)
+
+    outs = _each(local, devices, [(x, xp) for x, xp in zip(d2_bands, padded)])
+    marks = {}
+    for row in _rows_of(mesh):
+        for j, m in enumerate(_seam_or([outs[k][3] for k in row], h, W)):
+            marks[row[j]] = m
+
+    def join(k):
+        lab, bad, _, _ = outs[k]
+        plane, local_root = (torch.from_numpy(x).to(lab.device) for x in marks[k])
+        if len(plane):
+            table = torch.zeros((b, h * W), dtype=torch.int32, device=lab.device)
+            table[plane, local_root] = 1
+            bad = bad | (table_lookup_auto(lab, table) > 0)
+        return ~bad
+
+    maxima = _each(join, devices, [(k,) for k in range(len(devices))])
+    return maxima, [o[2] for o in outs]
+
+
+def _marker_bands(maxima_bands, mesh, max_iters: int, max_regions: int):
+    """The markers (``_dist_ccl`` + ``_compact_and_tables_shard`` with
+    ``fg=maxima``): K2 on each band with background 0, K3's ranks, the seam
+    join over foreground pairs only and the K6 rank tables.  Returns (marker
+    bands: global raster ranks, 0 off the maxima; num [b] a data row on its
+    first device; converged [b] a position)."""
+    devices = list(mesh.flat)
+    b, h, W = maxima_bands[0].shape
+
+    def label(mx):
+        return _band_ccl(mx.to(torch.uint8), max_iters, max_regions, 2, ranks=True,
+                         background=0)
+
+    outs = _each(label, devices, [(m,) for m in maxima_bands])
+    joins, nums = {}, []
+    for row in _rows_of(mesh):
+        join = _join_seams([outs[k][4] for k in row], h, W, ranks=True, background=0)
+        nums.append(torch.from_numpy(join.num.sum(axis=0)).to(devices[row[0]], torch.int32))
+        for j, k in enumerate(row):
+            joins[k] = (j, join)
+
+    def compact(k):
+        _, _, seg_l, num_l, _ = outs[k]
+        j, join = joins[k]
+        return _compact(seg_l, num_l, join.before[j], join.dead[j])
+
+    markers = _each(compact, devices, [(k,) for k in range(len(devices))])
+    return markers, nums, [o[1] for o in outs]
+
+
+def _refresh_halos(states, mesh) -> None:
+    """Copy each band's first and last own rows into its neighbours' halo
+    rows, for every [b, h+2, W] state of ``states`` (one list of bands a
+    state; the halo rows past the plane's edges keep their fills)."""
+    for row in _rows_of(mesh):
+        for j, k in enumerate(row):
+            for bands in states:
+                x = bands[k]
+                h = x.shape[-2] - 2
+                if j > 0:
+                    x[:, 0].copy_(bands[row[j - 1]][:, h], non_blocking=True)
+                if j < len(row) - 1:
+                    x[:, h + 1].copy_(bands[row[j + 1]][:, 1], non_blocking=True)
+
+
+def _band_rounds(run, mesh, states, max_iters: int, log: dict) -> List[np.ndarray]:
+    """Rounds of band fixpoints: ``run(k)`` relaxes position k's band to its
+    local fixpoint under its halo rows and returns (still changing [b],
+    own edge rows changed [b], PhaseLog).  Round 1 runs every band; a later
+    round runs a band that was still changing or whose neighbour's edge
+    rows changed, after the halo rows are exchanged.  Stops when no band
+    has work, or after ``max_iters`` rounds.  Returns each data row's
+    per-plane converged flags (host bool [b]): no band of the plane still
+    changing and no edge row changed in the last round it ran."""
+    devices = list(mesh.flat)
+    rows = _rows_of(mesh)
+    b = states[0][0].shape[0]
+    pending = {k: np.zeros((2, b), bool) for k in range(len(devices))}  # changing, edges
+    active = list(range(len(devices)))
+    rounds, passes, syncs = 0, [], 0
+    while active and rounds < max_iters:
+        outs = _each(run, [devices[k] for k in active], [(k,) for k in active])
+        rounds += 1
+        for k in range(len(devices)):
+            pending[k] = np.zeros((2, b), bool)
+        for k, (ch, ed, plog) in zip(active, outs):
+            pending[k] = np.stack([ch.cpu().numpy(), ed.cpu().numpy()])
+            syncs += plog.syncs + 1
+        passes.append(max(o[2].passes for o in outs))
+        _refresh_halos(states, mesh)
+        nxt = []
+        for row in rows:
+            for j, k in enumerate(row):
+                if (pending[k][0].any()
+                        or (j > 0 and pending[row[j - 1]][1].any())
+                        or (j < len(row) - 1 and pending[row[j + 1]][1].any())):
+                    nxt.append(k)
+        active = nxt
+    log.update(rounds=rounds, passes=passes, syncs=syncs)
+    return [~np.logical_or.reduce([pending[k].any(axis=0) for k in row]) for row in rows]
+
+
+def _watershed_bands(img_bands, marker_bands, mask_bands, mesh, connectivity: int,
+                     max_iters: int, stats: dict):
+    """The band-coupled two-phase watershed (``_watershed_shard``): each
+    phase runs rounds of the band phases (``ops.watershed`` band mode, K10
+    and K11 on the card) with the halo rows exchanged between rounds, each
+    band bounded by ``max_iters`` passes a round and the phase by
+    ``max_iters`` rounds.  Both phases' fixpoints are unique, so the labels
+    equal one device's.  Returns (label bands, converged [b] a data row on
+    its first device)."""
+    devices = list(mesh.flat)
+    h = img_bands[0].shape[-2]
+    img = _pad_rows([x.to(torch.float32) for x in img_bands], mesh, 1, "constant", _WS_INF)
+    m = _pad_rows([x.to(torch.bool) for x in mask_bands], mesh, 1, "constant", False)
+    mk = _pad_rows([x.to(torch.int32) for x in marker_bands], mesh, 1, "constant", 0)
+    seeded = [(x > 0) & y for x, y in zip(mk, m)]
+    inf = torch.tensor(_WS_INF, dtype=torch.float32)
+    cost = [torch.where(s, i, inf.to(i.device)).contiguous() for s, i in zip(seeded, img)]
+
+    def phase1(k):
+        c, ch, ed, plog = minimax_costs_band_auto(img[k], m[k], seeded[k], cost[k],
+                                                  connectivity, max_iters)
+        cost[k] = c
+        return ch, ed, plog
+
+    conv1 = _band_rounds(phase1, mesh, [cost], max_iters, stats.setdefault("phase1", {}))
+    lab = [torch.where(s, x, _BIG_LAB).to(torch.int32).contiguous() for s, x in zip(seeded, mk)]
+    dist = [torch.where(s, 0, _BIG_LAB).to(torch.int32).contiguous() for s in seeded]
+    eimg = [torch.where(s, -inf.to(s.device), inf.to(s.device)).contiguous() for s in seeded]
+
+    def phase2(k):
+        out = claim_labels_band_auto(cost[k], img[k], m[k], seeded[k], lab[k], dist[k],
+                                     eimg[k], connectivity, max_iters)
+        lab[k], dist[k], eimg[k] = out[:3]
+        return out[3:]
+
+    conv2 = _band_rounds(phase2, mesh, [lab, dist, eimg], max_iters,
+                         stats.setdefault("phase2", {}))
+
+    def final(k):
+        reached = m[k] & (cost[k] < _WS_INF) & (lab[k] != _BIG_LAB)
+        return torch.where(reached, lab[k], 0)[:, 1:h + 1].contiguous()
+
+    labels = _each(final, devices, [(k,) for k in range(len(devices))])
+    conv = [torch.from_numpy(c1 & c2).to(devices[row[0]])
+            for c1, c2, row in zip(conv1, conv2, _rows_of(mesh))]
+    return labels, conv
+
+
+def _centroid_rows(label_bands, mesh, max_regions: int):
+    """K7 on each band with its global rows (``row_offset``), summed over a
+    data row's bands onto its first device: [b, R+1, 5] int32 (area, Σrow
+    hi, Σrow lo, Σcol hi, Σcol lo), JAX's ``sums``."""
+    devices = list(mesh.flat)
+    h = label_bands[0].shape[-2]
+    n_space = mesh.shape[SPACE_AXIS]
+    tables = _each(lambda lab, k: torch.stack(tuple(centroid_sums_auto(
+        lab, max_regions, row_offset=(k % n_space) * h)), dim=-1),
+        devices, [(lab, k) for k, lab in enumerate(label_bands)])
+    return [_sum_to([tables[k] for k in row], devices[row[0]]).to(torch.int32)
+            for row in _rows_of(mesh)]
+
+
+@lru_cache(maxsize=None)
+def make_sharded_watershed_fn(mesh, connectivity: int = 1, max_iters: int = 4096):
+    """The band-coupled marker watershed over ``mesh``: (image [B,H,W] f32,
+    markers [B,H,W] i32, mask [B,H,W] bool or None) → (labels [B,H,W] i32,
+    converged [B]) on the mesh's first device; the labels equal
+    ``ops.watershed.watershed``'s on every plane where both converge.
+
+    Each band relaxes to its local fixpoint in a round (at most
+    ``max_iters`` passes of K10/K11 on the card, steps of the plain loop on
+    the CPU), and a phase stops after a round that changed no band's edge
+    rows and left every band at its local fixpoint, or after ``max_iters``
+    rounds: the JAX package counts halo-exchanged Jacobi steps against its
+    budget, the port counts rounds, so the ``converged`` flags at one budget
+    need not agree.  ``fn.last_stats`` holds each phase's rounds, the most
+    passes a band ran in each round, and the host syncs."""
+
+    def fn(image, markers, mask=None):
+        img = split_bands(image, mesh)
+        m = (split_bands(mask, mesh) if mask is not None
+             else [torch.ones_like(x, dtype=torch.bool) for x in img])
+        stats: dict = {}
+        labels, conv = _watershed_bands(img, split_bands(markers, mesh), m, mesh, connectivity,
+                                        max_iters, stats)
+        fn.last_stats = stats
+        dev = mesh.flat[0]
+        return join_bands(labels, mesh), _cat(conv, dev)
+
+    fn.last_stats = {}
+    return fn
+
+
+@lru_cache(maxsize=None)
+def make_sharded_refine_fn(mesh, threshold: float = 0.5, connectivity: int = 1,
+                           max_regions: int = 4095, max_iters: int = 4096,
+                           with_tables: bool = False, *, probe_cap: int = 32):
+    """The refine pipeline on a mesh (``models.refine.refine_plane_device``
+    with each plane's rows in bands): probability maps [B,H,W] (NumPy or a
+    tensor) → (labels [B,H,W], markers [B,H,W], num_cells [B], converged
+    [B]) on the mesh's first device, equal to the one-device run.
+
+    EDT (K9's probe with a ``probe_cap``-row halo, the exact transform
+    where it flags) → plateau-aware local maxima (K2 and the seam join) →
+    marker CCL and compaction (K2, K3, the seam join, K6) → the
+    band-coupled watershed (K10, K11; ``make_sharded_watershed_fn``).
+    ``max_iters`` bounds the watershed's rounds and each band's passes a
+    round, and a CPU band's plain CCL.  Callers must check ``num_cells <=
+    max_regions`` and ``converged``.
+
+    ``with_tables`` appends ``sums`` [B, max_regions+1, 5]: each cell's
+    (area, Σrow hi, Σrow lo, Σcol hi, Σcol lo) over the final labels (K7 in
+    the plane's rows, summed over the bands), from which the refine CSV's
+    areas and centroids follow.  ``fn.last_stats`` holds the EDT fallback
+    and the watershed's rounds, passes and syncs."""
+
+    def fn(probs):
+        bm = [x.to(torch.float32) for x in split_bands(probs, mesh)]
+        binary = [x < threshold for x in bm]
+        stats: dict = {}
+        d2 = _edt_bands([~x for x in binary], mesh, probe_cap, stats)
+        maxima, conv_max = _maxima_bands(d2, mesh, max_iters)
+        markers, nums, conv_ccl = _marker_bands(maxima, mesh, max_iters, max_regions)
+        labels, conv_ws = _watershed_bands(bm, markers, binary, mesh, connectivity,
+                                           max_iters, stats)
+        fn.last_stats = stats
+        dev = mesh.flat[0]
+        conv = _cat([
+            torch.stack([conv_max[k].to(dev) & conv_ccl[k].to(dev) for k in row]).all(dim=0)
+            for row in _rows_of(mesh)], dev) & _cat(conv_ws, dev)
+        out = (join_bands(labels, mesh), join_bands(markers, mesh), _cat(nums, dev), conv)
+        if with_tables:
+            out += (_cat(_centroid_rows(labels, mesh, max_regions), dev),)
+        return out
+
+    fn.last_stats = {}
     return fn

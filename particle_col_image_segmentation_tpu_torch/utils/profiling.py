@@ -17,15 +17,30 @@ _log = get_logger("profile")
 STAGE_TOTALS: Dict[str, float] = {}
 
 
+def timing_device(device=None) -> torch.device:
+    """The device whose clock times a stage: ``device``, or by default the
+    current CUDA device where CUDA is present, else the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 @contextlib.contextmanager
 def stage(
-    name: str, device: torch.device, megapixels: Optional[float] = None
+    name: str, megapixels: Optional[float] = None, *, device=None
 ) -> Iterator[None]:
     """Annotate a pipeline stage for ``torch.profiler`` traces and log its
     time.  On a CUDA device the time runs between two CUDA events on the
     current stream and the exit waits for the second, so it covers the
-    device work the stage enqueued, not just its launch."""
-    cuda = torch.device(device).type == "cuda"
+    device work the stage enqueued, not just its launch.
+
+    ``device`` defaults to the current CUDA device where CUDA is present
+    (so a stage that enqueues work on the card is never timed by the host
+    clock alone), else to the CPU's wall clock."""
+    device = timing_device(device)
+    cuda = device.type == "cuda"
     with torch.profiler.record_function(name):
         if cuda:
             stream = torch.cuda.current_stream(device)

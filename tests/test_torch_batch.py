@@ -147,7 +147,7 @@ def test_loader_pads_short_batch_and_keeps_paths():
     assert last.shape == (2, 8, 8) and last.device == CPU
     assert (last == 4).all()  # the short batch repeats its last plane
     with pytest.raises(ValueError, match="with_paths"):
-        next(batched_device_iterator(planes.__getitem__, list(planes), 2, [CPU],
+        next(batched_device_iterator(planes.__getitem__, list(planes), 2, devices=[CPU],
                                      on_error="skip"))
 
 

@@ -936,3 +936,41 @@ def test_space_axis_on_two_cards(dev):
     planes = _mesh_batch_planes()
     want = _batch_stats(planes, device=dev)
     assert _batch_stats(planes, mesh=make_mesh(n_data=1, n_space=2)) == want
+
+
+# ---- the spatial refine's band modes and path --------------------------------
+
+
+@pytest.mark.parametrize("n_space", [2, 4])
+def test_refine_band_modes_equal_plain(dev, n_space):
+    """K7 with a row offset, K9's flag over a band's own rows, K10 and K11
+    resuming bands in every round of the band-coupled watershed, against
+    their plain versions (``chip_smoke.refine_band_checks``), on three
+    corridors whose flood crosses the seams."""
+    from chip_smoke import refine_band_checks
+
+    corr = [ws_corridor(96, 130, pitch=3 + i, seed=12 + i) for i in range(3)]
+    img, mk, m = (torch.from_numpy(np.stack([c[k] for c in corr])).to(dev) for k in range(3))
+
+    def compare(kernel, case, got, want):
+        _equal(got, want, f"{kernel} {case}")
+
+    refine_band_checks(img, mk, m, watershed_auto(img, mk, m), n_space, compare, "corridors")
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (1, 4), (2, 2)])
+def test_sharded_refine_on_the_card_equals_one_device(dev, mesh_shape):
+    from particle_col_image_segmentation_tpu_torch import RefineConfig
+    from particle_col_image_segmentation_tpu_torch.models.refine import refine_plane_device
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh, sharded
+
+    x = torch.from_numpy(np.stack([refine_relief(256, pairs=12, seed=s)
+                                   for s in range(2)])).to(dev)
+    nd, ns = mesh_shape
+    mesh = make_mesh(nd, ns, devices=[dev] * (nd * ns))
+    labels, markers, num, conv, sums = sharded.make_sharded_refine_fn(
+        mesh, with_tables=True)(x)
+    w_labels, w_markers, w_num, table, _, w_conv = refine_plane_device(x, RefineConfig())
+    assert bool(conv.all()) and bool(w_conv.all())
+    _equal([labels, markers, num], [w_labels, w_markers, w_num])
+    _equal([sums[..., i] for i in range(5)], list(table))

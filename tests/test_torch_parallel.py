@@ -392,7 +392,8 @@ def test_refine_sharded_single_plane_matches_jax():
 
 def test_refine_sharded_tunnel_runs_data_parallel_and_matches_jax_stack():
     """tunnel_basins spreads the planes over every mesh device, the space
-    axis included; without it the space axis raises."""
+    axis included; without it the space axis runs the spatial refine, equal
+    to JAX's refine of the stack without the tunnel."""
     jcfg = dataclasses.replace(JCFG, tunnel_basins=True)
     tcfg = config_from_fields(jcfg)
     stack = tunnel_stack()
@@ -401,8 +402,10 @@ def test_refine_sharded_tunnel_runs_data_parallel_and_matches_jax_stack():
         got = torch_refine.refine_boundaries_sharded(stack, tcfg, mesh=mesh, stack=True)
         for g, w in zip(got, want, strict=True):
             _assert_results_equal(g, w)
-    with pytest.raises(NotImplementedError, match="without tunnel_basins is not ported"):
-        torch_refine.refine_boundaries_sharded(stack, TCFG, mesh=cpu_mesh(1, 2), stack=True)
+    untunnelled = torch_refine.refine_boundaries_sharded(stack, TCFG, mesh=cpu_mesh(1, 2),
+                                                         stack=True)
+    for g, w in zip(untunnelled, jax_refine.refine_boundaries_stack(stack, JCFG), strict=True):
+        _assert_results_equal(g, w)
     tight = dataclasses.replace(TCFG, watershed_max_iters=1)
     with pytest.raises(RuntimeError, match="plane\\(s\\) \\[0, 1\\]"):
         torch_refine.refine_boundaries_sharded(stack[:2], tight, mesh=cpu_mesh(2), stack=True)
@@ -488,14 +491,26 @@ def test_cli_refine_mesh_matches_jax_cli(tmp_path, capsys, route):
      "--batch-planes batches whole planes per device and cannot combine with --space-parallel"),
     (["batch", "{tree}", "--batch-size", "3", "--data-parallel", "2"],
      "--batch-size must be a multiple of --data-parallel \\(got 3 and 2\\)"),
-    (["refine", "{h5}", "--space-parallel", "2"], "spatial refine is not ported"),
-    (["refine", "{h5}", "--space-parallel", "2", "--data-parallel", "2"],
-     "spatial refine is not ported"),
-], ids=["analyze-space-batch-planes", "batch-size", "refine-space", "refine-space-and-data"])
+    (["refine", "{h5}", "--space-parallel", "2"], None),
+    (["refine", "{h5}", "--space-parallel", "2", "--data-parallel", "2"], None),
+    (["batch", "{tree}", "--pack-transfer"],
+     "--pack-transfer is not supported: the PyTorch port drops the JAX package's relay"),
+], ids=["analyze-space-batch-planes", "batch-size", "refine-space", "refine-space-and-data",
+        "batch-pack-transfer"])
 def test_cli_rejects_the_unported_spatial_path(tmp_path, capsys, argv, message):
+    """The mesh flags' usage errors.  ``refine --space-parallel`` without
+    ``--tunnel-basins`` was one of them until the spatial refine was ported:
+    those cases (``message`` None) now run the verb, and its CSV equals the
+    JAX CLI's ``refine``."""
     _h5_tree(tmp_path / "exp")
     h5 = _h5(tmp_path / "p.h5", cells(0))
     argv = [a.format(tree=tmp_path / "exp", h5=h5) for a in argv] + ["--device", "cpu"]
+    if message is None:
+        assert torch_cli(argv + ["--csv", str(tmp_path / "torch.csv")]) == 0
+        assert jax_cli(["refine", h5, "--csv", str(tmp_path / "jax.csv")]) == 0
+        got = (tmp_path / "torch.csv").read_bytes()
+        assert got == (tmp_path / "jax.csv").read_bytes() and got.count(b"\n") > 3
+        return
     with pytest.raises(SystemExit) as e:
         torch_cli(argv)
     assert e.value.code == 2

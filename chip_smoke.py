@@ -9,6 +9,8 @@ nonzero and no result line is printed):
      capability (must be 9.x), whether triton, h5py and matplotlib import
      (nothing below needs them), the nvcc in use, whether g++ runs and
      finds zlib.h (the native TIFF codec's build) and whether PIL imports;
+     the port's subpackages import (with their re-exports) and pull in
+     neither h5py nor matplotlib;
   2. build — the eleven kernels K1-K11 from csrc/ (one nvcc per source,
      in parallel), timed;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
@@ -190,7 +192,24 @@ nonzero and no result line is printed):
      n_space 2 and 4 equal to refine_plane_device (labels, markers, counts,
      centroid sums); K2, K3, K6, K7, K9, K10 and K11 launched; each run's
      wall, each watershed phase's rounds, passes a round and host syncs,
-     the card's peak and one position's working set.
+     the card's peak and one position's working set;
+ 16. multi-host (``multihost_phase``) — two fresh interpreters
+     (``MULTIHOST_CHILD``, a free loopback port, a time limit of
+     ``MULTIHOST_TIMEOUT_S``; a failed child has its peer killed), each
+     ``initialize_multihost(coordinator, 2, pid, devices=["cuda:0",
+     "cuda:0"])`` (a global 2x2 mesh), then again with the default devices
+     (one card a process: 2x1); each runs make_sharded_segment_fn with
+     tables on its rows of phase 4's first [4,2048,2048] planes and gathers
+     with process_allgather(tiled=True); both processes' gathered outputs
+     equal to the one-device pass on the card at tolerance 0; K1-K4, K6
+     and K8 launched in each child's counted run (after a warm-up); each
+     child's launches, wall, gather time and peak, beside the same
+     function on a 1x1 mesh and fused_segment_batch;
+ 17. the oracle at full width (``oracle_phase``) — the card's
+     analyze_plane(merged=True) on bench plane 0 (one strain) and on phase
+     6's RFP and DAPI planes fused (two strains), each held field for field
+     to the port's oracle (``oracle.parity.assert_plane_parity``); the
+     oracle's host seconds.
 Phase 3 also holds the band modes of the space axis (``band_checks``): K1
 on row-padded bands, K5 with a row offset (its value sums too; one offset of
 2^20 + 77 whose digits carry) and K8 counting its own rows (both routes), on
@@ -210,17 +229,18 @@ the plain flood converged), edt at cap 20 (bit patterns) and boundary_mask
 odd [3,97,130] batch, each against its plain route on the card.
 The line before the last is the per-kernel JSON record (``launches`` sums
 the batch, analyze, refine, threshold, zstack, morphology, nanosims,
-tunnel, data axis, space axis and spatial refine paths' runs,
+tunnel, data axis, space axis, spatial refine, multi-host (both phase 16
+children of both runs) and oracle paths' runs,
 ``bound_ms`` is the bytes each function must move over 3.35 TB/s,
 ``more_shapes`` holds K2's and K4's threshold-path shapes and K6's device
 time; ``zstack`` holds phase 10's numbers, ``nanosims`` and
 ``morphology`` phase 11's, ``tunnel`` phase 12's, ``data_axis`` phase 13's,
-``space_axis`` phase 14's, ``space_refine`` phase 15's); the last line is
-{"ok": true, ...}.
+``space_axis`` phase 14's, ``space_refine`` phase 15's, ``multihost``
+phase 16's, ``oracle`` phase 17's); the last line is {"ok": true, ...}.
 
-The script imports the port, bench.py's plane generator, numpy, scipy and
-PIL: nothing of JAX and nothing of the JAX package, which it checks before
-the record line.  CSV parity of the port with the JAX package is held in
+The script (and phase 16's children) imports the port, bench.py's plane
+generator, numpy, scipy and PIL: nothing of JAX and nothing of the JAX
+package, which it checks before the record line.  CSV parity of the port with the JAX package is held in
 tests/test_torch_analysis.py, tests/test_torch_refine.py and
 tests/test_torch_nanosims.py.
 """
@@ -3267,6 +3287,248 @@ def space_refine_phase(card: str, dev, stack8, results8, rcfg, reset_counts,
     return launches, record
 
 
+# ---- multi-host (phase 16) ---------------------------------------------------
+
+MULTIHOST_FIELDS = ("den", "lab", "particle_ct", "n_comp", "filled", "overlap_px", "converged",
+                    "seg", "area", "class_id")
+MULTIHOST_TIMEOUT_S = 300
+# one process of phase 16: join the gloo group, run the band-sharded segment
+# with tables on this process's rows of the global batch (a warm-up run, then
+# the counted and timed one), gather every process's rows and write them out
+MULTIHOST_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+import chip_smoke
+from particle_col_image_segmentation_tpu_torch.config import AnalysisConfig
+from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
+    initialize_multihost, process_allgather)
+from particle_col_image_segmentation_tpu_torch.parallel.sharded import make_sharded_segment_fn
+
+coord, pid, npy, out, devices = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4], \
+    json.loads(sys.argv[5])
+t0 = time.perf_counter()
+mesh = initialize_multihost(coord, 2, pid, devices=devices, timeout=120)
+init_s = time.perf_counter() - t0
+batch = np.load(npy)
+fn = make_sharded_segment_fn(mesh, AnalysisConfig(max_regions=chip_smoke.MAX_REGIONS),
+                             with_tables=True)
+fn(batch)
+torch.cuda.synchronize()
+reset_counts, read_counts = chip_smoke.launch_counters()
+torch.cuda.reset_peak_memory_stats(0)
+reset_counts()
+t0 = time.perf_counter()
+outs = fn(batch)
+torch.cuda.synchronize()
+wall_s = time.perf_counter() - t0
+launches = read_counts()
+t0 = time.perf_counter()
+gathered = process_allgather(outs, tiled=True)
+gather_s = time.perf_counter() - t0
+np.savez(out, **dict(zip(chip_smoke.MULTIHOST_FIELDS, gathered)))
+with open(out + ".json", "w") as f:
+    json.dump({"mesh": mesh.shape, "local_rows": list(mesh.local_rows()), "init_s": init_s,
+               "wall_s": wall_s, "gather_s": gather_s, "launches": launches,
+               "peak_gib": torch.cuda.max_memory_allocated(0) / 2**30}, f)
+torch.distributed.destroy_process_group()
+loaded = [k for k in sys.modules if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu")]
+assert not loaded, f"JAX or the JAX package was imported: {loaded[:5]}"
+print(f"MULTIHOST-PASS-{pid}", flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_pair(tmp: str, tag: str, npy: str, devices) -> list:
+    """Phase 16's two processes on a fresh loopback port, their output in
+    files; a failed child has its peer killed, and so does the time limit.
+    Returns each child's (output path, stdout)."""
+    coord = f"127.0.0.1:{free_port()}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    procs, logs = [], []
+    for pid in (0, 1):
+        out = os.path.join(tmp, f"{tag}_{pid}.npz")
+        log_path = os.path.join(tmp, f"{tag}_{pid}.log")
+        logs.append((out, log_path))
+        with open(log_path, "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MULTIHOST_CHILD, coord, str(pid), npy, out,
+                 json.dumps(devices)], stdout=fh, stderr=subprocess.STDOUT, cwd=here, env=env))
+    deadline = time.monotonic() + MULTIHOST_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # one failed: its peer would wait for it until its own timeout
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    result = []
+    for pid, (p, (out, log_path)) in enumerate(zip(procs, logs)):
+        with open(log_path) as fh:
+            text = fh.read()
+        if p.returncode != 0 or f"MULTIHOST-PASS-{pid}" not in text:
+            raise AssertionError(f"phase 16 {tag}: process {pid} exited {p.returncode} "
+                                 f"(time limit {MULTIHOST_TIMEOUT_S} s):\n{text[-3000:]}")
+        result.append((out, text))
+    return result
+
+
+def multihost_phase(card: str, dev, x4, cfg) -> tuple:
+    """Two processes on one card, each with ``initialize_multihost(coordinator,
+    2, pid, devices=...)``: ``["cuda:0", "cuda:0"]`` (a global 2x2 mesh) and
+    the default devices (every card of the process: 2x1 here).  Each runs
+    ``make_sharded_segment_fn(mesh, cfg, with_tables=True)`` on this
+    process's rows of phase 4's first [4,2048,2048] planes and gathers with
+    ``process_allgather(tiled=True)``; both gathered files must equal the
+    one-device pass on the card at tolerance 0 (``fused_segment_batch`` for
+    seg, n_comp, area, class_id, particle_ct, converged; its median, CCL
+    and fill steps for den, lab, filled and overlap_px).  K1-K4, K6 and K8
+    must launch in each child's counted run.  Returns (the children's
+    launches summed, the record-line entry)."""
+    import numpy as np
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.models.batch import fused_segment_batch
+    from particle_col_image_segmentation_tpu_torch.ops.ccl import connected_components_auto
+    from particle_col_image_segmentation_tpu_torch.ops.fill_tiles import particle_fill_step_auto
+    from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import (
+        median_label_filter_auto,
+    )
+    from particle_col_image_segmentation_tpu_torch.parallel import make_mesh
+    from particle_col_image_segmentation_tpu_torch.parallel.sharded import (
+        make_sharded_segment_fn,
+    )
+
+    t_phase = time.perf_counter()
+    seg, num, areas, classes, particle_px, _, _, conv = fused_segment_batch(x4, cfg)
+    den = median_label_filter_auto(x4, cfg.denoise_size, cfg.num_classes)
+    lab = connected_components_auto(den, num_classes=cfg.num_classes,
+                                    max_iters=cfg.ccl_max_iters)
+    cap = max(cfg.dilation_radius, cfg.distance_threshold)
+    filled, overlap = particle_fill_step_auto(den, 2, 1, cap, cfg.distance_threshold ** 2,
+                                              cfg.dilation_radius ** 2)
+    want = dict(zip(MULTIHOST_FIELDS, (den, lab, particle_px, num, filled, overlap, conv, seg,
+                                       areas, classes)))
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    if not want["converged"].all():
+        raise AssertionError("phase 16: the one-device pass did not converge")
+    one = make_sharded_segment_fn(make_mesh(devices=[dev]), cfg, with_tables=True)
+    one_wall_s, one_out = median_wall_s(lambda: one(x4))
+    for name, got in zip(MULTIHOST_FIELDS, one_out):
+        if not np.array_equal(got.cpu().numpy(), want[name]):
+            raise AssertionError(f"phase 16: the 1x1 sharded segment's {name} differs from the "
+                                 "one-device pass")
+    fused_ms = time_ms(lambda: fused_segment_batch(x4, cfg), reps=3)
+    del one_out
+    torch.cuda.empty_cache()
+    launches = {k: 0 for k, *_ in KERNELS}
+    record = {"shape": list(x4.shape), "max_regions": cfg.max_regions,
+              "one_device_sharded_wall_s": one_wall_s, "fused_segment_batch_ms": fused_ms,
+              "runs": {}}
+    with tempfile.TemporaryDirectory(prefix="pcis_multihost_") as tmp:
+        npy = os.path.join(tmp, "planes.npy")
+        np.save(npy, x4.cpu().numpy())
+        for tag, devices in (("cuda:0 x2", ["cuda:0", "cuda:0"]), ("default devices", None)):
+            t0 = time.perf_counter()
+            children = run_pair(tmp, tag.replace(" ", "_").replace(":", ""), npy, devices)
+            pair_s = time.perf_counter() - t0
+            runs = []
+            for pid, (out, _) in enumerate(children):
+                got = dict(np.load(out))
+                with open(out + ".json") as fh:
+                    info = json.load(fh)
+                for name in MULTIHOST_FIELDS:
+                    g = got.get(name)
+                    if g is None or g.shape != want[name].shape or not np.array_equal(
+                            g, want[name]):
+                        raise AssertionError(f"phase 16 {tag}: process {pid}'s gathered {name} "
+                                             f"differs from the one-device pass")
+                for k in ("K1", "K2", "K3", "K4", "K6", "K8"):
+                    if info["launches"][k] <= 0:
+                        raise AssertionError(f"phase 16 {tag}: process {pid} never launched {k}")
+                for k, n in info["launches"].items():
+                    launches[k] += n
+                log(f"phase 16 multihost {tag} [{card}]: process {pid} of 2, mesh "
+                    f"{info['mesh']}, rows {info['local_rows']}: segment with tables "
+                    f"{info['wall_s']:.4f} s wall, process_allgather {info['gather_s']:.4f} s "
+                    f"host, init {info['init_s']:.2f} s, peak {info['peak_gib']:.3f} GiB; "
+                    f"launches {info['launches']}")
+                runs.append(info)
+            record["runs"][tag] = {"processes": runs, "pair_wall_s": pair_s}
+            log(f"phase 16 multihost {tag}: both processes' gathered outputs "
+                f"({', '.join(MULTIHOST_FIELDS)}) == the one-device pass on the card at "
+                f"tolerance 0; the pair took {pair_s:.1f} s from start to exit")
+    log(f"phase 16 multihost [{card}]: beside them, the same segment on a 1x1 mesh of {dev} "
+        f"{one_wall_s:.4f} s wall (median of 3), fused_segment_batch {fused_ms:.3f} ms "
+        f"(CUDA events) on {list(x4.shape)}")
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16 multihost: {record['phase_s']:.1f} s wall")
+    return launches, record
+
+
+# ---- the oracle at full width (phase 17) -----------------------------------------
+
+
+def oracle_phase(card: str, dev, planes, acfg, reset_counts, read_counts) -> tuple:
+    """The card's ``analyze_plane(img, cell_types, acfg, merged=True)`` at
+    2048² held against the port's oracle field by field
+    (``oracle.parity.assert_plane_parity``: denoise, positions and clusters
+    with area, centroid at atol 1e-9 and bbox, ``cluster.cells``, the merged
+    groups with their member regions, the particle fill, counts and
+    densities), on bench plane 0 (one strain) and on phase 6's RFP+DAPI
+    planes fused as the analyze path fuses them (two strains).  Returns
+    (launches summed, the record-line entry)."""
+    import numpy as np
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.config import BASE_TYPE_MAP
+    from particle_col_image_segmentation_tpu_torch.models import analyze_plane
+    from particle_col_image_segmentation_tpu_torch.models.multichannel import fuse_channels
+    from particle_col_image_segmentation_tpu_torch.oracle.parity import assert_plane_parity
+
+    fused = fuse_channels({"RFP": torch.from_numpy(planes[8]),
+                           "DAPI": torch.from_numpy(planes[9])}, ["3D05", "6B07"]).numpy()
+    cases = ((f"bench plane 0 [{H},{W}], one strain", planes[0], dict(SINGLE)),
+             (f"phase 6's RFP+DAPI planes fused [{H},{W}], two strains", fused,
+              dict(BASE_TYPE_MAP)))
+    launches = {k: 0 for k, *_ in KERNELS}
+    record = {}
+    for name, img, ct in cases:
+        reset_counts()
+        t0 = time.perf_counter()
+        ours = analyze_plane(img, ct, acfg, merged=True, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        got = read_counts()
+        for k in ("K1", "K2", "K3", "K5", "K8", "K9"):
+            if got[k] <= 0:
+                raise AssertionError(f"phase 17 {name}: {k} was never launched")
+        t0 = time.perf_counter()
+        seen = assert_plane_parity(ours, np.asarray(img), ct, acfg)
+        oracle_s = time.perf_counter() - t0
+        for k, n in got.items():
+            launches[k] += n
+        record[name] = {"analyze_plane_s": card_s, "oracle_s": oracle_s, "launches": got, **seen}
+        log(f"phase 17 oracle {name}: analyze_plane(merged=True) on the card [{card}] "
+            f"{card_s:.2f} s == the port's oracle field for field ({seen['regions']} regions, "
+            f"{seen['groups']} merged groups, counts {seen['counts']}); the oracle and the "
+            f"comparison took {oracle_s:.1f} s on the host; launches {got}")
+    return launches, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
@@ -3363,6 +3625,15 @@ def main() -> int:
     log(f"phase 1 env: triton {imports('triton')}; h5py {imports('h5py')}; "
         f"matplotlib {imports('matplotlib')}; nvcc {_kernels._nvcc()}")
     log(f"phase 1 env: the TIFF codec's toolchain: g++ {host_compiler()}; PIL {imports('PIL')}")
+    subpackages = ("io", "models", "utils", "labels", "report", "parallel", "oracle", "viz")
+    before = set(sys.modules)
+    for sub in subpackages:  # their re-exports need neither h5py nor matplotlib
+        __import__(f"particle_col_image_segmentation_tpu_torch.{sub}")
+    heavy = sorted({"h5py", "matplotlib"} & {k.split(".")[0] for k in set(sys.modules) - before})
+    if heavy:
+        raise AssertionError(f"importing the port's subpackages pulled in {heavy}")
+    log(f"phase 1 env: the port's subpackages {', '.join(subpackages)} import without h5py "
+        "or matplotlib")
     if cap[0] != 9:
         raise RuntimeError(f"compute capability {cap} is not Hopper (9.x)")
 
@@ -4150,6 +4421,12 @@ def main() -> int:
     space_refine_launches, space_refine = space_refine_phase(card, dev, stack8, results, rcfg,
                                                              reset_counts, read_counts)
 
+    # ---- phase 16: multi-host, two processes on the card ---------------------------
+    multihost_launches, multihost = multihost_phase(card, dev, x4, cfg)
+
+    # ---- phase 17: the card's analyze_plane against the oracle at 2048² ----------
+    oracle_launches, oracle = oracle_phase(card, dev, planes, acfg, reset_counts, read_counts)
+
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
     if loaded:
@@ -4177,7 +4454,8 @@ def main() -> int:
              "threshold": threshold_launches, "zstack": zstack_launches,
              "morphology": morph_launches, "nanosims": nanosims_launches,
              "tunnel": tunnel_launches, "data_axis": data_launches,
-             "space_axis": space_launches, "space_refine": space_refine_launches}
+             "space_axis": space_launches, "space_refine": space_refine_launches,
+             "multihost": multihost_launches, "oracle": oracle_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
          "launches": sum(v[k] for v in paths.values()),
@@ -4187,7 +4465,8 @@ def main() -> int:
          **({"more_shapes": more_shapes[k]} if k in more_shapes else {})}
         for k, name, src, tpu in KERNELS
     ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel,
-        "data_axis": data_axis, "space_axis": space_axis, "space_refine": space_refine}
+        "data_axis": data_axis, "space_axis": space_axis, "space_refine": space_refine,
+        "multihost": multihost, "oracle": oracle}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -13,7 +13,12 @@ centroid table, nearest-neighbour distances; and NanoSIMS ROI analysis,
 and ``refine`` over a mesh's data axis, each device running the
 single-device pipeline on its chunk of planes; ``batch``, ``analyze``
 and ``refine`` over its space axis, each plane's rows in bands over the
-devices).  Each TPU kernel on those paths
+devices; multi-host, ``initialize_multihost`` joining processes over
+``torch.distributed`` into one mesh whose band-sharded functions each
+process runs on its own rows, ``process_allgather`` gathering their
+outputs); and the whole reference-semantics oracle
+(``oracle.reference_pipeline``, NumPy/SciPy) that the analysis plane is
+held against (``oracle.parity``).  Each TPU kernel on those paths
 has a hand-written CUDA kernel for Hopper (``csrc/``, built with nvcc on
 first use, see ``_kernels``) beside a plain PyTorch version; CUDA tensors
 take the kernels, CPU tensors the plain versions (``_dispatch``).
@@ -34,8 +39,11 @@ Layout mirrors the JAX package:
              class maps
   models/    fused_segment_batch and run_batch; analyze_plane, channel
              fusion and run_analysis; refine_plane_device and refine_boundaries
-  oracle/, report/, viz/   host helpers, CSV writers, figures
-  parallel/  the device mesh and its data axis's worker threads
+  oracle/    the reference pipeline and skimage primitives in NumPy/SciPy,
+             the plane-parity check
+  report/, viz/   CSV writers, figures
+  parallel/  the device mesh, its data axis's worker threads, its space
+             axis's bands and seam joins, multi-host
   utils/     stage tracing, logging, the run manifest
   cli.py     the ``analyze``, ``batch``, ``refine``, ``split``, ``normalize``
              and ``nanosims`` verbs

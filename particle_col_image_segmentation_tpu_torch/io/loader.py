@@ -74,6 +74,21 @@ def prefetch_map_paths(
         pool.shutdown(wait=False, cancel_futures=True)
 
 
+def prefetch_map(
+    load_fn: Callable[[str], np.ndarray],
+    paths: Sequence[str],
+    num_workers: int = 4,
+    prefetch: int = 8,
+    on_error: str = "raise",
+) -> Iterator[np.ndarray]:
+    """Yield ``load_fn(path)`` in order with ``prefetch`` loads in flight."""
+    for _, plane in prefetch_map_paths(
+        load_fn, paths, num_workers=num_workers, prefetch=prefetch,
+        on_error=on_error,
+    ):
+        yield plane
+
+
 def batched_device_iterator(
     load_fn: Callable[[str], np.ndarray],
     paths: Sequence[str],

@@ -69,3 +69,16 @@ def get_cell_type_map_from_channel(
     if channel == "RFP" and strains in (["6B07"], ["6B07", "C3M10"]):
         return {1: "Particle", 2: "Background"}
     return {1: CHANNEL_MAP[channel], 2: "Particle", 3: "Background"}
+
+
+def particle_value(cell_types: Dict[int, str]) -> int:
+    """The pixel value whose class is Particle (reference: :939-942)."""
+    for val, name in cell_types.items():
+        if name == "Particle":
+            return val
+    raise ValueError("No Particle class in cell-type map")
+
+
+def strain_values(cell_types: Dict[int, str]) -> Dict[str, int]:
+    """strain name → pixel value, for strains present in the map."""
+    return {name: val for val, name in cell_types.items() if name in CELL_TYPES}

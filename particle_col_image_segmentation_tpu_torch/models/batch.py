@@ -33,6 +33,7 @@ from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SPACE_AXIS,
     make_mesh,
+    require_one_process,
     run_per_device,
 )
 from particle_col_image_segmentation_tpu_torch.parallel.sharded import shard_rows
@@ -128,7 +129,9 @@ def make_fused_segment_fn(mesh, cfg: AnalysisConfig, particle_val: int = 2, cell
 
     Planes are independent, so each device runs the whole per-plane pipeline
     on its chunk with no communication (the JAX package's ``shard_map`` over
-    "data"), one worker thread a device (``parallel.run_per_device``).
+    "data"), one worker thread a device (``parallel.run_per_device``).  On a
+    mesh whose rows span processes it runs this process's devices only
+    (``Mesh.local``): one chunk each.
     ``packed`` is a relay argument: only False binds."""
     refuse_relay_arg("make_fused_segment_fn", "packed", packed, False)
     if mesh.shape[SPACE_AXIS] > 1:
@@ -136,7 +139,7 @@ def make_fused_segment_fn(mesh, cfg: AnalysisConfig, particle_val: int = 2, cell
             f"make_fused_segment_fn runs whole planes: a mesh with a space axis "
             f"(n_space = {mesh.shape[SPACE_AXIS]}) takes make_space_sharded_segment_fn"
         )
-    devices = list(mesh.flat)
+    devices = list(mesh.local().flat)
     cell_vals = tuple(cell_vals)
 
     def fn(chunks):
@@ -259,6 +262,7 @@ def run_batch(
     """
     refuse_relay_arg("run_batch", "sharding", sharding, None)
     refuse_relay_arg("run_batch", "pack_transfer", pack_transfer, False)
+    require_one_process(mesh, "run_batch")
     todo = [p for p in paths if manifest is None or not manifest.is_done(p)]
     if len(todo) < len(paths):
         _log.info("manifest: skipping %d completed planes", len(paths) - len(todo))

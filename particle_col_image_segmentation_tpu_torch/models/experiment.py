@@ -58,6 +58,7 @@ from particle_col_image_segmentation_tpu_torch.models.single_channel import (
     analyze_plane,
     host,
 )
+from particle_col_image_segmentation_tpu_torch.parallel.mesh import require_one_process
 from particle_col_image_segmentation_tpu_torch.parallel.sharded import make_sharded_dapi_dedup_fn
 from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
@@ -466,7 +467,9 @@ def run_analysis(
     ``batch_planes`` > 1 batches same-shape planes from the whole tree into
     single device launches (CLI ``analyze --batch-planes``; byte-identical
     CSVs, mutually exclusive with ``mesh``).  ``load_fn`` reads one plane
-    from a discovered path (default: the HDF5 reader)."""
+    from a discovered path (default: the HDF5 reader).  It runs in one
+    process: a mesh whose rows span processes raises."""
+    require_one_process(mesh, "run_analysis")
     device = torch.device(device) if mesh is None else mesh.flat[0]
     folders = get_h5_files_recursively(top_level_folder)
     device_outs = None

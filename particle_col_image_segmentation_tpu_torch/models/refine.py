@@ -56,6 +56,7 @@ from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SPACE_AXIS,
     make_mesh,
+    require_one_process,
     run_per_device,
 )
 from particle_col_image_segmentation_tpu_torch.parallel.sharded import make_sharded_refine_fn
@@ -259,8 +260,10 @@ def refine_boundaries_sharded(probabilities: np.ndarray, cfg: RefineConfig = Ref
 
     ``cfg.tunnel_basins`` runs data-parallel over ALL mesh devices, whatever
     the space axis (each plane floods on one device; see
-    ``_check_tunnel_chunk_fits``).
+    ``_check_tunnel_chunk_fits``).  It runs in one process: a mesh whose
+    rows span processes raises.
     """
+    require_one_process(mesh, "refine_boundaries_sharded")
     probs = np.asarray(probabilities)
     if stack is None:
         stack = probs.ndim == 4

@@ -3,7 +3,7 @@ plain local maxima's plateau flood.
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/scans.py``
 (``seg_min_scan``, ``seg_min_scan_bidi``, ``seg_or_scan_bidi``,
-``_flip_same``).  Where JAX runs an
+``_flip_same``, ``directional_distance``).  Where JAX runs an
 associative scan over (value, boundary) pairs, this uses one ``cummin`` over
 int64 keys: ``key = value - segment_number·2³²``.  Segment numbers grow along
 the axis, so every key of an earlier segment exceeds every key of the
@@ -15,7 +15,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["seg_min_scan", "seg_min_scan_bidi", "seg_or_scan_bidi"]
+__all__ = [
+    "seg_min_scan",
+    "seg_min_scan_bidi",
+    "seg_or_scan_bidi",
+    "directional_distance",
+]
 
 
 def seg_min_scan(vals: torch.Tensor, boundary: torch.Tensor, axis: int) -> torch.Tensor:
@@ -55,3 +60,18 @@ def _flip_same(same_prev: torch.Tensor, axis: int) -> torch.Tensor:
     rolled = torch.roll(torch.flip(same_prev, (axis,)), 1, axis)
     rolled.select(axis, 0).fill_(False)
     return rolled
+
+
+def directional_distance(feature: torch.Tensor, axis: int, cap: int) -> torch.Tensor:
+    """Distance (element count) to the nearest feature pixel at or before each
+    position along ``axis``, capped; int32, 0 on feature pixels.
+
+    One ``cummax`` of the last feature index along the axis (JAX runs a
+    log-depth associative scan over (distance, span length) pairs)."""
+    n = feature.shape[axis]
+    shape = [1] * feature.ndim
+    shape[axis] = n
+    idx = torch.arange(n, dtype=torch.int64, device=feature.device).view(shape)
+    last = torch.where(feature.to(torch.bool), idx, -(n + abs(int(cap)) + 1))
+    last = torch.cummax(last, dim=axis).values
+    return torch.clamp(idx - last, max=cap).to(torch.int32)

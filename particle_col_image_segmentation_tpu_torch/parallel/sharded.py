@@ -37,6 +37,13 @@ them:
   resume each band under frozen halo rows) with the halo rows exchanged
   between rounds until no band's edge rows change, which reaches the
   plane's unique fixpoint (``ops.watershed``).
+
+On a mesh whose data rows span processes (``parallel.mesh.initialize_multihost``)
+every factory takes the global [B, H, W] batch and runs only the positions
+of this process's rows (``_positions``, ``split_bands``): it returns this
+process's planes, ``B · n_local_rows / n_data`` of them, and
+``process_allgather(..., tiled=True)`` gives the global outputs.  A plane
+never crosses a process, so nothing here talks to another process.
 """
 
 from __future__ import annotations
@@ -133,27 +140,35 @@ def _check_split(B: int, H: int, mesh) -> Tuple[int, int]:
     return B // n_data, H // n_space
 
 
+def _positions(mesh) -> List[torch.device]:
+    """The devices of the positions this process runs, row by row: the rows
+    it owns (``Mesh.local``), every row of a one-process mesh.  The band
+    lists below are in this order, and ``_rows_of`` indexes it."""
+    return list(mesh.local().flat)
+
+
 def split_bands(x, mesh) -> List[torch.Tensor]:
     """[B, H, W] (NumPy or a tensor) → one contiguous [B/n_data, H/n_space,
     W] band a mesh position (``mesh.flat`` order), each on its device:
-    planes over "data", rows over "space"."""
+    planes over "data", rows over "space".  On a mesh whose rows span
+    processes, ``x`` is the global batch and only this process's positions
+    get their bands."""
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
     if x.ndim != 3:
         raise ValueError(f"expected [B, H, W], got {tuple(x.shape)}")
     b, h = _check_split(x.shape[0], x.shape[1], mesh)
-    n_space = mesh.shape[SPACE_AXIS]
     return [
-        x[(k // n_space) * b:(k // n_space + 1) * b,
-          (k % n_space) * h:(k % n_space + 1) * h].to(d).contiguous()
-        for k, d in enumerate(mesh.flat)
+        x[r * b:(r + 1) * b, j * h:(j + 1) * h].to(d).contiguous()
+        for r in mesh.local_rows() for j, d in enumerate(mesh.devices[r])
     ]
 
 
 def join_bands(bands: Sequence[torch.Tensor], mesh, device=None) -> torch.Tensor:
-    """``split_bands``' inverse: the [B, H, W] batch on ``device`` (default:
-    the mesh's first device)."""
-    device = torch.device(device) if device is not None else mesh.flat[0]
+    """``split_bands``' inverse: the [B, H, W] batch (this process's planes,
+    on a mesh whose rows span processes) on ``device`` (default: the first
+    device of this process's positions)."""
+    device = torch.device(device) if device is not None else _positions(mesh)[0]
     n_space = mesh.shape[SPACE_AXIS]
     rows = [
         torch.cat([t.to(device) for t in bands[i:i + n_space]], dim=-2)
@@ -163,9 +178,10 @@ def join_bands(bands: Sequence[torch.Tensor], mesh, device=None) -> torch.Tensor
 
 
 def _rows_of(mesh) -> List[List[int]]:
-    """The flat positions of each data row, in space order."""
+    """The positions (``_positions`` indices) of each data row this process
+    runs, in space order."""
     n_space = mesh.shape[SPACE_AXIS]
-    n = len(mesh.flat)
+    n = len(_positions(mesh))
     return [list(range(i, i + n_space)) for i in range(0, n, n_space)]
 
 
@@ -500,7 +516,7 @@ def shard_rows(
     ``seg``, ``area`` and ``class_id`` [b, R+1]; with ``with_merge`` (which
     takes "full") ``g_ctx`` [b, S+1, R+1].  ``tables=None`` stops after the
     CCL; ``need_lab`` / ``need_fill`` skip the global labels / the fill."""
-    devices = list(mesh.flat)
+    devices = _positions(mesh)
     n_space = mesh.shape[SPACE_AXIS]
     b, h, W = bands[0].shape
     H = h * n_space
@@ -629,8 +645,9 @@ def make_sharded_segment_fn(
     ``with_tables`` also seg [B,H,W] (global compact ids, skimage raster
     order), area [B,R+1], class_id [B,R+1]; with ``with_merge`` (implies
     tables) also g_ctx [B,S+1,R+1].  Outputs lie on the mesh's first
-    device.  ``max_iters`` is the JAX package's budget for its distributed
-    fixpoints; the seam join here is exact in one pass."""
+    device (of this process's rows, whose planes alone it returns where the
+    mesh spans processes).  ``max_iters`` is the JAX package's budget for
+    its distributed fixpoints; the seam join here is exact in one pass."""
     del max_iters
     with_tables = with_tables or with_merge
     cell_vals = tuple(cell_vals)
@@ -640,7 +657,7 @@ def make_sharded_segment_fn(
             split_bands(imgs, mesh), mesh, cfg, particle_val, cell_vals,
             tables="counts" if with_tables else None, with_merge=with_merge,
         )
-        dev = mesh.flat[0]
+        dev = _positions(mesh)[0]
         out = (
             _planes(rows, "den", mesh), _planes(rows, "lab", mesh),
             _cat([r["particle_ct"] for r in rows], dev),
@@ -699,7 +716,7 @@ def make_sharded_full_analysis_fn(
             split_bands(imgs, mesh), mesh, cfg, particle_val, cell_vals,
             tables="full", with_merge=with_merge, denoise=denoise, need_lab=need_lab,
         )
-        dev = mesh.flat[0]
+        dev = _positions(mesh)[0]
         S = len(cell_vals)
         overlap = _cat([
             torch.stack(r["overlaps"], dim=-1) if S
@@ -744,7 +761,7 @@ def dedup_rows(dapi_bands, other_bands, mesh, cfg: AnalysisConfig) -> List[tuple
     one (updated dapi bands, num_regions [b], converged [b]) a data row:
     the cross-band CCL and compaction of the DAPI cell mask, the overlap
     sums added over the bands (K4), then K6 reads each pixel's verdict."""
-    devices = list(mesh.flat)
+    devices = _positions(mesh)
     b, h, W = dapi_bands[0].shape
     R1 = cfg.max_regions + 1
 
@@ -797,7 +814,7 @@ def make_sharded_dapi_dedup_fn(mesh, cfg: AnalysisConfig, max_iters: int = 128):
 
     def fn(dapi, other):
         rows = dedup_rows(split_bands(dapi, mesh), split_bands(other, mesh), mesh, cfg)
-        dev = mesh.flat[0]
+        dev = _positions(mesh)[0]
         return (
             join_bands([t for r in rows for t in r[0]], mesh),
             _cat([r[1] for r in rows], dev),
@@ -821,7 +838,7 @@ def _edt_bands(feature_bands, mesh, probe_cap: int, stats: dict):
     otherwise that row takes the exact transform: each band's row pass,
     the plane's dh² gathered onto every band, and each band's own rows
     min-plussed with global row indices."""
-    devices = list(mesh.flat)
+    devices = _positions(mesh)
     b, h, W = feature_bands[0].shape
     n_space = mesh.shape[SPACE_AXIS]
     H = n_space * h
@@ -879,7 +896,7 @@ def _maxima_bands(d2_bands, mesh, max_iters: int):
     band with the values' own classes and the seam join; a plateau is
     "bad" where any of its pixels, on any band, has a higher neighbour.
     Returns (maxima bands, converged [b] a position)."""
-    devices = list(mesh.flat)
+    devices = _positions(mesh)
     b, h, W = d2_bands[0].shape
     padded = _pad_rows(d2_bands, mesh, 1, "constant", _I32_MIN)  # never "higher"
 
@@ -914,7 +931,7 @@ def _marker_bands(maxima_bands, mesh, max_iters: int, max_regions: int):
     join over foreground pairs only and the K6 rank tables.  Returns (marker
     bands: global raster ranks, 0 off the maxima; num [b] a data row on its
     first device; converged [b] a position)."""
-    devices = list(mesh.flat)
+    devices = _positions(mesh)
     b, h, W = maxima_bands[0].shape
 
     def label(mx):
@@ -962,7 +979,7 @@ def _band_rounds(run, mesh, states, max_iters: int, log: dict) -> List[np.ndarra
     has work, or after ``max_iters`` rounds.  Returns each data row's
     per-plane converged flags (host bool [b]): no band of the plane still
     changing and no edge row changed in the last round it ran."""
-    devices = list(mesh.flat)
+    devices = _positions(mesh)
     rows = _rows_of(mesh)
     b = states[0][0].shape[0]
     pending = {k: np.zeros((2, b), bool) for k in range(len(devices))}  # changing, edges
@@ -999,7 +1016,7 @@ def _watershed_bands(img_bands, marker_bands, mask_bands, mesh, connectivity: in
     ``max_iters`` rounds.  Both phases' fixpoints are unique, so the labels
     equal one device's.  Returns (label bands, converged [b] a data row on
     its first device)."""
-    devices = list(mesh.flat)
+    devices = _positions(mesh)
     h = img_bands[0].shape[-2]
     img = _pad_rows([x.to(torch.float32) for x in img_bands], mesh, 1, "constant", _WS_INF)
     m = _pad_rows([x.to(torch.bool) for x in mask_bands], mesh, 1, "constant", False)
@@ -1042,7 +1059,7 @@ def _centroid_rows(label_bands, mesh, max_regions: int):
     """K7 on each band with its global rows (``row_offset``), summed over a
     data row's bands onto its first device: [b, R+1, 5] int32 (area, Σrow
     hi, Σrow lo, Σcol hi, Σcol lo), JAX's ``sums``."""
-    devices = list(mesh.flat)
+    devices = _positions(mesh)
     h = label_bands[0].shape[-2]
     n_space = mesh.shape[SPACE_AXIS]
     tables = _each(lambda lab, k: torch.stack(tuple(centroid_sums_auto(
@@ -1076,7 +1093,7 @@ def make_sharded_watershed_fn(mesh, connectivity: int = 1, max_iters: int = 4096
         labels, conv = _watershed_bands(img, split_bands(markers, mesh), m, mesh, connectivity,
                                         max_iters, stats)
         fn.last_stats = stats
-        dev = mesh.flat[0]
+        dev = _positions(mesh)[0]
         return join_bands(labels, mesh), _cat(conv, dev)
 
     fn.last_stats = {}
@@ -1116,7 +1133,7 @@ def make_sharded_refine_fn(mesh, threshold: float = 0.5, connectivity: int = 1,
         labels, conv_ws = _watershed_bands(bm, markers, binary, mesh, connectivity,
                                            max_iters, stats)
         fn.last_stats = stats
-        dev = mesh.flat[0]
+        dev = _positions(mesh)[0]
         conv = _cat([
             torch.stack([conv_max[k].to(dev) & conv_ccl[k].to(dev) for k in row]).all(dim=0)
             for row in _rows_of(mesh)], dev) & _cat(conv_ws, dev)

@@ -11,6 +11,7 @@ compared on valid rows, plus ``area`` on every row (the JAX scatter path
 holds segment-max identities on empty rows, the port zeros).
 """
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -170,6 +171,25 @@ def test_analyze_plane_passes_the_oracle_parity_checks(monkeypatch, seed, cell_t
     img = synthetic_label_plane(seed=seed, cell_types=cell_types, shape=(160, 160))
     ours = parity.assert_plane_parity(img, cell_types, CFG)
     assert isinstance(ours, torch_single.PlaneAnalysis)
+
+
+@pytest.mark.parametrize("cell_types", [dict(SINGLE), {1: "3D05", 2: "C3M10", 3: "Particle",
+                                                        4: "Background"}],
+                         ids=["1strain", "2strain"])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_analyze_plane_equals_the_ports_own_oracle(seed, cell_types):
+    """The port's ``oracle.parity.assert_plane_parity`` (the check the card
+    runs at 2048² in chip_smoke.py) on JAX's test_single_channel.py planes:
+    the port's CPU ``analyze_plane(merged=True)`` against the port's oracle."""
+    from particle_col_image_segmentation_tpu_torch.oracle import parity as torch_parity
+
+    img = synthetic_label_plane(seed=seed, cell_types=cell_types, shape=(192, 192))
+    ours = torch_single.analyze_plane(img, cell_types, TCFG, merged=True, device="cpu")
+    seen = torch_parity.assert_plane_parity(ours, img, cell_types, TCFG)
+    assert seen["regions"] > 5 and seen["groups"] > 0
+    broken = dataclasses.replace(ours, particle_area=ours.particle_area + 1)
+    with pytest.raises(AssertionError, match="particle area"):
+        torch_parity.assert_plane_parity(broken, img, cell_types, TCFG)
 
 
 def test_analyze_plane_errors_match_jax():

@@ -6,6 +6,8 @@ both packages, and every result must be equal: arrays exactly, floats
 bit for bit (tolerance 0).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 from scipy import ndimage as ndi
@@ -134,3 +136,179 @@ def test_boundary_iou(tolerance_px):
     assert got == jax_metrics.boundary_iou(a, b, tolerance_px) and 0 < got < 1
     flat = np.zeros((5, 5), np.int32)
     assert metrics.boundary_iou(flat, flat, tolerance_px) == 1.0
+
+
+# ---- the reference pipeline (oracle/reference_pipeline.py) -----------------
+
+from particle_col_image_segmentation_tpu.config import AnalysisConfig as JaxConfig  # noqa: E402
+from particle_col_image_segmentation_tpu.config import BASE_TYPE_MAP  # noqa: E402
+from particle_col_image_segmentation_tpu.oracle import reference_pipeline as jax_rp  # noqa: E402
+from particle_col_image_segmentation_tpu_torch.config import config_from_fields  # noqa: E402
+from particle_col_image_segmentation_tpu_torch.oracle import parity  # noqa: E402
+from particle_col_image_segmentation_tpu_torch.oracle import reference_pipeline as rp  # noqa: E402
+
+SINGLE = {1: "3D05", 2: "Particle", 3: "Background"}
+TWO = {1: "3D05", 2: "C3M10", 3: "Particle", 4: "Background"}
+RP_FUNCTIONS = ("denoise", "get_type", "get_cell_positions_and_areas",
+                "get_cell_clusters_from_distances", "get_merged_regions", "fill_particle_area",
+                "recreate_particle_area", "combine_cell_positions_and_clusters",
+                "get_rfp_base_arr", "combine_channels")
+
+
+def _configs(strict: bool):
+    jcfg = JaxConfig(max_regions=4096, strict_reference_errors=strict)
+    return jcfg, config_from_fields(jcfg)
+
+
+def _rp_planes():
+    """(name, plane, cell types): one strain, two strains, and a strain whose
+    regions are all clusters (no singles: the mean single area is NaN)."""
+    return {
+        "1strain": (synthetic_label_plane(seed=0, cell_types=SINGLE, shape=(160, 160)), SINGLE),
+        "2strain": (synthetic_label_plane(seed=3, cell_types=TWO, shape=(160, 160)), TWO),
+        "clusters_only": (synthetic_label_plane(seed=5, cell_types=SINGLE, shape=(160, 160),
+                                                n_cells_per_strain=0), SINGLE),
+    }
+
+
+def _same_region_dicts(got, want, cells: bool = True):
+    assert list(got) == list(want)
+    for k in want:
+        parity.assert_regions_equal(got[k], want[k], k)
+        assert [r.label for r in got[k]] == [r.label for r in want[k]]
+        if cells:
+            assert [getattr(r, "cells", None) for r in got[k]] == [
+                getattr(r, "cells", None) for r in want[k]]
+
+
+def _same_groups(got, want):
+    assert list(got) == list(want)
+    for k in want:
+        assert len(got[k]) == len(want[k])
+        for ga, gb in zip(got[k], want[k]):
+            assert ga["area"] == gb["area"] and ga["bbox"] == gb["bbox"]
+            assert ga["centroid"].tolist() == gb["centroid"].tolist()  # bit for bit
+            parity.assert_regions_equal(ga["regions"], gb["regions"])
+
+
+def test_the_reference_pipeline_holds_every_jax_function():
+    for name in RP_FUNCTIONS + ("normalize_ds_arr", "get_cell_counts_and_densities"):
+        f, jf = getattr(rp, name), getattr(jax_rp, name)
+        assert f.__module__ == rp.__name__, name
+        assert list(inspect.signature(f).parameters) == list(inspect.signature(jf).parameters)
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["fixed", "strict"])
+@pytest.mark.parametrize("case", list(_rp_planes()))
+def test_positions_clusters_and_merges_equal_jax(case, strict):
+    img, ct = _rp_planes()[case]
+    jcfg, tcfg = _configs(strict)
+    den = rp.denoise(img, tcfg)
+    _equal(den, jax_rp.denoise(img, jcfg))
+    regions = ond.regionprops(ond.label(den))
+    assert [rp.get_type(r, den) for r in regions] == [jax_rp.get_type(r, den) for r in regions]
+    if case == "clusters_only" and strict:  # the reference's int(area // nan)
+        with pytest.raises(ValueError, match="NaN") as got:
+            rp.get_cell_positions_and_areas(den, ct, True, tcfg)
+        with pytest.raises(ValueError) as want:
+            jax_rp.get_cell_positions_and_areas(den, ct, True, jcfg)
+        assert str(got.value) == str(want.value)
+        return
+    for merged in (False, True):
+        got = rp.get_cell_positions_and_areas(den, ct, merged, tcfg)
+        want = jax_rp.get_cell_positions_and_areas(den, ct, merged, jcfg)
+        _same_region_dicts(got[0], want[0], cells=False)
+        _same_region_dicts(got[1], want[1])
+        assert got[2] == want[2] and got[2] > 0
+        _same_groups(got[3], want[3])
+    pos, clusters = got[0], got[1]
+    if case == "clusters_only":
+        assert not pos["3D05"] and clusters["3D05"]
+        assert all(c.cells == 0 for c in clusters["3D05"])
+    # the merge on its own: CELL_TYPES order whatever the dicts' order, and
+    # the merged images
+    shuffled_pos = dict(reversed(list(pos.items())))
+    m_got, img_got = rp.get_cell_clusters_from_distances(den, shuffled_pos, clusters, ct, tcfg)
+    m_want, img_want = jax_rp.get_cell_clusters_from_distances(den, shuffled_pos, clusters, ct,
+                                                               jcfg)
+    _same_groups(m_got, m_want)
+    assert list(m_got) == [k for k in ("3D05", "6B07", "C3M10") if k in pos] + ["combined"]
+    assert list(img_got) == list(img_want)
+    for k in img_want:
+        _equal(img_got[k], img_want[k])
+    strain = next(k for k in pos if pos[k] or clusters[k])
+    regions = pos[strain] + clusters[strain]
+    val = next(v for v, n in ct.items() if n == strain)
+    g, gi = rp.get_merged_regions(den == val, regions, tcfg)
+    w, wi = jax_rp.get_merged_regions(den == val, regions, jcfg)
+    _same_groups({"x": g}, {"x": w})
+    _equal(gi, wi)
+    cnt = rp.get_cell_counts_and_densities(pos, clusters, got[2], tcfg)
+    assert cnt == jax_rp.get_cell_counts_and_densities(pos, clusters, got[2], jcfg)
+
+
+@pytest.mark.parametrize("case", ["1strain", "2strain"])
+def test_fill_and_recreate_particle_area_equal_jax(case):
+    img, ct = _rp_planes()[case]
+    jcfg, tcfg = _configs(False)
+    den = rp.denoise(img, tcfg)
+    particle = next(v for v, n in ct.items() if n == "Particle")
+    for cell in (v for v, n in ct.items() if n in ("3D05", "C3M10")):
+        got = rp.fill_particle_area(den, particle, cell, particle, tcfg)
+        want = jax_rp.fill_particle_area(den, particle, cell, particle, jcfg)
+        _equal(got[0], want[0])
+        assert got[1] == want[1] > 0
+    area = int((den == particle).sum())
+    got = rp.recreate_particle_area(den.copy(), ct, area, tcfg)
+    want = jax_rp.recreate_particle_area(den.copy(), ct, area, jcfg)
+    _equal(got[0], want[0])
+    assert got[1] == want[1] > area
+
+
+@pytest.mark.parametrize("with_cells", [True, False])
+def test_dapi_dedup_equals_jax(with_cells):
+    dapi = synthetic_label_plane(seed=8, cell_types={1: "6B07", 2: "Particle", 3: "Background"},
+                                 shape=(160, 160))
+    other = synthetic_label_plane(seed=9, cell_types={1: "C3M10", 2: "Particle",
+                                                      3: "Background"}, shape=(160, 160))
+    other[:, :80] = np.roll(dapi, 3, axis=1)[:, :80]  # DAPI cells seen again, shifted
+    if not with_cells:
+        dapi = np.where(dapi == 1, 3, dapi).astype(dapi.dtype)
+    for threshold in (0.1, 0.5):
+        jcfg = JaxConfig(dapi_overlap_threshold=threshold)
+        got = rp.combine_cell_positions_and_clusters(dapi, other, config_from_fields(jcfg))
+        want = jax_rp.combine_cell_positions_and_clusters(dapi, other, jcfg)
+        _equal(got, want)
+        assert ((got == 2) & (dapi == 1)).any() == with_cells
+
+
+@pytest.mark.parametrize("strains", [["3D05", "6B07"], ["6B07"], ["6B07", "C3M10"],
+                                     ["3D05", "6B07", "C3M10"]])
+def test_rfp_base_and_combine_channels_equal_jax_on_a_fused_tree(strains):
+    """A fused tree's channels: the RFP plane remapped into BASE_TYPE space
+    (in place, both branches), then each other strain's cells stamped."""
+    six_b07 = strains in (["6B07"], ["6B07", "C3M10"])
+    rfp_map = ({1: "Particle", 2: "Background"} if six_b07
+               else {1: "3D05", 2: "Particle", 3: "Background"})
+    if six_b07:
+        rfp = np.where(synthetic_label_plane(seed=20, shape=(128, 128)) == 1, 2,
+                       synthetic_label_plane(seed=20, shape=(128, 128)) - 1).astype(np.uint8)
+        rfp[rfp == 0] = 1
+    else:
+        rfp = synthetic_label_plane(seed=20, cell_types=rfp_map, shape=(128, 128))
+    channels = {
+        "DAPI": synthetic_label_plane(seed=21, cell_types={1: "6B07", 2: "Particle",
+                                                           3: "Background"}, shape=(128, 128)),
+        "GFP": synthetic_label_plane(seed=22, cell_types={1: "C3M10", 2: "Particle",
+                                                          3: "Background"}, shape=(128, 128)),
+    }
+    a, b = rfp.copy(), rfp.copy()
+    base = rp.get_rfp_base_arr(a, list(strains))
+    want = jax_rp.get_rfp_base_arr(b, list(strains))
+    assert base is a and want is b  # in place, as the reference
+    _equal(base, want)
+    assert set(np.unique(base)) <= set(BASE_TYPE_MAP)
+    got = rp.combine_channels(base.copy(), channels, list(strains))
+    fused = jax_rp.combine_channels(want.copy(), channels, list(strains))
+    _equal(got, fused)
+    assert set(np.unique(got)) - {4, 5} == {v for v, n in BASE_TYPE_MAP.items() if n in strains}

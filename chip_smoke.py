@@ -209,7 +209,15 @@ nonzero and no result line is printed):
      analyze_plane(merged=True) on bench plane 0 (one strain) and on phase
      6's RFP and DAPI planes fused (two strains), each held field for field
      to the port's oracle (``oracle.parity.assert_plane_parity``); the
-     oracle's host seconds.
+     oracle's host seconds;
+ 18. the bench (``bench_phase``) — ``python -m
+     particle_col_image_segmentation_tpu_torch bench`` once, in a fresh
+     interpreter on the card: bench.py's record of configs #1-#5 (its keys,
+     read from bench.py, plus device, power_limit and launches), platform
+     gpu, exact mask parity, every config value a finite number, and the
+     kernels each config runs launched (K1-K4 by config #5; K2, K3, K7, K9,
+     K10, K11 by config #3; K2-K4 by configs #1 and #2); the record, the
+     child's log and the phase's wall.
 Phase 3 also holds the band modes of the space axis (``band_checks``): K1
 on row-padded bands, K5 with a row offset (its value sums too; one offset of
 2^20 + 77 whose digits carry) and K8 counting its own rows (both routes), on
@@ -230,13 +238,14 @@ odd [3,97,130] batch, each against its plain route on the card.
 The line before the last is the per-kernel JSON record (``launches`` sums
 the batch, analyze, refine, threshold, zstack, morphology, nanosims,
 tunnel, data axis, space axis, spatial refine, multi-host (both phase 16
-children of both runs) and oracle paths' runs,
+children of both runs), oracle and bench (phase 18's child) paths' runs,
 ``bound_ms`` is the bytes each function must move over 3.35 TB/s,
 ``more_shapes`` holds K2's and K4's threshold-path shapes and K6's device
 time; ``zstack`` holds phase 10's numbers, ``nanosims`` and
 ``morphology`` phase 11's, ``tunnel`` phase 12's, ``data_axis`` phase 13's,
 ``space_axis`` phase 14's, ``space_refine`` phase 15's, ``multihost``
-phase 16's, ``oracle`` phase 17's); the last line is {"ok": true, ...}.
+phase 16's, ``oracle`` phase 17's, ``bench`` phase 18's record); the last
+line is {"ok": true, ...}.
 
 The script (and phase 16's children) imports the port, bench.py's plane
 generator, numpy, scipy and PIL: nothing of JAX and nothing of the JAX
@@ -2509,33 +2518,6 @@ def tunnel_phase(card: str, dev, stack8, reset_counts, read_counts) -> tuple:
     return launches, record
 
 
-def launch_counters() -> tuple:
-    """(reset_counts, read_counts) over every kernel wrapper's launch count,
-    K1-K11: reset just before a path runs, read just after."""
-    from particle_col_image_segmentation_tpu_torch import ops
-    from particle_col_image_segmentation_tpu_torch.ops import watershed_tiles as wt
-
-    counters = {
-        "K1": [ops.median_label_filter_cuda, ops.median_label_filter_rows_padded_cuda],
-        "K2": [ops.ccl_cuda],
-        "K3": [ops.compact_labels_cuda], "K4": [ops.region_counts_cuda, ops.region_sums_cuda],
-        "K5": [ops.region_table_cuda], "K6": [ops.table_lookup_cuda],
-        "K7": [ops.centroid_sums_cuda], "K8": [ops.particle_fill_step_cuda],
-        "K9": [ops.edt_sq_cuda], "K10": [wt.watershed_cost_pass_cuda],
-        "K11": [wt.watershed_label_pass_cuda],
-    }
-
-    def reset_counts() -> None:
-        for fns in counters.values():
-            for fn in fns:
-                fn.launches = 0
-
-    def read_counts() -> dict:
-        return {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
-
-    return reset_counts, read_counts
-
-
 # ---- the data axis (phase 13) ----------------------------------------------
 
 def median_wall_s(fn, reps: int = 3) -> tuple:
@@ -3300,6 +3282,7 @@ import json, sys, time
 import numpy as np
 import torch
 import chip_smoke
+from particle_col_image_segmentation_tpu_torch._kernels import launch_counters
 from particle_col_image_segmentation_tpu_torch.config import AnalysisConfig
 from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
     initialize_multihost, process_allgather)
@@ -3315,7 +3298,7 @@ fn = make_sharded_segment_fn(mesh, AnalysisConfig(max_regions=chip_smoke.MAX_REG
                              with_tables=True)
 fn(batch)
 torch.cuda.synchronize()
-reset_counts, read_counts = chip_smoke.launch_counters()
+reset_counts, read_counts = launch_counters()
 torch.cuda.reset_peak_memory_stats(0)
 reset_counts()
 t0 = time.perf_counter()
@@ -3529,6 +3512,74 @@ def oracle_phase(card: str, dev, planes, acfg, reset_counts, read_counts) -> tup
     return launches, record
 
 
+# ---- the bench (phase 18) ------------------------------------------------------
+
+BENCH_TIMEOUT_S = 600
+# the kernels each config of the bench must launch on the card
+BENCH_KERNELS = {"config #5": ("K1", "K2", "K3", "K4"),
+                 "config #3": ("K2", "K3", "K7", "K9", "K10", "K11"),
+                 "configs #1 and #2": ("K2", "K3", "K4")}
+
+
+def bench_py_keys() -> tuple:
+    """(the record's keys, the keys of its ``configs``) as bench.py's
+    ``main`` writes them: the dict literals assigned to ``record`` and
+    ``configs``, read with ``ast``."""
+    import ast
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    keys = {}
+    for node in ast.walk(main):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and isinstance(node.targets[0], ast.Name)):
+            keys[node.targets[0].id] = [k.value for k in node.value.keys]
+    return keys["record"], keys["configs"]
+
+
+def bench_phase(card: str) -> tuple:
+    """Phase 18: ``python -m particle_col_image_segmentation_tpu_torch
+    bench`` once, in a fresh interpreter from the checkout root (the verb's
+    default device, the card); its last stdout line held to bench.py's
+    record.  Returns (the child's launches, the record-line entry)."""
+    import math
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "particle_col_image_segmentation_tpu_torch",
+                           "bench"], cwd=root, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    for line in proc.stderr.splitlines():
+        log(f"phase 18 | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 18: the bench verb exited {proc.returncode}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    record_keys, config_keys = bench_py_keys()
+    if sorted(rec) != sorted(record_keys + ["device", "power_limit", "launches"]):
+        raise AssertionError(f"phase 18: the record's keys {sorted(rec)} are not bench.py's "
+                             f"{sorted(record_keys)} and device, power_limit, launches")
+    if sorted(rec["configs"]) != sorted(config_keys):
+        raise AssertionError(f"phase 18: the configs' keys {sorted(rec['configs'])} are not "
+                             f"bench.py's {sorted(config_keys)}")
+    if rec["platform"] != "gpu" or rec["mask_exact_parity"] is not True:
+        raise AssertionError(f"phase 18: platform {rec['platform']!r}, mask parity "
+                             f"{rec['mask_exact_parity']!r}")
+    bad = {k: v for k, v in rec["configs"].items()
+           if isinstance(v, bool) or not isinstance(v, (int, float)) or not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"phase 18: config values that are not finite numbers: {bad}")
+    for what, ks in BENCH_KERNELS.items():
+        for k in ks:
+            if rec["launches"][k] <= 0:
+                raise AssertionError(f"phase 18: {k} ({what}) was never launched")
+    wall_s = time.perf_counter() - t_phase
+    log(f"phase 18 bench [{card}]: {json.dumps(rec)}")
+    log(f"phase 18 bench: {wall_s:.1f} s wall (the child, from start to exit)")
+    return rec["launches"], {**rec, "phase_s": wall_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
@@ -3548,6 +3599,7 @@ def main() -> int:
 
     import bench
     from particle_col_image_segmentation_tpu_torch import AnalysisConfig, RefineConfig, _kernels
+    from particle_col_image_segmentation_tpu_torch._kernels import launch_counters
     from particle_col_image_segmentation_tpu_torch.labels.analysis import (
         PlaneDeviceOut,
         analyze_planes_device,
@@ -4427,6 +4479,10 @@ def main() -> int:
     # ---- phase 17: the card's analyze_plane against the oracle at 2048² ----------
     oracle_launches, oracle = oracle_phase(card, dev, planes, acfg, reset_counts, read_counts)
 
+    # ---- phase 18: the bench verb in a fresh interpreter ---------------------------
+    torch.cuda.empty_cache()
+    bench_launches, bench_record = bench_phase(card)
+
     loaded = sorted(k for k in sys.modules
                     if k.split(".")[0] in ("jax", "particle_col_image_segmentation_tpu"))
     if loaded:
@@ -4455,7 +4511,8 @@ def main() -> int:
              "morphology": morph_launches, "nanosims": nanosims_launches,
              "tunnel": tunnel_launches, "data_axis": data_launches,
              "space_axis": space_launches, "space_refine": space_refine_launches,
-             "multihost": multihost_launches, "oracle": oracle_launches}
+             "multihost": multihost_launches, "oracle": oracle_launches,
+             "bench": bench_launches}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src, "replaces": TPU + tpu,
          "launches": sum(v[k] for v in paths.values()),
@@ -4466,7 +4523,7 @@ def main() -> int:
         for k, name, src, tpu in KERNELS
     ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel,
         "data_axis": data_axis, "space_axis": space_axis, "space_refine": space_refine,
-        "multihost": multihost, "oracle": oracle}
+        "multihost": multihost, "oracle": oracle, "bench": bench_record}
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ failed build raises: there is no other path for CUDA tensors.
 
 The data axis (``parallel``) calls the wrappers from one thread per device,
 so the first build and load run under a lock, and each wrapper counts its
-launches through ``count_launch``.
+launches through ``count_launch``; ``launch_counters`` resets and reads
+every wrapper's count, K1-K11.
 """
 
 from __future__ import annotations
@@ -155,6 +156,40 @@ def count_launch(wrapper) -> None:
     device, and ``+=`` on a shared attribute is not atomic."""
     with _count_lock:
         wrapper.launches += 1
+
+
+def launch_counter_table() -> dict:
+    """Every kernel wrapper that counts its launches, by kernel, K1-K11."""
+    from particle_col_image_segmentation_tpu_torch import ops
+    from particle_col_image_segmentation_tpu_torch.ops import watershed_tiles as wt
+
+    return {
+        "K1": [ops.median_label_filter_cuda, ops.median_label_filter_rows_padded_cuda],
+        "K2": [ops.ccl_cuda],
+        "K3": [ops.compact_labels_cuda], "K4": [ops.region_counts_cuda, ops.region_sums_cuda],
+        "K5": [ops.region_table_cuda], "K6": [ops.table_lookup_cuda],
+        "K7": [ops.centroid_sums_cuda], "K8": [ops.particle_fill_step_cuda],
+        "K9": [ops.edt_sq_cuda], "K10": [wt.watershed_cost_pass_cuda],
+        "K11": [wt.watershed_label_pass_cuda],
+    }
+
+
+def launch_counters() -> tuple:
+    """(reset_counts, read_counts) over ``launch_counter_table``: reset just
+    before a path runs, read just after (launches a kernel, K1-K11)."""
+    counters = launch_counter_table()
+
+    def reset_counts() -> None:
+        with _count_lock:
+            for fns in counters.values():
+                for fn in fns:
+                    fn.launches = 0
+
+    def read_counts() -> dict:
+        with _count_lock:
+            return {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
+
+    return reset_counts, read_counts
 
 
 def check(err: int, what: str) -> None:

@@ -10,11 +10,14 @@
   normalize — move raw captures into one clean folder an acquisition
             (create_file_structure.py parity)
   nanosims — NanoSIMS 5-isotope ROI activity/distance analysis (.m parity)
+  bench   — the throughput benchmark: bench.py's one-line JSON record of
+            configs #1-#5, measured on the card (this package's ``bench.py``)
 
 Files and output lines match the JAX package's verbs byte for byte.
 ``--device`` defaults to ``cuda`` (the hand-written kernels; Hopper cards
-only); ``--device cpu`` runs the plain PyTorch versions.  ``split`` and
-``normalize`` run on the host only and take no ``--device``.
+only); ``--device cpu`` runs the plain PyTorch versions (``bench`` then
+runs bench.py's smaller CPU-fallback sizes).  ``split`` and ``normalize``
+run on the host only and take no ``--device``.
 
 ``batch`` and ``refine`` take ``--data-parallel N`` and ``--space-parallel
 M``, and ``analyze`` ``--space-parallel M``: a mesh of N×M devices that
@@ -223,6 +226,11 @@ def main(argv=None) -> int:
         "planes distribute data-parallel (each plane floods on one chip)",
     )
 
+    p = sub.add_parser(
+        "bench", help="run the throughput benchmark (one JSON line, configs #1-#5)"
+    )
+    _add_device_flag(p)
+
     args = parser.parse_args(argv)
     if args.command == "batch":
         if args.pack_transfer:
@@ -244,6 +252,10 @@ def main(argv=None) -> int:
         return _refine(args)
     if args.command == "nanosims":
         return _nanosims(args)
+    if args.command == "bench":
+        from particle_col_image_segmentation_tpu_torch.bench import main as bench_main
+
+        return bench_main(["--device", args.device])
     if args.command == "split":
         from particle_col_image_segmentation_tpu_torch.models.zsplit import process_folder
 

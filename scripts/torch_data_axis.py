@@ -235,7 +235,7 @@ def main() -> int:
     relief = cs.refine_relief()
     stack8 = np.stack([np.roll(relief, 17 * b, axis=1) for b in range(cs.REFINE_PLANES)])
     results8 = refine_boundaries_stack(stack8, rcfg, cs.REFINE_REGIONS, device=dev)
-    reset_counts, read_counts = cs.launch_counters()
+    reset_counts, read_counts = _kernels.launch_counters()
     _, record = cs.data_axis_phase(card, dev, planes, stats, stack8, results8, cfg, rcfg,
                                    reset_counts, read_counts)
     if args.steady_planes:

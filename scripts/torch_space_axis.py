@@ -158,7 +158,7 @@ def main() -> int:
         run_analysis(root, acfg, make_figures=False, device=dev,
                      load_fn=lambda p: planes[seed_of[p]])
         analyze_csv = cs.csv_lines(root)
-    reset_counts, read_counts = cs.launch_counters()
+    reset_counts, read_counts = _kernels.launch_counters()
     _, record = cs.space_axis_phase(card, dev, planes, stats, cfg, acfg, analyze_csv,
                                     reset_counts, read_counts)
     if torch.cuda.device_count() > 1:

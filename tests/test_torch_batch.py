@@ -241,16 +241,28 @@ def test_entry_points_default_to_the_card(monkeypatch):
     else:
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             single_channel.as_plane(plane)
+    # the bench, as the verb and as its own module, runs on the card unless
+    # asked for the CPU; its launch counts read the package's K1-K11 table
+    from particle_col_image_segmentation_tpu_torch import _kernels, bench, cli
+
+    asked = []
+    monkeypatch.setattr(cli, "_device", torch.device)
+    monkeypatch.setattr(bench, "run", lambda dev: asked.append(dev) or {})
+    assert torch_cli(["bench"]) == 0 and bench.main([]) == 0
+    assert torch_cli(["bench", "--device", "cpu"]) == 0
+    assert asked == [torch.device("cuda")] * 2 + [torch.device("cpu")]
+    assert sorted(_kernels.launch_counter_table(), key=lambda k: int(k[1:])) == [
+        f"K{i}" for i in range(1, 12)]
 
 
-@pytest.mark.parametrize("verb", ["analyze", "batch", "refine"])
+@pytest.mark.parametrize("verb", ["analyze", "batch", "refine", "bench"])
 def test_cli_without_device_asks_for_cuda(tmp_path, verb):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     _h5_tree(tmp_path / "exp")
     target = str(tmp_path / ("exp" if verb != "refine" else "missing.h5"))
     with pytest.raises(RuntimeError, match="--device cuda: CUDA is not available"):
-        torch_cli([verb, target])
+        torch_cli([verb] if verb == "bench" else [verb, target])
 
 
 def test_port_imports_no_jax():

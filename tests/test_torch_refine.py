@@ -293,6 +293,8 @@ def test_port_sources_never_import_the_jax_package():
     assert len(files) > 30
     assert PORT / "io" / "native" / "__init__.py" in files
     assert {PORT / "oracle" / "ndimage.py", PORT / "utils" / "metrics.py"} <= set(files)
+    # the benchmark module and the launch-counter table (``_kernels.py``)
+    assert {PORT / "bench.py", PORT / "_kernels.py"} <= set(files)
     bad = []
     for path in files:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):

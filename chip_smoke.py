@@ -12,59 +12,63 @@ nonzero and no result line is printed):
      the port's subpackages import (with their re-exports) and pull in
      neither h5py nor matplotlib;
   2. build — the eleven kernels K1-K11 from csrc/ (one nvcc per source,
-     in parallel), timed;
+     in parallel; K4's histogram in its own source), timed;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
      same card tensors, exact equality (all outputs are integers, so the
      tolerance is 0): 2048² bench planes, odd [3,97,130] batches, 2-D
-     planes, background=0 and 4-connected CCL, int32 values, saturating
-     sums (both K4 wrappers: class tables and the dedup's clamped sums),
-     table overflow (max_regions=8), out-of-range lookup ids, fill steps
-     with and without particles; K6 on ``k6_inputs`` (ids and table values
-     at INT32_MIN/MAX, R = 1 to 40000 with [R] and [B,R] tables, H*W not a
-     multiple of 4, B = 64, views off a 16-byte boundary); K4 as the Otsu
-     histogram (bin ids, R+1 = 256, uint8 zeros) against the plain bincount
-     on ``hist_inputs`` (a constant plane, 1x1 planes, every bin hit), on
-     config #1's [16,512,512] batch and on config #2's blurred
-     [24,2048,2048] stack; K9 on ``k9_inputs`` over both routes (caps
-     0-3, 8, 9, 31-33 on sparse, dense, empty and full masks, the largest
-     one-kernel cap and the one past it, features at cap and cap + 1 from
-     tile edges, cap > H, odd shapes, a view off a 16-byte boundary), each
-     cap's route and the flag "some d² > cap²" checked; the float32 square
-     root (``sqrt_f32``) equal to numpy's for every d² below 2^24 and 2^20
-     d² past it; K2's adversarial inputs (``k2_inputs``:
-     one value, a serpentine crossing every tile, checkerboards, 1-px
-     stripes, binary noise, int32 extremes, widths 1-129), each equal to
-     scipy's min-index labels (``scipy_min_index``) and, where the plain
-     fixpoint converges in 256 rounds, to it; K1 at sizes 3-9 on [3,2,5]
-     and planes around its 32 x 64 tile, past num_classes, and off a
-     16-byte boundary; and the refine slice on the 2048² relief
-     (480 touching cell pairs, plane b rolled by 17·b columns): the exact
-     EDT (K9 probe, and a plane that forces the exact fallback), local
-     maxima through K2 (connectivity 1 and 2), each watershed phase — K10's
-     costs and K11's labels — on smooth and 16-level reliefs at
+     planes, background=0 and 4-connected CCL, int32 values, saturating sums
+     (both K4 wrappers: class tables and the dedup's clamped sums), table
+     overflow (max_regions=8), out-of-range lookup ids, fill steps with and
+     without particles; K6 on ``k6_inputs`` (ids and table values at
+     INT32_MIN/MAX, R = 1 to 40000 with [R] and [B,R] tables, H*W not a
+     multiple of 4, B = 64, views off a 16-byte boundary); K4's fused Otsu
+     histogram (csrc/histogram.cu) against the plain bin ids and bincount
+     on ``hist_inputs`` (a constant plane, 1x1 planes, every bin hit),
+     ``hist_edge_inputs`` (bin edges and one ulp either side, x == hi, a
+     span clamped to 1e-12, negative values, uint16 and float16) and
+     ``hist_bins_inputs`` (bin edges at 1 to 40000 bins), each also off a
+     16-byte boundary, on config #1's
+     [16,512,512] batch and on config #2's blurred [24,2048,2048] stack, and
+     on ``hist_nonfinite_inputs`` (NaN and ±inf pixels) against the table
+     route (bin ids, K4's table kernel on uint8 zeros); K9 on ``k9_inputs``
+     over both routes (caps 0-3, 8, 9, 31-33 on sparse, dense, empty and
+     full masks, the largest one-kernel cap and the one past it, features at
+     cap and cap + 1 from tile edges, cap > H, odd shapes, a view off a
+     16-byte boundary), each cap's route and the flag "some d² > cap²"
+     checked; the float32 square root (``sqrt_f32``) equal to numpy's for
+     every d² below 2^24 and 2^20 d² past it; K2's adversarial inputs
+     (``k2_inputs``: one value, a serpentine crossing every tile,
+     checkerboards, 1-px stripes, binary noise, int32 extremes, widths
+     1-129), each equal to scipy's min-index labels (``scipy_min_index``)
+     and, where the plain fixpoint converges in 256 rounds, to it; K1 at
+     sizes 3-9 on [3,2,5] and planes around its 32 x 64 tile, past
+     num_classes, and off a 16-byte boundary; and the refine slice on the
+     2048² relief (480 touching cell pairs, plane b rolled by 17·b columns):
+     the exact EDT (K9 probe, and a plane that forces the exact fallback),
+     local maxima through K2 (connectivity 1 and 2), each watershed phase —
+     K10's costs and K11's labels — on smooth and 16-level reliefs at
      [2,2048,2048] (connectivity 1 and 2), an unreachable masked island, a
      random [3,97,130] relief, a serpentine corridor (``ws_corridor``: tiles
      go quiet and wake again) and a batch of a few- and a many-pass plane
      (``ws_mixed``), and budgets of 1, 2, need − 1 and need passes
      (``ws_budgets``: planes that report converged equal plain, one pass
-     converges none), refine_plane_device's distance equal to numpy's
-     sqrt of its d², and K7 on the [8,2048,2048] watershed labels, a 2-D
-     plane and ``k7_inputs`` (one id over 2048², runs crossing rows and
-     planes, ids past R, R+1 = 4096 and 4097 with colliding slots, R+1 =
-     30001, an id a pixel, B = 64, a view off a 16-byte boundary); K3 on raw
-     that is not CCL output (``k3_inputs``: forward references, non-root
-     targets, values past the plane, INT32_MIN/MAX, 1x1 planes, widths
-     1-129, H*W not a multiple of 4 or of its 4096-px tile, a view off a
-     16-byte boundary, B = 64) and both K4 wrappers on ``k4_inputs`` (one
-     id over a 2048² plane at 255, every pixel its own id, ids < 0 and
-     > R, R+1 = 40000, int32 sums that saturate, odd H*W, views off a
-     16-byte boundary); K5 on ``k5_inputs`` (those, then runs meeting row
-     and plane ends at widths 1-130, B = 1 and 64, an id a pixel over
-     2048², ids sharing their low 12 bits); K8 on ``k8_inputs`` over both
-     routes (caps 0, 1, 2, 20, 32, 33, the largest one-kernel cap and the
-     one past it, particles at cap and cap + 1 from tile edges, dt2 > (cap + 1)²
-     with and without particles, no cell pixel, odd shapes, B = 1), each
-     cap's route checked;
+     converges none), refine_plane_device's distance equal to numpy's sqrt
+     of its d², and K7 on the [8,2048,2048] watershed labels, a 2-D plane
+     and ``k7_inputs`` (one id over 2048², runs crossing rows and planes,
+     ids past R, R+1 = 4096 and 4097 with colliding slots, R+1 = 30001, an
+     id a pixel, B = 64, a view off a 16-byte boundary); K3 on raw that is
+     not CCL output (``k3_inputs``: forward references, non-root targets,
+     values past the plane, INT32_MIN/MAX, 1x1 planes, widths 1-129, H*W not
+     a multiple of 4 or of its 4096-px tile, a view off a 16-byte boundary,
+     B = 64) and both K4 wrappers on ``k4_inputs`` (one id over a 2048²
+     plane at 255, every pixel its own id, ids < 0 and > R, R+1 = 40000,
+     int32 sums that saturate, odd H*W, views off a 16-byte boundary); K5 on
+     ``k5_inputs`` (those, then runs meeting row and plane ends at widths
+     1-130, B = 1 and 64, an id a pixel over 2048², ids sharing their low 12
+     bits); K8 on ``k8_inputs`` over both routes (caps 0, 1, 2, 20, 32, 33,
+     the largest one-kernel cap and the one past it, particles at cap and
+     cap + 1 from tile edges, dt2 > (cap + 1)² with and without particles,
+     no cell pixel, odd shapes, B = 1), each cap's route checked;
   4. batch path — run_batch over 40 bench planes in batches of 32 (the last
      one short and padded), max_regions=16383: every plane converged, no
      overflow, particle_px equal to scipy's median count; plane 0's labels
@@ -94,9 +98,10 @@ nonzero and no result line is printed):
      config #1's single plane and [16,512,512] batch and config #2's
      stack_stats at [24,512,512] and [24,2048,2048], kernels and plain,
      by CUDA events and device time, the [24,2048,2048] call split by step
-     (blur, min/max, bin ids, K4 histogram, Otsu, mask, K2, K3, K4 counts),
-     K4's histogram launch beside one torch.bincount of the offset ids and
-     K2 on the binary mask, each with its bound;
+     (blur, min/max, K4's fused histogram, Otsu, mask, K2, K3, K4 counts)
+     with the table route's histogram (bin ids, zeros + K4's table kernel)
+     timed beside it, K4's fused histogram beside one torch.bincount of
+     the offset ids and K2 on the binary mask, each with its bound;
   6. analyze path — run_analysis over a folder tree of 2048² bench planes
      (8 single-file 3D05 folders, batched 8 at a time, and one 3D05+6B07
      folder with RFP and DAPI files: per-channel analysis, DAPI dedup,
@@ -119,7 +124,7 @@ nonzero and no result line is printed):
      batch (plane b rolled by 7·b columns) and config #2's stack_stats on
      [24,512,512] and [24,2048,2048] stacks (bench.py's recipes; 30 and 480
      discs a plane), max_regions=4095: K2, K3 and K4 launched (K4 twice a
-     call: the Otsu histogram and the region table; counts reset just
+     call: the fused Otsu histogram and the region table; counts reset just
      before the run), thresholds bit for bit, masks, labels, count, num_fg
      and num_total equal to the plain versions on the card (labels where
      the plain CCL converged, K2 equal to scipy's on the other planes),
@@ -128,10 +133,12 @@ nonzero and no result line is printed):
      to the plain CPU run's, the [24,512,512] stack's blur and
      thresholds (plane 6 holds an Otsu near-tie) equal to the CPU's, and
      the single-plane histogram and otsu_threshold of config #1's plane
-     (one K4 launch each) equal to the plain CPU histogram and the call's
-     threshold.  The [24,2048,2048] stack is made once on the host and is
-     on the card only in phase 3's histogram check, phase 5's threshold
-     times and phase 9;
+     (one K4 histogram launch each) equal to the plain CPU histogram and the
+     call's threshold, and otsu_threshold_batch of the blurred
+     [24,2048,2048] stack one K4 launch that allocates less than a plane's
+     pixel count in bytes (no bin-id or zeros plane).  The [24,2048,2048]
+     stack is made once on the host and is on the card only in phase 3's
+     histogram check, phase 5's threshold times and phase 9;
  10. config #2 from TIFFs on disk (``zstack_phase``) — four [24,512,512]
      and two [24,2048,2048] stacks (``config2_stacks``) written as
      multi-page uint16 TIFFs, each decoded by the port's native codec bit
@@ -773,12 +780,108 @@ def hist_inputs(seed: int = 47):
     yield "one bright pixel [1,50,70]", lone
 
 
+def _edge_plane(rng, lo, hi, shape, bins: int = 256):
+    """A float32 plane over [lo, hi] drawn from, for every bin k, the first
+    float32 x whose (x − lo) / span · bins (float32 steps) reaches k and the
+    floats one ulp either side, with lo and hi as its first two pixels."""
+    import numpy as np
+
+    f32, up, down = np.float32, np.float32(np.inf), np.float32(-np.inf)
+    lo, hi = f32(lo), f32(hi)
+    span = max(f32(hi - lo), f32(1e-12))
+
+    def binned(x):
+        return (x - lo) / span * f32(bins)
+
+    px = [lo, hi]
+    for k in range(1, bins):
+        x = f32(lo + f32(k) * span / f32(bins))
+        while binned(x) >= k:
+            x = np.nextafter(x, down)
+        while binned(x) < k:
+            x = np.nextafter(x, up)
+        px += [np.nextafter(x, down), x, np.nextafter(x, up)]
+    px = np.clip(np.array(px, f32), lo, hi)
+    plane = rng.choice(px, size=shape)
+    plane.flat[:2] = lo, hi
+    return plane
+
+
+def hist_edge_inputs(seed: int = 53):
+    """The Otsu histogram's edge inputs (case, [B, H, W] array, cast with
+    ``as_float32`` by the caller): planes holding, for every bin k, the
+    first float32 x whose (x − lo) / span · 256 (float32 steps) reaches k
+    and the floats one ulp either side, over a positive and a negative
+    range; x == hi on half a plane; a constant plane (span 1e-12); a range
+    under 1e-12 (span clamped); uint16 and float16 planes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def edge_plane(lo, hi, shape):
+        return _edge_plane(rng, lo, hi, shape)
+
+    yield "bin edges ±1 ulp [2,37,41]", np.stack([edge_plane(0.3, 1000.7, (37, 41)),
+                                                  edge_plane(-77.25, 65535.0, (37, 41))])
+    yield "bin edges ±1 ulp, negative values [1,29,53]", edge_plane(-5000.5, -10.125,
+                                                                     (29, 53))[None]
+    at_hi = rng.uniform(100.0, 900.0, (1, 31, 33)).astype(f32)
+    at_hi[0, ::2] = 900.0
+    yield "x == hi on half a plane [1,31,33]", at_hi
+    yield "constant [2,17,19]", np.stack([np.full((17, 19), 3.0, f32), np.zeros((17, 19), f32)])
+    yield "range under 1e-12 [1,8,8]", (rng.random((1, 8, 8)) * 1e-13).astype(f32)
+    u16 = rng.integers(0, 65536, (2, 45, 51)).astype(np.uint16)
+    u16[:, 0, :2] = 0, 65535
+    yield "uint16 [2,45,51]", u16
+    yield "float16 [2,45,51]", rng.normal(0.0, 3000.0, (2, 45, 51)).astype(np.float16)
+
+
+# bin counts other than the threshold path's 256: one bin, under and over
+# 256, one launch's slice of 16384 bins and one past it, three slices
+HIST_BINS = (1, 2, 255, 257, 1024, 16385, 40000)
+
+
+def hist_bins_inputs(seed: int = 61):
+    """The histogram at the other bin counts of ``HIST_BINS`` (case, bins,
+    float32 [3, 64, 96] stack): bin edges ±1 ulp for those bins over a
+    positive and a negative range, and config #1's plane."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c1 = config1_plane(128, discs=10)[:64, :96].astype(np.float32)
+    for bins in HIST_BINS:
+        yield f"{bins} bins [3,64,96]", bins, np.stack([
+            _edge_plane(rng, 0.3, 1000.7, (64, 96), bins),
+            _edge_plane(rng, -5000.5, -10.125, (64, 96), bins), c1])
+
+
+def hist_nonfinite_inputs():
+    """float32 stacks with NaN and ±inf pixels (case, array), for the card's
+    routes only: the CPU's int32 cast of a NaN or an infinity is not the
+    card's."""
+    import numpy as np
+
+    x = np.random.default_rng(59).normal(900.0, 200.0, (3, 33, 47)).astype(np.float32)
+    nan = x.copy()
+    nan[1, 5, 6] = np.nan
+    yield "a NaN pixel in plane 1 [3,33,47]", nan
+    inf = x.copy()
+    inf[0, 3, 4] = np.inf
+    inf[1, 7, 8] = -np.inf
+    inf[2, 0, :2] = np.inf, -np.inf
+    yield "+inf in plane 0, -inf in 1, both in 2 [3,33,47]", inf
+    yield "all NaN [1,16,16]", np.full((1, 16, 16), np.nan, np.float32)
+
+
 def plain_otsu(x):
     """Per-plane Otsu thresholds of a float32 [B, H, W] stack through the
     plain histogram (one ``bincount``) on x's device."""
-    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
+    from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import (
         _bin_index,
         _bincount,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
         _centers,
         _otsu_from_hist,
         _value_range,
@@ -1246,12 +1349,13 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
     """Phase 5's threshold path (configs #1 and #2) on the card: each call
     through the kernels (CUDA events, and device time a call by
     torch.profiler) and through the plain versions; config #2 at
-    [24,2048,2048] step by step (blur, min/max, bin ids, the K4 histogram,
-    the Otsu reduction, the mask, K2, K3, K4 counts; device time a call of
-    each on the previous step's output) against the whole call; K4's
-    histogram launch beside one ``torch.bincount`` of the offset ids, and K2
-    on the binary mask.  Returns K4's and K2's entries for the record's
-    ``more_shapes``."""
+    [24,2048,2048] step by step (blur, min/max, K4's fused histogram, the
+    Otsu reduction, the mask, K2, K3, K4 counts; device time a call of each
+    on the previous step's output) against the whole call, with the table
+    route's histogram steps (bin ids, then uint8 zeros and K4's table
+    kernel) beside the fused one; K4's fused histogram beside one
+    ``torch.bincount`` of the offset ids, and K2 on the binary
+    mask.  Returns K4's and K2's entries for the record's ``more_shapes``."""
     import torch
 
     from particle_col_image_segmentation_tpu_torch.ops import (
@@ -1264,10 +1368,12 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
         threshold_and_count_batch,
     )
     from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
-    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
-        _bin_counts,
+    from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import (
         _bin_index,
-        _bincount,
+        bin_histogram,
+        bin_histogram_cuda,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
         _centers,
         _otsu_from_hist,
         _value_range,
@@ -1309,7 +1415,10 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
     den2k = gaussian_blur(x2k, 1.0)
     lo, span = _value_range(den2k)
     idx2k = _bin_index(den2k, lo, span, 256)
-    counts2k = _bin_counts(idx2k, 256)
+    zeros2k = torch.zeros(idx2k.shape, dtype=torch.uint8, device=dev)
+    counts2k = bin_histogram_cuda(den2k, lo, span, 256)
+    if not torch.equal(region_counts_cuda(idx2k, zeros2k, 255)[0], counts2k):
+        raise AssertionError("phase 5: the table route's histogram differs from the fused one")
     centers2k = _centers(lo[..., 0], span[..., 0], 256)
     t2k = _otsu_from_hist(counts2k, centers2k)
     m8_2k = (den2k > t2k[:, None, None]).to(torch.uint8)
@@ -1318,8 +1427,7 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
     steps = {
         "blur": lambda: gaussian_blur(x2k, 1.0),
         "min/max": lambda: _value_range(den2k),
-        "bin ids": lambda: _bin_index(den2k, lo, span, 256),
-        "K4 histogram (zeros + K4)": lambda: _bin_counts(idx2k, 256),
+        "K4 histogram (fused)": lambda: bin_histogram_cuda(den2k, lo, span, 256),
         "Otsu reduction": lambda: (_centers(lo[..., 0], span[..., 0], 256),
                                    _otsu_from_hist(counts2k, centers2k)),
         "mask": lambda: (den2k > t2k[:, None, None]).to(torch.uint8),
@@ -1334,24 +1442,40 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
                                                   for k, (v, n) in th_split.items())
         + f"; sum {sum(v for v, _ in th_split.values()):.4f} against {whole:.4f} for the "
         f"whole call (blur {100 * th_split['blur'][0] / whole:.1f} %)")
-    # K4's histogram launch beside one torch.bincount of the offset ids
+    # the table route's histogram steps on the same stack, timed on the same
+    # card as the fused kernel: the bin-id plane, then uint8 zeros and K4's
+    # table kernel on the ids
+    table_steps = {"bin ids": lambda: _bin_index(den2k, lo, span, 256),
+              "zeros + K4 table kernel": lambda: region_counts_cuda(
+                  idx2k, torch.zeros(idx2k.shape, dtype=torch.uint8, device=dev), 255)}
+    table_split = {k: traced(fn) for k, fn in table_steps.items()}
+    table_ms = time_ms(lambda: region_counts_cuda(_bin_index(den2k, lo, span, 256), torch.zeros(
+        den2k.shape, dtype=torch.uint8, device=dev), 255), reps=10)
+    log(f"phase 5 times [{card}]: the table route's histogram {big}, device ms a call "
+        f"(device activities): " + ", ".join(f"{k} {v:.4f} ({n:.0f})"
+                                             for k, (v, n) in table_split.items())
+        + f"; the route {table_ms:.4f} ms by CUDA events, against the fused kernel's "
+        f"{th_split['K4 histogram (fused)'][0]:.4f} device ms")
+    # K4's fused histogram beside one torch.bincount of the offset ids
     # b * 256 + idx (its library yardstick at this shape), and K2 on the
     # binary mask
-    zeros2k = torch.zeros(idx2k.shape, dtype=torch.uint8, device=dev)
     offs = (idx2k.to(torch.int64)
             + 256 * torch.arange(B2, device=dev).view(-1, 1, 1)).reshape(-1)
     if not torch.equal(torch.bincount(offs, minlength=B2 * 256).view(B2, 256).to(torch.int32),
-                       region_counts_cuda(idx2k, zeros2k, 255)[0]):
+                       counts2k):
         raise AssertionError("phase 5: torch.bincount's histogram differs from K4's")
-    k4h = (lambda: region_counts_cuda(idx2k, zeros2k, 255))
+    k4h = (lambda: bin_histogram_cuda(den2k, lo, span, 256))
     k2m = (lambda: ccl_cuda(m8_2k))
-    # the histogram's own bytes: an int32 bin id a pixel in, an int32 count a
-    # bin out (the uint8 zeros and the class table come of reusing K4)
+    # the histogram's own bytes: a float32 pixel in, an int32 count a bin
+    # out (the planes' lo and span are 8 B a plane)
     hist_px, hist_bins = x2k.numel(), B2 * 256
     more_shapes = {
-        "K4": {"shape": f"Otsu histogram {big} R+1=256, uint8 zeros",
+        "K4": {"shape": f"Otsu histogram {big} float32, 256 bins, fused",
+               "source": SRC + "histogram.cu",
                "ms": time_ms(k4h, reps=10), "device_ms": device_ms(k4h),
-               "plain_ms": time_ms(lambda: _bincount(idx2k, 256), reps=3),
+               "table_route_ms": table_ms,
+               "table_route_device_ms": {k: v for k, (v, _) in table_split.items()},
+               "plain_ms": time_ms(lambda: bin_histogram(den2k, lo, span, 256), reps=3),
                "bound_ms": (4 * hist_px + 4 * hist_bins) / HBM_BYTES_PER_S * 1e3,
                "bound_by": "bytes",
                "library_ms": time_ms(lambda: torch.bincount(offs, minlength=hist_bins), reps=10)},
@@ -1383,6 +1507,7 @@ def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) 
     from scipy import ndimage as ndi
 
     from particle_col_image_segmentation_tpu_torch.ops import (
+        bin_histogram_cuda,
         ccl_cuda,
         gaussian_blur,
         histogram,
@@ -1403,8 +1528,8 @@ def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) 
     torch.cuda.synchronize()
     threshold_s = time.perf_counter() - t0
     threshold_launches = read_counts()
-    # four calls: K2 and K3 once each; K4 twice, the Otsu histogram and the
-    # region table
+    # four calls: K2 and K3 once each; K4 twice, the fused Otsu histogram
+    # and the region table
     want_launches = {k: {"K2": 4, "K3": 4, "K4": 8}.get(k, 0) for k in threshold_launches}
     log(f"phase 9 threshold path: threshold_and_count {list(x1.shape)}, "
         f"threshold_and_count_batch {list(x1b.shape)}, stack_stats {list(x2.shape)} and "
@@ -1474,12 +1599,15 @@ def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) 
                              f"{int(single[3])}; scipy {n}")
     log(f"phase 9 config #1 single {list(x1.shape)}: == plain on the card; threshold "
         f"{float(t_p)}, count {int(single[2])} == scipy's")
-    # the single-plane histogram and otsu_threshold: K4 on [1,512,512] bin ids
-    launches = region_counts_cuda.launches
+    # the single-plane histogram and otsu_threshold: K4's fused histogram on
+    # [1,512,512], none of its table kernel
+    launches = (bin_histogram_cuda.launches, region_counts_cuda.launches)
     counts, centers = histogram(x1)
     t1 = otsu_threshold(x1)
-    if region_counts_cuda.launches != launches + 2:
-        raise AssertionError("phase 9: histogram and otsu_threshold did not launch K4 once each")
+    if (bin_histogram_cuda.launches, region_counts_cuda.launches) != (launches[0] + 2,
+                                                                      launches[1]):
+        raise AssertionError("phase 9: histogram and otsu_threshold did not launch K4's "
+                             "histogram once each")
     want_counts, want_centers = histogram(x1.cpu())
     same("config #1 histogram", "counts", counts.cpu(), want_counts)
     same("config #1 histogram", "centres", centers.cpu().view(torch.int32),
@@ -1487,6 +1615,25 @@ def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) 
     same("config #1 otsu_threshold", "threshold", t1.view(torch.int32), t_p.view(torch.int32))
     log(f"phase 9 config #1 histogram and otsu_threshold {list(x1.shape)}: one K4 launch "
         f"each, == the plain CPU histogram and the call's threshold")
+    # the histogram route on config #2's blurred [24,2048,2048] stack: one K4
+    # launch, and nothing the size of a plane allocated (an int32 bin-id plane
+    # would be 4 B a pixel, a uint8 zeros plane 1 B)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(den2k.device)
+    torch.cuda.reset_peak_memory_stats(den2k.device)
+    launches = bin_histogram_cuda.launches
+    t2k = otsu_threshold_batch(den2k)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(den2k.device) - held
+    if bin_histogram_cuda.launches != launches + 1 or extra >= den2k[0].numel():
+        raise AssertionError(f"phase 9: otsu_threshold_batch {list(den2k.shape)} launched K4's "
+                             f"histogram {bin_histogram_cuda.launches - launches} times and "
+                             f"allocated {extra} B above what was held")
+    same(f"config #2 otsu_threshold_batch {list(den2k.shape)}", "thresholds",
+         t2k.view(torch.int32), plain_otsu(den2k).view(torch.int32))
+    log(f"phase 9 config #2 otsu_threshold_batch {list(den2k.shape)}: one K4 launch, {extra} B "
+        f"allocated above the {held} B held (no bin-id or zeros plane), thresholds == the "
+        f"plain histogram's")
     check_batch(f"config #1 batch {list(x1b.shape)}", as_float32(x1b), batch1)
     check_batch(f"config #2 stack_stats {list(x2.shape)}", den2, stats2)
     check_batch(f"config #2 stack_stats {list(x2k.shape)}", den2k, stats2k)
@@ -3652,11 +3799,12 @@ def main() -> int:
     )
     from particle_col_image_segmentation_tpu_torch.ops import gaussian_blur
     from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
-    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
+    from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import (
         _bin_index,
-        _bincount,
-        _value_range,
+        bin_histogram,
+        bin_histogram_cuda,
     )
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import _value_range
     from particle_col_image_segmentation_tpu_torch.ops.watershed import (
         claim_labels,
         minimax_costs,
@@ -3833,18 +3981,33 @@ def main() -> int:
                 list(region_counts(st, vt, mr)))
         compare("K4", f"region_sums {case} max_regions={mr}", list(region_sums_cuda(st, vt, mr)),
                 list(region_sums(st, vt, mr)))
-    # K4 as the Otsu histogram: bin ids (R + 1 = 256) with uint8 zeros as
-    # values, against the plain bincount; config #1's batch and config #2's
-    # blurred [24,2048,2048] stack are the threshold path's own inputs
-    def histogram_k4(case: str, x) -> None:
+    # K4 as the Otsu histogram: the fused kernel against the plain bin ids
+    # and bincount (also off a 16-byte boundary on the small inputs, and at
+    # other bin counts); config #1's batch and config #2's blurred
+    # [24,2048,2048] stack are the threshold path's own inputs.  Non-finite
+    # planes are held to the table route on the card (bin ids, K4's table
+    # kernel on uint8 zeros): the CPU casts NaN and infinities to int32
+    # otherwise
+    def histogram_k4(case: str, x, shifted: bool = False, bins: int = 256) -> None:
+        lo, span = _value_range(x)
+        want = bin_histogram(x, lo, span, bins)
+        compare("K4", f"Otsu histogram {case}", [bin_histogram_cuda(x, lo, span, bins)], [want])
+        if shifted:
+            compare("K4", f"Otsu histogram {case}, off 16 bytes",
+                    [bin_histogram_cuda(off16(x), lo, span, bins)], [want])
+
+    for case, xs in (*hist_inputs(), *hist_edge_inputs()):
+        histogram_k4(case, as_float32(torch.from_numpy(xs).to(dev)), shifted=True)
+    for case, bins, xs in hist_bins_inputs():
+        histogram_k4(case, torch.from_numpy(xs).to(dev), shifted=True, bins=bins)
+    for case, xs in hist_nonfinite_inputs():
+        x = torch.from_numpy(xs).to(dev)
         lo, span = _value_range(x)
         idx = _bin_index(x, lo, span, 256)
         zeros = torch.zeros(idx.shape, dtype=torch.uint8, device=dev)
-        compare("K4", f"Otsu histogram {case}", [region_counts_cuda(idx, zeros, 255)[0]],
-                [_bincount(idx, 256)])
-
-    for case, xs in hist_inputs():
-        histogram_k4(case, torch.from_numpy(xs).to(dev))
+        table_counts = region_counts_cuda(idx, zeros, 255)[0]
+        compare("K4", f"Otsu histogram {case}, against the table route",
+                [bin_histogram_cuda(x, lo, span, 256)], [table_counts])
     c1 = config1_plane()
     x1b = torch.from_numpy(np.stack([np.roll(c1, 7 * b, axis=1) for b in range(16)])).to(dev)
     histogram_k4("config #1 [16,512,512]", as_float32(x1b))

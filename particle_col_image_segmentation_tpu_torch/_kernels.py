@@ -45,6 +45,7 @@ _SIGNATURES = {
     "pcis_compact": (_I, [_P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "pcis_region_counts": (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "pcis_region_table": (_I, [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
+    "pcis_bin_histogram": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "pcis_table_lookup": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "pcis_edt_sq": (_I, [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "pcis_edt_max_tile_cap": (_I, []),
@@ -166,7 +167,8 @@ def launch_counter_table() -> dict:
     return {
         "K1": [ops.median_label_filter_cuda, ops.median_label_filter_rows_padded_cuda],
         "K2": [ops.ccl_cuda],
-        "K3": [ops.compact_labels_cuda], "K4": [ops.region_counts_cuda, ops.region_sums_cuda],
+        "K3": [ops.compact_labels_cuda],
+        "K4": [ops.region_counts_cuda, ops.region_sums_cuda, ops.bin_histogram_cuda],
         "K5": [ops.region_table_cuda], "K6": [ops.table_lookup_cuda],
         "K7": [ops.centroid_sums_cuda], "K8": [ops.particle_fill_step_cuda],
         "K9": [ops.edt_sq_cuda], "K10": [wt.watershed_cost_pass_cuda],

@@ -43,6 +43,10 @@ from particle_col_image_segmentation_tpu_torch.ops.filters_tiles import (  # noq
     median_label_filter_rows_padded_auto,
     median_label_filter_rows_padded_cuda,
 )
+from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import (  # noqa: F401
+    bin_histogram,
+    bin_histogram_cuda,
+)
 from particle_col_image_segmentation_tpu_torch.ops.morphology import (  # noqa: F401
     boundary_mask,
     close_disk,

@@ -6,12 +6,12 @@ range (skimage.filters.threshold_otsu binning), float32 throughout, as the
 JAX package computes it without x64, then a connected-components count of
 the foreground.
 
-On a CUDA tensor the histogram is K4 (``region_counts_cuda`` with the bin
-indices as ids, R + 1 = bins, uint8 zeros as values), as the JAX package
-does on the TPU, and the count runs through K2, K3 and K4; on a CPU tensor
-each step is its plain version (one ``bincount`` over the planes' offset bin
-ids, the plain CCL fixpoint, compaction and tables).  Outputs stay on the
-input's device.
+On a CUDA tensor the histogram is K4's fused route (``bin_histogram_cuda``:
+each pixel binned and counted in one pass, where the JAX package passes bin
+ids and uint8 zeros to K4 on the TPU), and the count runs through K2, K3
+and K4; on a CPU tensor each step is its plain version (``bin_histogram``:
+the bin ids and one ``bincount`` over the planes' offset ids, the plain CCL
+fixpoint, compaction and tables).  Outputs stay on the input's device.
 
 The Otsu prefix sums are summed in one fixed order on every device
 (``_prefix_sum``): blocks of 16 bins in order, then each block plus the
@@ -39,10 +39,11 @@ from particle_col_image_segmentation_tpu_torch.ops.ccl import (
     connected_components_auto,
 )
 from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
-from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import (
-    region_counts_auto,
-    region_counts_cuda,
+from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import (
+    bin_histogram,
+    bin_histogram_cuda,
 )
+from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import region_counts_auto
 
 __all__ = [
     "histogram",
@@ -62,36 +63,13 @@ def _value_range(x3: torch.Tensor):
     return lo, torch.clamp_min(hi - lo, 1e-12)
 
 
-def _bin_index(x3: torch.Tensor, lo, span, bins: int) -> torch.Tensor:
-    """int32 bin of each pixel: clip(int32((x − lo) / span · bins), 0,
-    bins − 1), in that float32 order (x == hi lands in bin ``bins`` and is
-    clipped)."""
-    return ((x3 - lo) / span * bins).to(torch.int32).clamp_(0, bins - 1)
-
-
-def _bincount(idx: torch.Tensor, bins: int) -> torch.Tensor:
-    """int32 [..., bins] counts of each plane's bin ids ([H, W] or [B, H, W]
-    int32), the plain version: one ``bincount`` of the planes' offset ids."""
-    flat = idx.reshape(-1, idx.shape[-2] * idx.shape[-1]).to(torch.int64)
-    planes = flat.shape[0]
-    flat = flat + bins * torch.arange(planes, device=idx.device)[:, None]
-    counts = torch.bincount(flat.reshape(-1), minlength=planes * bins)
-    return counts.to(torch.int32).reshape(idx.shape[:-2] + (bins,))
-
-
-def _bin_counts(idx: torch.Tensor, bins: int) -> torch.Tensor:
-    """The per-plane bin counts: K4 for a CUDA tensor (bin ids as region
-    ids, uint8 zeros as values), ``_bincount`` for a CPU tensor."""
-    if use_kernel(idx):
-        zeros = torch.zeros(idx.shape, dtype=torch.uint8, device=idx.device)
-        return region_counts_cuda(idx, zeros, bins - 1)[0]
-    return _bincount(idx, bins)
-
-
 def _centers(lo, span, bins: int) -> torch.Tensor:
-    """Bin centres lo + (i + 0.5) · span / bins, in that float32 order."""
+    """Bin centres lo + (i + 0.5) · span / bins, in that float32 order.  The
+    divisor is a tensor on lo's device: torch's CUDA division by a Python
+    number multiplies by its float32 reciprocal, which rounds otherwise
+    where ``bins`` is not a power of two."""
     i = torch.arange(bins, dtype=torch.float32, device=lo.device)
-    return lo + (i + 0.5) * span / bins
+    return lo + (i + 0.5) * span / torch.full((), bins, dtype=torch.float32, device=lo.device)
 
 
 def histogram(img: torch.Tensor, bins: int = 256):
@@ -109,7 +87,10 @@ def _histogram_batch(x3: torch.Tensor, bins: int):
     float32 [B, H, W] stack over each plane's [min, max] range, with the
     same bins and centres as ``histogram``."""
     lo, span = _value_range(x3)
-    counts = _bin_counts(_bin_index(x3, lo, span, bins), bins)
+    if use_kernel(x3):
+        counts = bin_histogram_cuda(x3.contiguous(), lo, span, bins)
+    else:
+        counts = bin_histogram(x3, lo, span, bins)
     return counts, _centers(lo[..., 0], span[..., 0], bins)
 
 

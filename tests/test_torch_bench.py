@@ -207,7 +207,8 @@ def test_bench_verb_on_the_cpu_prints_the_fallback_record():
 SMOKE_TABLE = {
     "K1": [ops.median_label_filter_cuda, ops.median_label_filter_rows_padded_cuda],
     "K2": [ops.ccl_cuda],
-    "K3": [ops.compact_labels_cuda], "K4": [ops.region_counts_cuda, ops.region_sums_cuda],
+    "K3": [ops.compact_labels_cuda],
+    "K4": [ops.region_counts_cuda, ops.region_sums_cuda, ops.bin_histogram_cuda],
     "K5": [ops.region_table_cuda], "K6": [ops.table_lookup_cuda],
     "K7": [ops.centroid_sums_cuda], "K8": [ops.particle_fill_step_cuda],
     "K9": [ops.edt_sq_cuda], "K10": [watershed_tiles.watershed_cost_pass_cuda],

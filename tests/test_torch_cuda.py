@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from particle_col_image_segmentation_tpu_torch.ops import (
+    bin_histogram_cuda,
     ccl_cuda,
     compact_labels,
     compact_labels_cuda,
@@ -60,7 +61,10 @@ from chip_smoke import (
     config4_painting,
     config2_stack,
     config2_stacks,
+    hist_bins_inputs,
+    hist_edge_inputs,
     hist_inputs,
+    hist_nonfinite_inputs,
     k3_inputs,
     k3_raw,
     k4_inputs,
@@ -659,24 +663,64 @@ def test_local_maxima_and_exact_edt_kernels(dev):
 
 
 def test_histogram_kernel(dev):
-    """K4 on bin ids (R+1 = 256, uint8 zeros) against the plain bincount on
-    chip_smoke.hist_inputs: one launch a call, none of the plain path."""
-    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
-        _bin_counts,
+    """K4's fused histogram kernel against its plain version (bin ids, one
+    bincount) on chip_smoke.hist_inputs, hist_edge_inputs and
+    hist_bins_inputs (1 to 40000 bins: fewer warp tables a block past 1024
+    bins, a launch a 16384-bin slice past that), also off a 16-byte
+    boundary, with exactly one K4 launch a call and none of the table
+    kernel; ``_histogram_batch`` and ``histogram`` on the card equal to the
+    plain CPU run; on the non-finite planes against the table route (bin
+    ids, K4's table kernel on uint8 zeros)."""
+    from particle_col_image_segmentation_tpu_torch.ops import histogram
+    from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+    from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import (
         _bin_index,
-        _bincount,
+        bin_histogram,
+        bin_histogram_cuda,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
+        _histogram_batch,
         _value_range,
     )
 
-    for case, xs in hist_inputs():
+    cases = [*((c, 256, xs) for c, xs in (*hist_inputs(), *hist_edge_inputs())),
+             *hist_bins_inputs()]
+    for case, bins, xs in cases:
+        x = as_float32(torch.from_numpy(xs).to(dev))
+        lo, span = _value_range(x)
+        want = bin_histogram(x, lo, span, bins)
+        for view in (x, off16(x)):
+            before = (bin_histogram_cuda.launches, region_counts_cuda.launches)
+            got = bin_histogram_cuda(view, lo, span, bins)
+            assert (bin_histogram_cuda.launches, region_counts_cuda.launches) == (
+                before[0] + 1, before[1]), case
+            _equal([got], [want], case)
+        before = bin_histogram_cuda.launches
+        counts, centers = _histogram_batch(x, bins)
+        assert bin_histogram_cuda.launches == before + 1, case
+        _equal([counts], [want], case)
+        cpu = x.cpu()
+        _equal([counts.cpu(), centers.cpu()], list(_histogram_batch(cpu, bins)), case)
+        _equal([t.cpu() for t in histogram(x[-1], bins)], list(histogram(cpu[-1], bins)), case)
+    for case, xs in hist_nonfinite_inputs():
         x = torch.from_numpy(xs).to(dev)
         lo, span = _value_range(x)
         idx = _bin_index(x, lo, span, 256)
-        before = region_counts_cuda.launches
-        got = _bin_counts(idx, 256)
-        assert region_counts_cuda.launches == before + 1, case
-        _equal([got], [_bincount(idx, 256)], case)
-        _equal([_bin_counts(idx[0], 256)], [_bincount(idx[0], 256)], case)
+        zeros = torch.zeros(idx.shape, dtype=torch.uint8, device=dev)
+        want = region_counts_cuda(idx, zeros, 255)[0]
+        _equal([bin_histogram_cuda(x, lo, span, 256)], [want], case)
+    x = torch.zeros((2, 8, 8), device=dev)
+    lo, span = _value_range(x)
+    with pytest.raises(ValueError, match="bins"):
+        bin_histogram_cuda(x, lo, span, 0)
+    with pytest.raises(ValueError, match="float32"):
+        bin_histogram_cuda(x.to(torch.float16), lo, span, 256)
+
+
+def _launches():
+    """Launches of K2, K3, K4's table kernel and K4's histogram kernel."""
+    return (ccl_cuda.launches, compact_labels_cuda.launches, region_counts_cuda.launches,
+            bin_histogram_cuda.launches)
 
 
 def _threshold_cases():
@@ -689,11 +733,12 @@ def _threshold_cases():
 @pytest.mark.parametrize("case", [c for c, _ in _threshold_cases()])
 def test_threshold_functions_through_the_kernels(dev, case):
     """threshold_and_count, threshold_and_count_batch and config #2's
-    stack_stats on the card: K2 and K3 once a call and K4 twice (the
+    stack_stats on the card: K2 and K3 once a call and K4 twice (the fused
     histogram and the table), outputs on the card and equal to the plain
     versions on the card, thresholds bit for bit.  The single-plane
-    ``histogram`` and ``otsu_threshold`` of the first plane launch K4 once
-    each and equal the plain CPU histogram and the call's threshold."""
+    ``histogram`` and ``otsu_threshold`` of the first plane launch K4's
+    histogram once each and equal the plain CPU histogram and the call's
+    threshold."""
     from particle_col_image_segmentation_tpu_torch.ops import (
         gaussian_blur,
         histogram,
@@ -705,7 +750,7 @@ def test_threshold_functions_through_the_kernels(dev, case):
 
     img = dict(_threshold_cases())[case]
     x = torch.from_numpy(img).to(dev)
-    before = (ccl_cuda.launches, compact_labels_cuda.launches, region_counts_cuda.launches)
+    before = _launches()
     if "single" in case:
         got = threshold_and_count(x, max_regions=4095)
         t, conv, want = plain_threshold(x, 4095)
@@ -718,8 +763,8 @@ def test_threshold_functions_through_the_kernels(dev, case):
         _equal([den], [gaussian_blur(x.cpu(), 1.0).to(dev)], case)
         t, want = plain_threshold_batch(den, 4095)
         conv = want[5].all()
-    after = (ccl_cuda.launches, compact_labels_cuda.launches, region_counts_cuda.launches)
-    assert after == (before[0] + 1, before[1] + 1, before[2] + 2), case
+    after = _launches()
+    assert after == tuple(n + 1 for n in before), case
     assert all(g.device == x.device for g in got), case
     assert bool(conv), case
     _equal(got, want, case)
@@ -727,10 +772,10 @@ def test_threshold_functions_through_the_kernels(dev, case):
         src = x.to(torch.float32) if "batch" in case else den
         _equal([otsu_threshold_batch(src).view(torch.int32)], [t.view(torch.int32)], case)
     plane = x if "single" in case else src[0]
-    before = region_counts_cuda.launches
+    before = _launches()
     counts, centers = histogram(plane)
     t0 = otsu_threshold(plane)
-    assert region_counts_cuda.launches == before + 2, case
+    assert _launches() == (*before[:3], before[3] + 2), case
     want_counts, want_centers = histogram(plane.cpu())
     _equal([counts, centers.view(torch.int32), t0.view(torch.int32)],
            [want_counts.to(dev), want_centers.to(dev).view(torch.int32),
@@ -740,7 +785,8 @@ def test_threshold_functions_through_the_kernels(dev, case):
 def test_config2_tiff_decode_to_card_stack_stats(dev, tmp_path):
     """Config #2's [24,512,512] stack written as a multi-page uint16 TIFF goes
     decode (the port's native codec) -> card -> stack_stats, equal to the
-    plain CPU run of the same decoded stack, with K2, K3 and K4 launched."""
+    plain CPU run of the same decoded stack, with K2, K3 and K4 (table and
+    histogram) launched once each."""
     from particle_col_image_segmentation_tpu_torch.io import native
     from particle_col_image_segmentation_tpu_torch.io.tiff import read_tiff_stack
 
@@ -750,10 +796,10 @@ def test_config2_tiff_decode_to_card_stack_stats(dev, tmp_path):
     assert native.available() and native.read_tiff(path) is not None
     a = read_tiff_stack(path)
     np.testing.assert_array_equal(a, stack)
-    before = (ccl_cuda.launches, compact_labels_cuda.launches, region_counts_cuda.launches)
+    before = _launches()
     den, got = stack_stats(torch.from_numpy(a).to(dev))
-    after = (ccl_cuda.launches, compact_labels_cuda.launches, region_counts_cuda.launches)
-    assert after == (before[0] + 1, before[1] + 1, before[2] + 2)
+    after = _launches()
+    assert after == tuple(n + 1 for n in before)
     den_cpu, want = stack_stats(torch.from_numpy(a))
     assert torch.equal(den.cpu().view(torch.int32), den_cpu.view(torch.int32))
     assert bool(got[5].all()) and bool(want[5].all())

@@ -29,7 +29,19 @@ from particle_col_image_segmentation_tpu_torch.ops import (
 )
 from particle_col_image_segmentation_tpu_torch.ops import threshold as port_threshold
 
-from chip_smoke import config1_plane, config2_stack, config2_stacks, stack_stats
+from particle_col_image_segmentation_tpu_torch import _kernels
+from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import bin_histogram
+
+from chip_smoke import (
+    config1_plane,
+    config2_stack,
+    config2_stacks,
+    hist_bins_inputs,
+    hist_edge_inputs,
+    hist_inputs,
+    stack_stats,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -120,6 +132,68 @@ def test_histogram_batch_and_otsu_batch_match_jax(case):
     # each plane's threshold is the single-plane call's
     for b in range(len(imgs)):
         np.testing.assert_array_equal(_bits(t[b].numpy()), _bits(otsu_threshold(x[b]).numpy()))
+
+
+HIST_CASES = {
+    **{case: (256, xs) for inputs in (hist_inputs, hist_edge_inputs) for case, xs in inputs()},
+    **{case: (bins, xs) for case, bins, xs in hist_bins_inputs()},
+}
+
+
+@pytest.mark.parametrize("case", sorted(HIST_CASES))
+def test_bin_histogram_matches_jax(case):
+    """The fused histogram kernel's plain version (bin ids, one bincount),
+    ``_histogram_batch`` and the single-plane ``histogram`` of the last plane
+    against the JAX package's ``_histogram_batch`` (run op by op) and
+    ``histogram``, tolerance 0, on the smoke's histogram inputs: bin edges
+    and one ulp either side, x == hi, a constant plane, a span clamped to
+    1e-12, negative values, uint16 and float16 planes (cast as
+    ``astype(jnp.float32)`` casts them), and bin edges at 1 to 40000 bins.
+    The centres are held to ``_histogram_batch``'s: JAX's jitted entry
+    points compute them as fma((i + 0.5) · span, float32(1 / bins), lo) on
+    the CPU (XLA's rewrite of the division by a constant), which differs
+    from the written order by an ulp where ``bins`` is not a power of two."""
+    bins, xs = HIST_CASES[case]
+    xs = np.ascontiguousarray(xs)
+    x = as_float32(_as_torch(xs))
+    lo, span = port_threshold._value_range(x)
+    got = bin_histogram(x, lo, span, bins)
+    want, want_centers = jax_threshold._histogram_batch(jnp.asarray(xs).astype(jnp.float32), bins)
+    assert got.dtype == torch.int32 and got.shape == (xs.shape[0], bins)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    counts, centers = port_threshold._histogram_batch(x, bins)
+    np.testing.assert_array_equal(counts.numpy(), got.numpy())
+    np.testing.assert_array_equal(_bits(centers.numpy()), _bits(want_centers))
+    assert int(got.sum()) == xs.size
+    counts, centers = histogram(x[-1], bins)
+    np.testing.assert_array_equal(
+        counts.numpy(), np.asarray(jax_threshold.histogram(jnp.asarray(xs[-1]), bins)[0]))
+    np.testing.assert_array_equal(_bits(centers.numpy()), _bits(np.asarray(want_centers)[-1]))
+
+
+def test_threshold_path_reaches_no_kernel_on_the_cpu(monkeypatch):
+    """On CPU tensors the threshold path takes the plain versions: no K1-K11
+    wrapper launches, and the histogram kernel's wrapper is never called."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the histogram kernel's wrapper was called on a CPU tensor")
+
+    monkeypatch.setattr(port_threshold, "bin_histogram_cuda", refuse)
+    reset_counts, read_counts = _kernels.launch_counters()
+    saved = {fn: fn.launches for fns in _kernels.launch_counter_table().values() for fn in fns}
+    try:
+        reset_counts()
+        c1 = config1_plane(128, discs=10)
+        x = _as_torch(c1)
+        histogram(x)
+        otsu_threshold(x)
+        threshold_and_count(x, max_regions=4095)
+        threshold_and_count_batch(_as_torch(np.stack([c1, c1[::-1]])), max_regions=4095)
+        stack_stats(_as_torch(config2_stack(2, 64, discs=4)))
+        assert set(read_counts().values()) == {0}
+    finally:
+        for fn, n in saved.items():
+            fn.launches = n
 
 
 @pytest.mark.parametrize("n", [1, 5, 16, 17, 255, 256, 257, 1000, 4097])

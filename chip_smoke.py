@@ -36,7 +36,12 @@ nonzero and no result line is printed):
      cap and cap + 1 from tile edges, cap > H, odd shapes, a view off a
      16-byte boundary), each cap's route and the flag "some d² > cap²"
      checked; the float32 square root (``sqrt_f32``) equal to numpy's for
-     every d² below 2^24 and 2^20 d² past it; K2's adversarial inputs
+     every d² below 2^24 and 2^20 d² past it; the multiply-adds rounded as
+     XLA's fused ones (``rounding_checks``: ``fma_f32`` against its NumPy
+     rule on random, float32-midpoint and special triples, the nearest
+     distances on ``pairwise_inputs`` and the Otsu centres and thresholds
+     at 3, 255, 256 and 1000 bins against the CPU run, bit for bit, and
+     ``nearest_neighbor_dists``' time at 1000 and 4095 cells); K2's adversarial inputs
      (``k2_inputs``: one value, a serpentine crossing every tile,
      checkerboards, 1-px stripes, binary noise, int32 extremes, widths
      1-129), each equal to scipy's min-index labels (``scipy_min_index``)
@@ -946,6 +951,192 @@ def off16(x):
     view = buf[step:].view(x.shape)
     view.copy_(x)
     return view
+
+
+def same_f32(got, want) -> bool:
+    """Whether float32 arrays (or tensors) ``got`` and ``want`` have one
+    shape and equal bit patterns, NaN where the other is NaN (NaN payloads
+    and signs are not compared)."""
+    import numpy as np
+
+    got, want = (v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v) for v in (got, want))
+    nan = np.isnan(want)
+    return (got.dtype == want.dtype == np.float32 and got.shape == want.shape
+            and np.array_equal(np.isnan(got), nan)
+            and np.array_equal(got.view(np.int32)[~nan], want.view(np.int32)[~nan]))
+
+
+def fma_f32_np(a, b, c):
+    """NumPy float32 ``a·b + c`` by ``ops.rounding.fma_f32``'s rule: the
+    exact float64 product, the float64 sum and its TwoSum error, the sum
+    rounded to odd (one float64 ulp toward the error where its last bit is
+    even), then one float32 rounding; non-finite sums as they are."""
+    import numpy as np
+
+    a, b, c = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
+    with np.errstate(invalid="ignore", over="ignore"):
+        p = a * b
+        s = p + c
+        bv = s - p
+        e = (p - (s - bv)) + (c - bv)
+        step = np.nextafter(s, np.where(e > 0, np.inf, -np.inf))
+        even = (s.view(np.int64) & 1) == 0
+        return np.where((e != 0) & even & np.isfinite(s), step, s).astype(np.float32)
+
+
+def fma_triples(seed: int = 67, n: int = 1 << 20):
+    """Random float32 (a, b, c): signs and exponents 2^-15 to 2^15 apart, so
+    products and addends overlap, a quarter of them cancelling."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a, b, c = ((rng.standard_normal(n) * 2.0 ** rng.integers(-15, 16, n)).astype(np.float32)
+               for _ in range(3))
+    c[: n // 4] = -(a[: n // 4].astype(np.float64) * b[: n // 4]).astype(np.float32)
+    return a, b, c
+
+
+def midpoint_triples(seed: int, n: int = 3000):
+    """Float32 (a, b, c) whose float64 sum a·b + c is a float32 midpoint the
+    exact sum lies off, on either side: c ± half its ulp u, plus or minus
+    u·r / 2^47, from factor pairs X·Y = 2^47 ± r (X, Y 24-bit, 0 < r <
+    2^17).  A float64 sum rounded to float32 is wrong on about half."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xs = np.arange(11_800_000, 11_800_000 + 400_000, dtype=np.int64)
+    pairs = []
+    for ys in (2**47 // xs, 2**47 // xs + 1):
+        r = xs * ys - 2**47
+        ok = (r != 0) & (np.abs(r) < 2**17) & (ys >= 2**23) & (ys < 2**24)
+        pairs.append(np.stack([xs[ok], ys[ok]], 1))
+    pick = np.concatenate(pairs)[rng.integers(0, sum(len(q) for q in pairs), n)]
+    e = rng.integers(-60, 61, n)  # c's binade: |c| in [2^e, 2^(e+1))
+    c = np.ldexp(rng.integers(2**23, 2**24, n).astype(np.float64), e - 23)
+    c *= rng.choice([-1.0, 1.0], n)
+    t = rng.integers(-20, 21, n)
+    a = np.ldexp(pick[:, 0].astype(np.float64), t - 23)
+    b = np.ldexp(pick[:, 1].astype(np.float64), e - 48 - t) * rng.choice([-1.0, 1.0], n)
+    return tuple(v.astype(np.float32) for v in (a, b, c))
+
+
+def fma_specials():
+    """Every triple of ±0, ±1, 2.5, −3, ±inf, NaN, ±FLT_MAX, FLT_MIN and
+    ±2^-149 (a, b, c float32 [14³])."""
+    import numpy as np
+
+    v = np.array([0.0, -0.0, 1.0, -1.0, 2.5, -3.0, np.inf, -np.inf, np.nan,
+                  np.finfo(np.float32).max, -np.finfo(np.float32).max,
+                  np.finfo(np.float32).tiny, 2.0 ** -149, -(2.0 ** -149)], np.float32)
+    return tuple(g.ravel() for g in np.meshgrid(v, v, v, indexing="ij"))
+
+
+def pairwise_inputs(seed: int = 71):
+    """(case, a, b, valid) as the nearest distances meet them: float32
+    centroids on a 2048² plane (refine's nn and cross-strain distances,
+    NanoSIMS's), 600 against 1500 (two blocks of 1024, 90 % valid) with a
+    NaN row on each side (an empty ROI's position; b's invalid), 8192 rows
+    against themselves, points near 2000 a few px apart, and an empty valid
+    set (+inf)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = (rng.random((600, 2)) * H).astype(np.float32)
+    b = (rng.random((1500, 2)) * H).astype(np.float32)
+    valid = rng.random(1500) < 0.9
+    a[7] = b[11] = np.nan
+    valid[11] = False
+    big = (rng.random((8192, 2)) * H).astype(np.float32)
+    near_a = (2000 + rng.random((37, 2)) * 3).astype(np.float32)
+    near_b = (2000 + rng.random((1100, 2)) * 40).astype(np.float32)
+    return [("600 vs 1500 with NaN rows", a, b, valid),
+            ("8192 rows", big, big, np.ones(8192, bool)),
+            ("near 2000", near_a, near_b, rng.random(1100) < 0.9),
+            ("no valid row", a, b, np.zeros(1500, bool))]
+
+
+def rounding_checks(dev, card: str) -> None:
+    """Phase 3's multiply-adds rounded as XLA's fused ones (``fma_f32``), on
+    the card, bit for bit (NaN where NaN; tolerance 0): ``fma_f32`` against
+    ``fma_f32_np`` on 2^20 random triples, 10^5 midpoint triples and every
+    special triple; ``min_dist_to_set`` and ``nearest_neighbor_dists`` on
+    ``pairwise_inputs`` against the port's CPU run; the Otsu centres
+    (``_centers``) and ``otsu_threshold_batch`` at 3, 255, 256 and 1000 bins
+    against the CPU run; then ``nearest_neighbor_dists`` at 1000 cells and at
+    refine's 4095 by CUDA events, beside the same loop with d² rounded twice
+    and ``torch.sqrt``."""
+    import numpy as np
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+    from particle_col_image_segmentation_tpu_torch.ops.pairwise import (
+        min_dist_to_set,
+        nearest_neighbor_dists,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.rounding import fma_f32
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
+        _centers,
+        _value_range,
+        otsu_threshold_batch,
+    )
+
+    def same(case: str, got, want) -> None:
+        if not same_f32(got, want):
+            raise AssertionError(f"phase 3 rounding {case}: the card differs")
+
+    def on(*xs):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in xs]
+
+    mid = midpoint_triples(73, 100_000)
+    wide = mid[0].astype(np.float64) * mid[1] + mid[2]
+    twice = (wide.astype(np.float32) != fma_f32_np(*mid)).mean()
+    if twice < 0.4:
+        raise AssertionError(f"phase 3 rounding: midpoint triples wrong twice only {twice}")
+    for case, abc in (("2^20 random triples", fma_triples()), ("10^5 midpoint triples", mid),
+                      ("special triples", fma_specials())):
+        same(f"fma_f32 {case}", fma_f32(*on(*abc)), fma_f32_np(*abc))
+    log(f"phase 3 rounding: fma_f32 on the card == the NumPy rule on 2^20 random, 10^5 "
+        f"midpoint (a float64 sum rounded to float32 wrong on {100 * twice:.1f} %) and 14^3 "
+        "special triples, bit for bit")
+    for case, a, b, valid in pairwise_inputs():
+        cpu = [torch.from_numpy(x) for x in (a, b, valid)]
+        same(f"min_dist_to_set {case}", min_dist_to_set(*on(a, b, valid)), min_dist_to_set(*cpu))
+        if a is b:
+            same(f"nearest_neighbor_dists {case}", nearest_neighbor_dists(*on(b, valid)),
+                 nearest_neighbor_dists(cpu[1], cpu[2]))
+    log("phase 3 rounding: min_dist_to_set and nearest_neighbor_dists == the CPU run on "
+        f"{[c for c, *_ in pairwise_inputs()]}")
+    stack = np.stack([*config2_stack(3, 256, discs=8), config1_plane(256, discs=8)])
+    x = as_float32(on(stack)[0])
+    lo, span = _value_range(x)
+    xc = x.cpu()
+    lo_c, span_c = _value_range(xc)
+    for bins in (3, 255, 256, 1000):
+        same(f"_centers bins={bins}", _centers(lo[..., 0], span[..., 0], bins),
+             _centers(lo_c[..., 0], span_c[..., 0], bins))
+        same(f"otsu_threshold_batch bins={bins}", otsu_threshold_batch(x, bins),
+             otsu_threshold_batch(xc, bins))
+    log(f"phase 3 rounding: _centers and otsu_threshold_batch [4,256,256] at bins 3, 255, "
+        "256, 1000 == the CPU run")
+    rng = np.random.default_rng(79)
+    for n in (1000, REFINE_REGIONS):  # phase 8's planes hold ~1000 cells; refine's cap
+        pts = torch.from_numpy((rng.random((n, 2)) * H).astype(np.float32)).to(dev)
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        own = torch.arange(n, device=dev)
+
+        def twice_rounded():  # the same loop with d0² + d1² rounded apart
+            out = torch.full((n,), float("inf"), device=dev)
+            for j0 in range(0, n, 1024):
+                d = pts[:, None, :] - pts[None, j0:j0 + 1024, :]
+                d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                keep = ones[None, j0:j0 + 1024] & (own[j0:j0 + 1024][None, :] != own[:, None])
+                out = torch.minimum(out, torch.where(keep, d2, float("inf")).amin(1))
+            return torch.sqrt(out)
+
+        ms = time_ms(lambda: nearest_neighbor_dists(pts, ones), reps=10)
+        ms_twice = time_ms(twice_rounded, reps=10)
+        log(f"phase 3 rounding times [{card}]: nearest_neighbor_dists [{n}, 2] {ms:.4f} ms by "
+            f"CUDA events; d² rounded twice with torch.sqrt {ms_twice:.4f} ms")
 
 
 def refine_relief(n: int = H, pairs: int = 480, seed: int = 0):
@@ -4086,6 +4277,7 @@ def main() -> int:
             raise AssertionError(f"sqrt_f32 on the card: {case} differs from numpy's")
         log(f"phase 3 sqrt_f32 {case}: equal to numpy's float32 sqrt bit for bit")
     del past, d2, got
+    rounding_checks(dev, card)
     morph_checks(dev, np.stack(planes[:4]), odd, tile_cap, compare)
 
     # ---- phase 3, the refine slice: exact EDT, local maxima, K10/K11, K7 ---

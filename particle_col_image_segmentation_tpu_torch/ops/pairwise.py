@@ -8,11 +8,21 @@ matrix is never held.  Deliberately not ``torch.cdist``: above 25 rows it
 switches to the ‖a‖² + ‖b‖² − 2abᵀ matrix product, which cancels
 catastrophically for nearby points with coordinates near 2000 (terms of
 ~|a||b| round at ~0.5 px², swamping a 1 px distance).
+
+Each d² is rounded as XLA's CPU code rounds the JAX package's
+``jnp.sum(diff * diff, axis=-1)``: the first coordinate's square rounded
+alone, the second's fused with it, ``fma(d₁, d₁, fl(d₀·d₀))``
+(``ops.rounding.fma_f32``), and the root is the correctly rounded
+``ops.edt.sqrt_f32``.  So the distances equal the JAX package's bit for bit
+on every device, a NaN row gives NaN and a set with no valid row +inf.
 """
 
 from __future__ import annotations
 
 import torch
+
+from particle_col_image_segmentation_tpu_torch.ops.edt import sqrt_f32
+from particle_col_image_segmentation_tpu_torch.ops.rounding import fma_f32
 
 __all__ = ["min_dist_to_set", "nearest_neighbor_dists"]
 
@@ -24,7 +34,8 @@ def _min_d2(a: torch.Tensor, b: torch.Tensor, keep, block: int) -> torch.Tensor:
     for j0 in range(0, b.shape[0], block):
         bb = b[j0:j0 + block]
         diff = a[:, None, :] - bb[None, :, :]
-        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+        d0, d1 = diff.unbind(-1)
+        d2 = fma_f32(d1, d1, d0 * d0)
         d2 = torch.where(keep(j0, j0 + bb.shape[0]), d2, float("inf"))
         out = torch.minimum(out, d2.amin(dim=1))
     return out
@@ -38,7 +49,7 @@ def min_dist_to_set(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
     b = b.to(torch.float32)
     valid = b_valid.to(torch.bool)
     d2 = _min_d2(a, b, lambda j0, j1: valid[None, j0:j1], block)
-    return torch.sqrt(torch.clamp(d2, min=0.0))
+    return sqrt_f32(torch.clamp(d2, min=0.0))
 
 
 def nearest_neighbor_dists(pts: torch.Tensor, valid: torch.Tensor,
@@ -54,4 +65,4 @@ def nearest_neighbor_dists(pts: torch.Tensor, valid: torch.Tensor,
         return valid[None, j0:j1] & (idx[None, :] != own[:, None])
 
     d2 = _min_d2(pts, pts, keep, block)
-    return torch.sqrt(torch.clamp(d2, min=0.0))
+    return sqrt_f32(torch.clamp(d2, min=0.0))

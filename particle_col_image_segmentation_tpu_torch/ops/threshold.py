@@ -30,6 +30,7 @@ int32, float16, bfloat16, float32 or float64, cast to float32 first.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,6 +45,7 @@ from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import (
     bin_histogram_cuda,
 )
 from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import region_counts_auto
+from particle_col_image_segmentation_tpu_torch.ops.rounding import fma_f32
 
 __all__ = [
     "histogram",
@@ -64,12 +66,14 @@ def _value_range(x3: torch.Tensor):
 
 
 def _centers(lo, span, bins: int) -> torch.Tensor:
-    """Bin centres lo + (i + 0.5) · span / bins, in that float32 order.  The
-    divisor is a tensor on lo's device: torch's CUDA division by a Python
-    number multiplies by its float32 reciprocal, which rounds otherwise
-    where ``bins`` is not a power of two."""
+    """Bin centres lo + (i + 0.5) · span / bins as the JAX package's jitted
+    entry points compute them on the CPU: XLA turns the division by the
+    constant ``bins`` into a product with its float32 reciprocal and fuses
+    that with the add, fma(fl((i + 0.5) · span), fl(1 / bins), lo).  The
+    same bits on every device and at any ``bins`` (at a power of two the
+    reciprocal is exact, and the fma rounds as the division did)."""
     i = torch.arange(bins, dtype=torch.float32, device=lo.device)
-    return lo + (i + 0.5) * span / torch.full((), bins, dtype=torch.float32, device=lo.device)
+    return fma_f32((i + 0.5) * span, np.float32(1) / np.float32(bins), lo)
 
 
 def histogram(img: torch.Tensor, bins: int = 256):

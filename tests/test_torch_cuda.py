@@ -5,7 +5,9 @@ none; on one, run them with
     python -m pytest tests/test_torch_cuda.py -q
 
 Outputs are integers, so the tolerance is exact equality.  Inputs are made
-with numpy from a seed.
+with numpy from a seed.  The float32 values that the port rounds as XLA's
+fused multiply-adds (``ops.rounding.fma_f32``: the nearest distances, the
+Otsu centres) are held to the CPU run's bit patterns.
 """
 
 import numpy as np
@@ -61,6 +63,12 @@ from chip_smoke import (
     config4_painting,
     config2_stack,
     config2_stacks,
+    fma_f32_np,
+    fma_specials,
+    fma_triples,
+    midpoint_triples,
+    pairwise_inputs,
+    same_f32,
     hist_bins_inputs,
     hist_edge_inputs,
     hist_inputs,
@@ -860,7 +868,45 @@ def test_analyze_nanosims_card_equals_cpu(dev, tmp_path):
         np.testing.assert_array_equal(g.labels, w.labels)
         np.testing.assert_array_equal(g.positions, w.positions)
         np.testing.assert_allclose(g.sums, w.sums, rtol=1e-6, atol=0)
-    np.testing.assert_allclose(got.nearest, want.nearest, rtol=1e-6)
+    np.testing.assert_array_equal(got.nearest, want.nearest)
+
+
+def test_fused_multiply_adds_on_the_card_equal_the_cpu(dev):
+    """fma_f32 on random, midpoint and special triples (and the NumPy rule),
+    min_dist_to_set and nearest_neighbor_dists on the smoke's pairwise
+    inputs (NaN rows, 8192 rows, an empty valid set), and the Otsu centres
+    and thresholds at 3, 255, 256 and 1000 bins: the card's float32 bits
+    equal the CPU run's, NaN where NaN."""
+    from particle_col_image_segmentation_tpu_torch.ops.pairwise import (
+        min_dist_to_set,
+        nearest_neighbor_dists,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.rounding import fma_f32
+    from particle_col_image_segmentation_tpu_torch.ops.threshold import (
+        _centers,
+        _value_range,
+        otsu_threshold_batch,
+    )
+
+    for case, abc in (("random", fma_triples(n=1 << 16)), ("midpoints", midpoint_triples(5)),
+                      ("specials", fma_specials())):
+        cpu = [torch.from_numpy(v) for v in abc]
+        got = fma_f32(*(v.to(dev) for v in cpu))
+        assert same_f32(got, fma_f32(*cpu)), case
+        assert same_f32(got, fma_f32_np(*abc)), case
+    for case, a, b, valid in pairwise_inputs():
+        cpu = [torch.from_numpy(v) for v in (a, b, valid)]
+        assert same_f32(min_dist_to_set(*(v.to(dev) for v in cpu)), min_dist_to_set(*cpu)), case
+        assert same_f32(nearest_neighbor_dists(cpu[1].to(dev), cpu[2].to(dev)),
+                        nearest_neighbor_dists(cpu[1], cpu[2])), case
+    x = torch.from_numpy(np.stack([*config2_stack(3, 128, discs=4),
+                                   config1_plane(128, discs=4)])).to(torch.float32)
+    lo, span = _value_range(x)
+    for bins in (3, 255, 256, 1000):
+        want = _centers(lo[..., 0], span[..., 0], bins)
+        lo_d, span_d = _value_range(x.to(dev))
+        assert same_f32(_centers(lo_d[..., 0], span_d[..., 0], bins), want), bins
+        assert same_f32(otsu_threshold_batch(x.to(dev), bins), otsu_threshold_batch(x, bins)), bins
 
 
 def _mesh_batch_planes():

@@ -344,6 +344,36 @@ def test_roi_sums_and_centroids_match_the_batched_jax_path():
     np.testing.assert_allclose(cents.numpy(), np.asarray(want_c)[:n], rtol=0, atol=POS_ATOL)
 
 
+def test_roi_centroids_equal_jax_until_coordinate_sums_pass_2_24():
+    """The centroid sums alone (the resize an identity: painted size =
+    acquisition size, so every solid mask is the ROI itself): ROIs whose
+    column and row sums stay below 2^24 get JAX's float32 positions bit for
+    bit.  XLA contracts no multiply-add here (a float32 sum, a division, an
+    add).  Past 2^24 the JAX package's float32 sums round in XLA's order,
+    while the port sums exactly in int64 and rounds the sum once to float32:
+    a disc of radius 250 centred at (501, 401) in a 768² acquisition lands
+    at JAX's (501.0001, 400.99988) and the port's (500.99997, 401.0), both
+    within 1.3e-4 px of the true centre and far inside ``POS_ATOL``."""
+    size = 768
+    yy, xx = np.mgrid[:size, :size]
+    labels = np.zeros((size, size), np.int32)
+    labels[(yy - 400) ** 2 + (xx - 500) ** 2 <= 250 ** 2] = 1
+    labels[(yy - 20) ** 2 + (xx - 20) ** 2 <= 81] = 2
+    labels[200:250, 10:60] = 3
+    labels[700:760, 600:767] = 4
+    iso = np.random.default_rng(8).random((1, size, size)).astype(np.float32)
+    _, got = ns.roi_sums_and_centroids(torch.from_numpy(labels), torch.from_numpy(iso), 4, size)
+    got = got.numpy()
+    want = np.asarray(jax_ns._roi_batched(jnp.asarray(labels), jnp.asarray(iso), 16, size)[1])[:4]
+    past = [max((xx * (labels == k)).sum(), (yy * (labels == k)).sum()) >= 2**24
+            for k in range(1, 5)]
+    assert past == [True, False, False, False]
+    np.testing.assert_array_equal(got[1:].view(np.int32), want[1:].view(np.int32))
+    assert not np.array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[0], [501.0, 401.0], rtol=0, atol=1.3e-4)
+    np.testing.assert_allclose(want[0], [501.0, 401.0], rtol=0, atol=1.3e-4)
+
+
 @pytest.mark.parametrize("flags", [{}, {"compat_green_o_bug": True},
                                    {"compat_imcrop_rect": True}])
 def test_analyze_nanosims_and_compat_flags_match_jax(flags):

@@ -8,9 +8,9 @@ position gets a worker thread of its own and runs the plain versions, as
 the JAX suite's eight virtual CPU devices do.  Inputs are made with numpy
 from a seed.  Stats, labels, counts, areas and centroids are integers or
 come from integer sums, so the tolerance is exact equality; nearest-
-neighbour distances are held to rtol 1e-6 as in ``test_torch_refine.py``
-(XLA may fuse a multiply-add), and the CSVs, which round them, byte for
-byte.
+neighbour distances are float32 bit patterns equal to JAX's, as in
+``test_torch_refine.py`` (the port rounds them as XLA's fused multiply-add
+does), and the CSVs, which round them, byte for byte.
 """
 
 import ast

@@ -6,10 +6,11 @@ Integers (labels, markers, counts, tables, EDT², flags) are compared
 exactly; the float32 distance map too (``jnp.sqrt`` and the port's
 ``sqrt_f32`` both give the correctly rounded float32 root, so any difference
 is a failure).  Nearest-neighbour distances are
-held to rtol 1e-6: both sum two float32 squares and take the root, but XLA
-may contract the sum into a fused multiply-add where PyTorch rounds each
-product, which moves the last bit.  The CSVs round those distances to 3
-decimals and must match byte for byte.
+compared exactly too: the port rounds each d² as XLA's fused multiply-add
+does (``ops.rounding.fma_f32``) and takes the correctly rounded root, so
+they equal the JAX package's float32 bit patterns
+(``tests/test_torch_rounding.py`` holds the rule).  The CSVs round those
+distances to 3 decimals and must match byte for byte.
 """
 
 import ast
@@ -139,7 +140,9 @@ def _assert_results_equal(got, want):
     np.testing.assert_array_equal(got.labels, want.labels)
     np.testing.assert_array_equal(got.areas, want.areas)
     np.testing.assert_array_equal(got.centroids, want.centroids)
-    np.testing.assert_allclose(got.nn_distances, want.nn_distances, rtol=1e-6)
+    assert got.nn_distances.dtype == want.nn_distances.dtype == np.float32
+    np.testing.assert_array_equal(got.nn_distances.view(np.int32),
+                                  want.nn_distances.view(np.int32))
 
 
 def test_refine_boundaries_and_csv_match_jax(tmp_path):
@@ -222,14 +225,14 @@ def test_pairwise_and_cross_strain_distances_match_jax():
     valid = rng.random(1100) < 0.9
     got = pairwise.min_dist_to_set(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(valid))
     want = jax_pairwise.min_dist_to_set(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), np.asarray(want).view(np.int32))
     nn = pairwise.nearest_neighbor_dists(torch.from_numpy(b), torch.from_numpy(valid))
     jnn = jax_pairwise.nearest_neighbor_dists(jnp.asarray(b), jnp.asarray(valid))
-    np.testing.assert_allclose(nn.numpy(), np.asarray(jnn), rtol=1e-6)
+    np.testing.assert_array_equal(nn.numpy().view(np.int32), np.asarray(jnn).view(np.int32))
     cross = torch_refine.cross_strain_distances(a, b[:50], device=CPU)
     jcross = jax_refine.cross_strain_distances(a, b[:50])
     for k in ("a_to_b", "b_to_a"):
-        np.testing.assert_allclose(cross[k], jcross[k], rtol=1e-6)
+        np.testing.assert_array_equal(cross[k].view(np.int32), jcross[k].view(np.int32))
     empty = pairwise.min_dist_to_set(torch.from_numpy(a), torch.from_numpy(b),
                                      torch.zeros(1100, dtype=torch.bool))
     assert torch.isinf(empty).all()

@@ -8,11 +8,12 @@ versions (K7's ``row_offset``, K9's flag over a row window),
 A mesh here names the CPU several times (``["cpu"] * n``).  Inputs are made
 with numpy from a seed, on the JAX suite's own fixtures (64×64 and 64×128
 planes).  Labels, markers, counts, d² and the centroid sums are integers and
-are compared exactly; nearest-neighbour distances are held to rtol 1e-6 as
-in ``test_torch_refine.py`` (XLA may fuse a multiply-add), and the CSVs,
-which round them, byte for byte.  The watershed's budgets differ by design
-(the JAX package counts halo-exchanged Jacobi steps, the port rounds of band
-fixpoints), so labels are compared where both report converged.  The JAX
+are compared exactly; nearest-neighbour distances too, as float32 bit
+patterns, as in ``test_torch_refine.py`` (the port rounds them as XLA's
+fused multiply-add does), and the CSVs, which round them, byte for byte.
+The watershed's budgets differ by design (the JAX package counts
+halo-exchanged Jacobi steps, the port rounds of band fixpoints), so labels
+are compared where both report converged.  The JAX
 package's own sharded functions run once, in a fresh interpreter with the
 compilation cache off.
 """

@@ -140,25 +140,27 @@ HIST_CASES = {
 }
 
 
+# JAX's ``_histogram_batch`` as its jitted callers compile it
+_jax_histogram_batch = jax.jit(jax_threshold._histogram_batch, static_argnames="bins")
+
+
 @pytest.mark.parametrize("case", sorted(HIST_CASES))
 def test_bin_histogram_matches_jax(case):
     """The fused histogram kernel's plain version (bin ids, one bincount),
     ``_histogram_batch`` and the single-plane ``histogram`` of the last plane
-    against the JAX package's ``_histogram_batch`` (run op by op) and
-    ``histogram``, tolerance 0, on the smoke's histogram inputs: bin edges
-    and one ulp either side, x == hi, a constant plane, a span clamped to
-    1e-12, negative values, uint16 and float16 planes (cast as
-    ``astype(jnp.float32)`` casts them), and bin edges at 1 to 40000 bins.
-    The centres are held to ``_histogram_batch``'s: JAX's jitted entry
-    points compute them as fma((i + 0.5) · span, float32(1 / bins), lo) on
-    the CPU (XLA's rewrite of the division by a constant), which differs
-    from the written order by an ulp where ``bins`` is not a power of two."""
+    against the JAX package's ``_histogram_batch`` (jitted, as
+    ``otsu_threshold_batch`` runs it) and ``histogram``, tolerance 0, on the
+    smoke's histogram inputs: bin edges and one ulp either side, x == hi, a
+    constant plane, a span clamped to 1e-12, negative values, uint16 and
+    float16 planes (cast as ``astype(jnp.float32)`` casts them), and bin
+    edges at 1 to 40000 bins.  The centres are XLA's fma((i + 0.5) · span,
+    float32(1 / bins), lo) at every ``bins``."""
     bins, xs = HIST_CASES[case]
     xs = np.ascontiguousarray(xs)
     x = as_float32(_as_torch(xs))
     lo, span = port_threshold._value_range(x)
     got = bin_histogram(x, lo, span, bins)
-    want, want_centers = jax_threshold._histogram_batch(jnp.asarray(xs).astype(jnp.float32), bins)
+    want, want_centers = _jax_histogram_batch(jnp.asarray(xs).astype(jnp.float32), bins)
     assert got.dtype == torch.int32 and got.shape == (xs.shape[0], bins)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     counts, centers = port_threshold._histogram_batch(x, bins)
@@ -166,9 +168,53 @@ def test_bin_histogram_matches_jax(case):
     np.testing.assert_array_equal(_bits(centers.numpy()), _bits(want_centers))
     assert int(got.sum()) == xs.size
     counts, centers = histogram(x[-1], bins)
+    want, want_centers = jax_threshold.histogram(jnp.asarray(xs[-1]), bins)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(_bits(centers.numpy()), _bits(want_centers))
+
+
+def _divided_centers(img: np.ndarray, bins: int) -> np.ndarray:
+    """lo + (i + 0.5) · span / bins with each float32 op rounded apart: the
+    port's centres before they were rounded as XLA's fma."""
+    x = img.astype(np.float32)
+    lo = x.min()
+    span = np.maximum(x.max() - lo, np.float32(1e-12))
+    i = np.arange(bins, dtype=np.float32)
+    return lo + (i + np.float32(0.5)) * span / np.float32(bins)
+
+
+@pytest.mark.parametrize("bins", [1, 3, 7, 100, 255, 256, 1000, 40000])
+def test_otsu_at_any_bins_matches_jax_jitted(bins):
+    """``histogram``, ``otsu_threshold`` and ``otsu_threshold_batch`` against
+    JAX's jitted entry points at ``bins`` bins: counts, centres and
+    thresholds bit for bit, on the bimodal plane, a config #1 plane and the
+    [5,64,128] batch with a constant plane.  Where ``bins`` is not a power
+    of two (and above 2), the centres in the written order differ from
+    JAX's on some plane, which the test asserts: the port's earlier centres
+    fail it."""
+    differ = 0
+    for img in (_bimodal(), config1_plane(128, discs=10)):
+        counts, centers = histogram(_as_torch(img), bins)
+        want_counts, want_centers = jax_threshold.histogram(jnp.asarray(img), bins)
+        assert counts.shape == centers.shape == (bins,)
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
+        np.testing.assert_array_equal(_bits(centers.numpy()), _bits(want_centers))
+        np.testing.assert_array_equal(
+            _bits(otsu_threshold(_as_torch(img), bins).numpy()),
+            _bits(jax_threshold.otsu_threshold(jnp.asarray(img), bins)))
+        differ += int((_bits(_divided_centers(img, bins)) != _bits(want_centers)).sum())
+    imgs = _batch_with_constant()
+    counts, centers = port_threshold._histogram_batch(_as_torch(imgs), bins)
+    want_counts, want_centers = _jax_histogram_batch(jnp.asarray(imgs), bins)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
+    np.testing.assert_array_equal(_bits(centers.numpy()), _bits(want_centers))
     np.testing.assert_array_equal(
-        counts.numpy(), np.asarray(jax_threshold.histogram(jnp.asarray(xs[-1]), bins)[0]))
-    np.testing.assert_array_equal(_bits(centers.numpy()), _bits(np.asarray(want_centers)[-1]))
+        _bits(otsu_threshold_batch(_as_torch(imgs), bins).numpy()),
+        _bits(jax_threshold.otsu_threshold_batch(jnp.asarray(imgs), bins)))
+    if bins > 2 and bins & (bins - 1):
+        assert differ > 0
+    else:
+        assert differ == 0
 
 
 def test_threshold_path_reaches_no_kernel_on_the_cpu(monkeypatch):

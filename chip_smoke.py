@@ -11,8 +11,10 @@ nonzero and no result line is printed):
      finds zlib.h (the native TIFF codec's build) and whether PIL imports;
      the port's subpackages import (with their re-exports) and pull in
      neither h5py nor matplotlib;
-  2. build — the eleven kernels K1-K11 from csrc/ (one nvcc per source,
-     in parallel; K4's histogram in its own source), timed;
+  2. build — the twelve kernels from csrc/: K1-K11, the ports of the
+     TPU kernels, and the Gaussian blur's kernel (``blur``, csrc/blur.cu,
+     no TPU kernel: XLA's blur), one nvcc per source, in parallel (K4's
+     histogram in its own source), timed;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
      same card tensors, exact equality (all outputs are integers, so the
      tolerance is 0): 2048² bench planes, odd [3,97,130] batches, 2-D
@@ -41,7 +43,14 @@ nonzero and no result line is printed):
      rule on random, float32-midpoint and special triples, the nearest
      distances on ``pairwise_inputs`` and the Otsu centres and thresholds
      at 3, 255, 256 and 1000 bins against the CPU run, bit for bit, and
-     ``nearest_neighbor_dists``' time at 1000 and 4095 cells); K2's adversarial inputs
+     ``nearest_neighbor_dists``' time at 1000 and 4095 cells); the blur
+     kernel (``blur_checks``) against its plain version (``blur_plain``),
+     bit for bit, in both forms (contracted and op by op), at σ 0.5, 1,
+     1.5, 2.3 and 32 (``MAX_HALF``'s, the widest it takes), on uint16 and
+     float32 ``blur_inputs`` ([1,1,1], [2,5,130], [3,96,130], planes
+     narrower and shorter than the kernel's half, a view off a 16-byte
+     boundary) and config #2's [24,512,512] and [24,2048,2048] stacks, and
+     its refusal past ``MAX_HALF``; K2's adversarial inputs
      (``k2_inputs``: one value, a serpentine crossing every tile,
      checkerboards, 1-px stripes, binary noise, int32 extremes, widths
      1-129), each equal to scipy's min-index labels (``scipy_min_index``)
@@ -103,10 +112,16 @@ nonzero and no result line is printed):
      config #1's single plane and [16,512,512] batch and config #2's
      stack_stats at [24,512,512] and [24,2048,2048], kernels and plain,
      by CUDA events and device time, the [24,2048,2048] call split by step
-     (blur, min/max, K4's fused histogram, Otsu, mask, K2, K3, K4 counts)
+     (the blur kernel, min/max, K4's fused histogram, Otsu, mask, K2, K3,
+     K4 counts)
      with the table route's histogram (bin ids, zeros + K4's table kernel)
      timed beside it, K4's fused histogram beside one torch.bincount of
-     the offset ids and K2 on the binary mask, each with its bound;
+     the offset ids and K2 on the binary mask, each with its bound; the
+     blur kernel (``blur_times``) on config #2's [24,2048,2048] uint16
+     stack at σ 1, contracted and op by op, and on its float32 copy, by
+     CUDA events and device time, beside its plain versions, its bound
+     and one conv2d of the replicate-padded stack (a yardstick only: not
+     bit-equal);
   6. analyze path — run_analysis over a folder tree of 2048² bench planes
      (8 single-file 3D05 folders, batched 8 at a time, and one 3D05+6B07
      folder with RFP and DAPI files: per-channel analysis, DAPI dedup,
@@ -129,21 +144,25 @@ nonzero and no result line is printed):
      batch (plane b rolled by 7·b columns) and config #2's stack_stats on
      [24,512,512] and [24,2048,2048] stacks (bench.py's recipes; 30 and 480
      discs a plane), max_regions=4095: K2, K3 and K4 launched (K4 twice a
-     call: the fused Otsu histogram and the region table; counts reset just
-     before the run), thresholds bit for bit, masks, labels, count, num_fg
+     call: the fused Otsu histogram and the region table), the blur kernel
+     once a stack_stats (counts reset just before the run), the
+     [24,2048,2048] stack's blur equal to the contracted plain blur on the
+     card (``fma=True``: config #2 rounds as bench.py's jitted graph),
+     thresholds bit for bit, masks, labels, count, num_fg
      and num_total equal to the plain versions on the card (labels where
      the plain CCL converged, K2 equal to scipy's on the other planes),
      each plane's count and num_total equal to scipy.ndimage.label's on
      img > t, the [16,512,512] batch's thresholds, masks and counts equal
-     to the plain CPU run's, the [24,512,512] stack's blur and
-     thresholds (plane 6 holds an Otsu near-tie) equal to the CPU's, and
+     to the plain CPU run's, the [24,512,512] stack's blur (the contracted
+     plain blur) and thresholds (plane 6 holds an Otsu near-tie) equal to
+     the CPU's, and
      the single-plane histogram and otsu_threshold of config #1's plane
      (one K4 histogram launch each) equal to the plain CPU histogram and the
      call's threshold, and otsu_threshold_batch of the blurred
      [24,2048,2048] stack one K4 launch that allocates less than a plane's
      pixel count in bytes (no bin-id or zeros plane).  The [24,2048,2048]
      stack is made once on the host and is on the card only in phase 3's
-     histogram check, phase 5's threshold times and phase 9;
+     histogram and blur checks, phase 5's threshold times and phase 9;
  10. config #2 from TIFFs on disk (``zstack_phase``) — four [24,512,512]
      and two [24,2048,2048] stacks (``config2_stacks``) written as
      multi-page uint16 TIFFs, each decoded by the port's native codec bit
@@ -151,9 +170,11 @@ nonzero and no result line is printed):
      a reused buffer, the pinned host-to-device copy, stack_stats,
      bench.py's end-to-end MP/s (decode inside the timer) and the same
      loop stepped (decode, pageable copy, compute per stack) by CUDA events
-     and the host's clock, K2, K3 and K4 launched (counts reset just before
-     the end-to-end runs); every
-     stack's blur and thresholds equal to the plain CPU run's, masks to
+     and the host's clock, K2, K3, K4 and the blur kernel launched (counts
+     reset just before the end-to-end runs); every stack's blur equal to
+     the contracted plain blur on the CPU (max |kernel - plain| 0, the
+     record's ``blur_max_abs_err``) and its thresholds to the plain CPU
+     run's, masks to
      the CPU's den > t, counts and num_total to scipy's; a CPU baseline
      (scipy blur, numpy Otsu, scipy label) for vs_cpu; then the split and
      normalize verbs in fresh interpreters (``split_and_normalize``).
@@ -165,7 +186,9 @@ nonzero and no result line is printed):
      squares and the grid painted at 700x650, eight [514,514] .mat images
      each) through run_nanosims on the card (K2 and K3 launched) against
      the plain CPU run (ROI counts, labels, resized masks and positions bit
-     for bit, sums and every CSV within rtol 1e-6), the ``nanosims`` verb
+     for bit, sums and every CSV within rtol 1e-6), ``display_images`` on
+     the card (eight op-by-op blurs at σ 1 and 1.5, the blur kernel's
+     default form) equal to the CPU's bit for bit, the ``nanosims`` verb
      in a fresh interpreter, and times: run_nanosims and the same flow
      stepped, the per-ROI reduction alone (bench.py's
      ``4_nanosims_ms_per_acq``, ``4_nanosims_rois_per_s``) and bench's
@@ -228,7 +251,8 @@ nonzero and no result line is printed):
      read from bench.py, plus device, power_limit and launches), platform
      gpu, exact mask parity, every config value a finite number, and the
      kernels each config runs launched (K1-K4 by config #5; K2, K3, K7, K9,
-     K10, K11 by config #3; K2-K4 by configs #1 and #2); the record, the
+     K10, K11 by config #3; K2-K4 and the blur by configs #1 and #2); the
+     record, the
      child's log and the phase's wall.
 Phase 3 also holds the band modes of the space axis (``band_checks``): K1
 on row-padded bands, K5 with a row offset (its value sums too; one offset of
@@ -253,7 +277,9 @@ tunnel, data axis, space axis, spatial refine, multi-host (both phase 16
 children of both runs), oracle and bench (phase 18's child) paths' runs,
 ``bound_ms`` is the bytes each function must move over 3.35 TB/s,
 ``more_shapes`` holds K2's and K4's threshold-path shapes and K6's device
-time; ``zstack`` holds phase 10's numbers, ``nanosims`` and
+time; the ``blur`` entry, after K11's, is the blur kernel's: no TPU kernel,
+its ``replaces`` XLA's blur, its ``library_ms`` one conv2d, not bit-equal;
+``zstack`` holds phase 10's numbers, ``nanosims`` and
 ``morphology`` phase 11's, ``tunnel`` phase 12's, ``data_axis`` phase 13's,
 ``space_axis`` phase 14's, ``space_refine`` phase 15's, ``multihost``
 phase 16's, ``oracle`` phase 17's, ``bench`` phase 18's record); the last
@@ -750,15 +776,106 @@ def config2_stack(planes: int = 24, n: int = 512, discs: int = 30, seed: int = 2
 
 def stack_stats(x):
     """Config #2's compute (bench.py's stack_stats): the Gaussian blur at
-    σ 1, then ``threshold_and_count_batch`` at max_regions 4095.  Returns
-    the blurred stack and the six outputs."""
+    σ 1, contracted as bench.py's jitted graph rounds it (``fma=True``),
+    then ``threshold_and_count_batch`` at max_regions 4095.  Returns the
+    blurred stack and the six outputs."""
     from particle_col_image_segmentation_tpu_torch.ops import (
         gaussian_blur,
         threshold_and_count_batch,
     )
 
-    den = gaussian_blur(x, 1.0)
+    den = gaussian_blur(x, 1.0, fma=True)
     return den, threshold_and_count_batch(den, max_regions=TH_REGIONS)
+
+
+def plain_blur(x, sigma: float = 1.0, fma: bool = True):
+    """The blur kernel's plain version on x's device (any dtype
+    ``as_float32`` takes): config #2's contracted form by default."""
+    from particle_col_image_segmentation_tpu_torch.ops import blur_plain, gaussian_taps
+    from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+
+    return blur_plain(as_float32(x), gaussian_taps(sigma), fma)
+
+
+# the blur kernel's σ: NanoSIMS's 1 and 1.5, config #2's 1, and 32, the
+# widest the kernel takes (ceil(2σ) = MAX_HALF)
+BLUR_SIGMAS = (0.5, 1.0, 1.5, 2.3, 32.0)
+
+
+def blur_inputs(seed: int = 73):
+    """The blur kernel's small inputs: (case, uint16 array, float32 array of
+    the same shape, whether it is held off a 16-byte boundary).  Planes of one pixel, narrower than the
+    kernel's half at σ ≥ 1 (1 px) and at σ 32 (40 px < 64), shorter than
+    it, a row of 130 (one tile and two columns), [3,96,130] (tiles cut by
+    both edges), and a view off a 16-byte boundary."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for case, shape, shifted in (("[1,1,1]", (1, 1, 1), False),
+                                 ("[2,5,130]", (2, 5, 130), False),
+                                 ("[3,96,130]", (3, 96, 130), False),
+                                 ("[3,96,130] off 16 bytes", (3, 96, 130), True),
+                                 ("[2,70,1] narrower than every half", (2, 70, 1), False),
+                                 ("[3,2,40] shorter and narrower than σ 32's half", (3, 2, 40),
+                                  False),
+                                 ("2-D [40,33]", (40, 33), False)):
+        u16 = rng.integers(0, 65536, shape).astype(np.uint16)
+        f32 = (rng.random(shape) * 65535).astype(np.float32)
+        yield case, u16, f32, shifted
+
+
+def blur_checks(dev, stacks, card: str) -> float:
+    """Phase 3: the blur kernel (``gaussian_blur_cuda``) against its plain
+    version on the card, bit for bit, in both forms, at every σ of
+    BLUR_SIGMAS, on ``blur_inputs`` (uint16 and float32) and on config #2's
+    stacks (uint16 [24, n, n] arrays, and their float32 copies); then its
+    refusal past MAX_HALF.  Returns the largest |kernel - plain| (0)."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import MAX_HALF, gaussian_blur_cuda
+    from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+
+    def cases():
+        for case, u16, f32, shifted in blur_inputs():
+            for name, a in (("uint16", u16), ("float32", f32)):
+                x = torch.from_numpy(a).to(dev)
+                if shifted:  # uint16 through its int16 view: few ops take uint16
+                    x = (off16(x.view(torch.int16)).view(torch.uint16) if name == "uint16"
+                         else off16(x))
+                yield f"{case} {name}", x
+        for a in stacks:  # one stack on the card at a time
+            x = torch.from_numpy(a).to(dev)
+            yield f"config #2 {list(a.shape)} uint16", x
+            yield f"config #2 {list(a.shape)} float32", as_float32(x)
+
+    worst, n = 0.0, 0
+    t0 = time.perf_counter()
+    for case, x in cases():
+        for sigma in BLUR_SIGMAS:
+            for fma in (True, False):
+                got = gaussian_blur_cuda(x, sigma, fma=fma)
+                want = plain_blur(x, sigma, fma)
+                torch.cuda.synchronize()
+                d = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+                worst, n = max(worst, d), n + 1
+                if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                    raise AssertionError(f"blur {case} σ {sigma} fma={fma}: the kernel differs "
+                                         f"from its plain version (max |d| {d})")
+                del got, want
+    del x
+    torch.cuda.empty_cache()
+    try:
+        gaussian_blur_cuda(torch.zeros((4, 4), device=dev), MAX_HALF / 2 + 0.01)
+    except ValueError as e:
+        log(f"phase 3 blur past its limit: ValueError {e}")
+    else:
+        raise AssertionError("the blur kernel took a σ past MAX_HALF")
+    log(f"phase 3 blur [{card}]: the kernel == its plain version bit for bit in {n} cases "
+        f"(σ {list(BLUR_SIGMAS)}, contracted and op by op, uint16 and float32, "
+        f"{len(list(blur_inputs()))} small inputs and config #2's "
+        f"{', '.join(str(list(a.shape)) for a in stacks)}): max |kernel - plain| = {worst} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return worst
 
 
 def hist_inputs(seed: int = 47):
@@ -1574,7 +1691,7 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
     big = f"[{B2},{x2k.shape[1]},{x2k.shape[2]}]"
 
     def plain_stack_stats(x):
-        den = gaussian_blur(x, 1.0)
+        den = plain_blur(x)
         return den, plain_threshold_batch(den, TH_REGIONS)
 
     def traced(fn, reps: int = 5):
@@ -1603,7 +1720,7 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
             f"activities a call; plain {pl:.3f} ms")
     # config #2 at its large shape step by step, each step's device time a
     # call on the previous step's output
-    den2k = gaussian_blur(x2k, 1.0)
+    den2k = gaussian_blur(x2k, 1.0, fma=True)
     lo, span = _value_range(den2k)
     idx2k = _bin_index(den2k, lo, span, 256)
     zeros2k = torch.zeros(idx2k.shape, dtype=torch.uint8, device=dev)
@@ -1616,7 +1733,7 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
     raw2k = ccl_cuda(m8_2k)
     seg2k, _ = compact_labels_cuda(raw2k, TH_REGIONS)
     steps = {
-        "blur": lambda: gaussian_blur(x2k, 1.0),
+        "blur kernel": lambda: gaussian_blur(x2k, 1.0, fma=True),
         "min/max": lambda: _value_range(den2k),
         "K4 histogram (fused)": lambda: bin_histogram_cuda(den2k, lo, span, 256),
         "Otsu reduction": lambda: (_centers(lo[..., 0], span[..., 0], 256),
@@ -1632,7 +1749,7 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
         f"call (device activities): " + ", ".join(f"{k} {v:.4f} ({n:.0f})"
                                                   for k, (v, n) in th_split.items())
         + f"; sum {sum(v for v, _ in th_split.values()):.4f} against {whole:.4f} for the "
-        f"whole call (blur {100 * th_split['blur'][0] / whole:.1f} %)")
+        f"whole call (blur kernel {100 * th_split['blur kernel'][0] / whole:.1f} %)")
     # the table route's histogram steps on the same stack, timed on the same
     # card as the fused kernel: the bin-id plane, then uint8 zeros and K4's
     # table kernel on the ids
@@ -1685,6 +1802,63 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
     return more_shapes
 
 
+def blur_times(card: str, x2k) -> dict:
+    """Phase 5: the blur kernel on config #2's uint16 stack x2k at σ 1,
+    contracted (config #2's form) and op by op, and on its float32 copy,
+    by CUDA events and device time (torch.profiler), beside the plain
+    versions on the card (the contracted one through ``fma_f32``; the op
+    by op one is the port's blur before the kernel), the bound (bytes:
+    2 B a uint16 pixel or 4 B a float32 one read, 4 B written) and one
+    ``conv2d`` of the replicate-padded float32 stack with the taps' outer
+    product, TF32 off (a yardstick only: one 2-D sum in another order, not
+    bit-equal).  Returns the record's ``blur`` entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from particle_col_image_segmentation_tpu_torch.ops import gaussian_blur_cuda, gaussian_taps
+    from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
+
+    shape = list(x2k.shape)
+    f32 = as_float32(x2k)
+    fma_k = (lambda: gaussian_blur_cuda(x2k, 1.0, fma=True))
+    entry = {"shape": f"config #2 {shape} uint16, σ 1, contracted",
+             "ms": time_ms(fma_k, reps=20), "device_ms": device_ms(fma_k),
+             "plain_ms": time_ms(lambda: plain_blur(x2k), reps=2),
+             "bound_ms": 6 * x2k.numel() / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    k = torch.tensor(gaussian_taps(1.0), device=x2k.device)
+    half = len(k) // 2
+    xp = F.pad(f32[:, None], (half, half, half, half), mode="replicate")
+    w = torch.outer(k, k)[None, None]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        entry["library_ms"] = time_ms(lambda: F.conv2d(xp, w), reps=10)
+        lib_err = float((F.conv2d(xp, w)[:, 0] - fma_k()).abs().max())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del xp
+    entry["library_note"] = (f"one torch.nn.functional.conv2d of the replicate-padded float32 "
+                             f"stack with the taps' outer product, TF32 off: a yardstick only, "
+                             f"not bit-equal (max |conv2d - kernel| {lib_err})")
+    op_k = (lambda: gaussian_blur_cuda(x2k, 1.0))
+    f32_k = (lambda: gaussian_blur_cuda(f32, 1.0, fma=True))
+    entry["more_shapes"] = [
+        {"shape": f"config #2 {shape} uint16, σ 1, op by op", "ms": time_ms(op_k, reps=20),
+         "device_ms": device_ms(op_k),
+         "plain_ms": time_ms(lambda: plain_blur(x2k, fma=False), reps=3),
+         "bound_ms": entry["bound_ms"], "bound_by": "bytes", "library_ms": None},
+        {"shape": f"config #2 {shape} float32, σ 1, contracted", "ms": time_ms(f32_k, reps=20),
+         "device_ms": device_ms(f32_k), "plain_ms": time_ms(lambda: plain_blur(f32), reps=2),
+         "bound_ms": 8 * x2k.numel() / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": entry["library_ms"]}]
+    for m in [entry] + entry["more_shapes"]:
+        log(f"phase 5 times [{card}]: blur {m['shape']}: {m['ms']:.4f} ms by CUDA events, "
+            f"device {m['device_ms']:.4f}, bound {m['bound_ms']:.4f}; plain {m['plain_ms']:.3f} ms")
+    log(f"phase 5 times [{card}]: blur yardstick {entry['library_ms']:.4f} ms: "
+        f"{entry['library_note']}")
+    return entry
+
+
 def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) -> dict:
     """Phase 9: the threshold path on the card, through the entry points
     (config #1's plane c1 = x1 through ``threshold_and_count``, its
@@ -1720,8 +1894,9 @@ def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) 
     threshold_s = time.perf_counter() - t0
     threshold_launches = read_counts()
     # four calls: K2 and K3 once each; K4 twice, the fused Otsu histogram
-    # and the region table
-    want_launches = {k: {"K2": 4, "K3": 4, "K4": 8}.get(k, 0) for k in threshold_launches}
+    # and the region table; the blur kernel once a stack_stats
+    want_launches = {k: {"K2": 4, "K3": 4, "K4": 8, "blur": 2}.get(k, 0)
+                     for k in threshold_launches}
     log(f"phase 9 threshold path: threshold_and_count {list(x1.shape)}, "
         f"threshold_and_count_batch {list(x1b.shape)}, stack_stats {list(x2.shape)} and "
         f"{list(x2k.shape)}: {threshold_s:.2f} s wall "
@@ -1729,6 +1904,15 @@ def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) 
     if threshold_launches != want_launches:
         raise AssertionError(f"phase 9: launches {threshold_launches}, expected {want_launches} "
                              "(the histogram is K4's launch on the card)")
+    # config #2 rounds as bench.py's jitted graph: the blur kernel's output
+    # equals the contracted plain blur on the card
+    want_den = plain_blur(x2k)
+    if not torch.equal(den2k.view(torch.int32), want_den.view(torch.int32)):
+        raise AssertionError(f"phase 9 config #2 {list(x2k.shape)}: the blur differs from the "
+                             "contracted plain blur")
+    del want_den
+    log(f"phase 9 config #2 stack_stats {list(x2k.shape)}: the blur == the contracted plain "
+        f"blur on the card bit for bit")
 
     def same(case: str, name: str, got, want) -> None:
         if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
@@ -1842,12 +2026,12 @@ def threshold_phase(card: str, c1, x1, x1b, x2, x2k, reset_counts, read_counts) 
     # config #2's smaller stack holds a near-tie (plane 6 at 512²: two cuts
     # within 1.5e-7 of each other), which a sum in another order flips: the
     # card's blur and thresholds equal the CPU's
-    den_cpu = gaussian_blur(x2.cpu(), 1.0)
+    den_cpu = gaussian_blur(x2.cpu(), 1.0, fma=True)
     same("config #2 on the CPU", "blur", den2.cpu().view(torch.int32), den_cpu.view(torch.int32))
     same("config #2 on the CPU", "thresholds", otsu_threshold_batch(den2).cpu().view(torch.int32),
          otsu_threshold_batch(den_cpu).view(torch.int32))
     log(f"phase 9 config #2 stack_stats {list(x2.shape)}: the blur and the thresholds == the "
-        f"CPU's bit for bit")
+        f"CPU's (the contracted plain blur) bit for bit")
     return threshold_launches
 
 
@@ -1984,8 +2168,10 @@ def zstack_phase(card: str, dev, reset_counts, read_counts) -> tuple:
     stack into a fresh buffer and into a reused, pre-touched one (their
     difference is the host's first-touch cost) and the host copy into a
     pinned buffer; by CUDA events: host to device from that pinned buffer
-    and ``stack_stats`` on a device-resident stack.  Every stack's blur and
-    thresholds equal the plain CPU run's bit for bit, its mask the CPU's
+    and ``stack_stats`` on a device-resident stack.  Every stack's blur
+    equals the contracted plain blur on the CPU (config #2's form; the
+    largest |kernel - plain| is the record's ``blur_max_abs_err``, 0) and
+    its thresholds the plain CPU run's, bit for bit, its mask the CPU's
     den > t, each plane's count and num_total scipy's components of it; the
     first stack of the first cell equals the plain CPU ``stack_stats`` in
     every output.  Then, ZSTACK_REPS times each, launch counts reset just
@@ -2055,7 +2241,7 @@ def zstack_phase(card: str, dev, reset_counts, read_counts) -> tuple:
         log(f"phase 10 zstack: {sum(len(v) for v in files.values())} stacks written and decoded "
             f"by the native codec bit for bit in {time.perf_counter() - t0:.1f} s")
 
-        first = True
+        first, blur_err = True, 0.0
         for key, paths in files.items():
             c = {"stacks": len(paths), "fresh_fill_ms": [], "reused_fill_ms": [],
                  "h2d_pinned_ms": [], "pin_stage_ms": [], "compute_ms": []}
@@ -2083,8 +2269,10 @@ def zstack_phase(card: str, dev, reset_counts, read_counts) -> tuple:
                                                for _ in range(ZSTACK_REPS + 2)][1:]))
                 den, out = stack_stats(x)
                 # the same decoded stack through the plain versions on the CPU
-                den_cpu = gaussian_blur(src, 1.0)
+                den_cpu = gaussian_blur(src, 1.0, fma=True)
                 t_cpu = otsu_threshold_batch(den_cpu)
+                blur_err = max(blur_err, float((den.cpu().to(torch.float64)
+                                                - den_cpu.to(torch.float64)).abs().max()))
                 if not (torch.equal(bits(den), den_cpu.view(torch.int32))
                         and torch.equal(bits(otsu_threshold_batch(den)), t_cpu.view(torch.int32))):
                     raise AssertionError(f"phase 10 {key} stack {s}: the blur or the thresholds "
@@ -2118,7 +2306,9 @@ def zstack_phase(card: str, dev, reset_counts, read_counts) -> tuple:
             c["shape"] = key
             c["mb_per_stack"] = os.path.getsize(paths[0]) / 1e6
             record["cells"][key] = c
-        log(f"phase 10 zstack: every stack's blur and thresholds == the plain CPU run's bit for "
+        record["blur_max_abs_err"] = blur_err
+        log(f"phase 10 zstack: every stack's blur == the contracted plain blur on the CPU (max "
+            f"|kernel - plain| = {blur_err}) and its thresholds == the plain CPU run's bit for "
             f"bit, masks == the CPU's den > t, counts and num_total == scipy's "
             f"({time.perf_counter() - t_phase:.1f} s into the phase)")
 
@@ -2166,8 +2356,8 @@ def zstack_phase(card: str, dev, reset_counts, read_counts) -> tuple:
             c.update(steps)
         launches = read_counts()
         n_calls = 2 * ZSTACK_REPS * sum(len(p) for p in files.values())
-        want_launches = {k: {"K2": n_calls, "K3": n_calls, "K4": 2 * n_calls}.get(k, 0)
-                         for k in launches}
+        want_launches = {k: {"K2": n_calls, "K3": n_calls, "K4": 2 * n_calls,
+                             "blur": n_calls}.get(k, 0) for k in launches}
         if launches != want_launches:
             raise AssertionError(f"phase 10: launches {launches}, expected {want_launches}")
 
@@ -2511,6 +2701,21 @@ def nanosims_phase(card: str, dev, reset_counts, read_counts) -> tuple:
             log(f"phase 11 nanosims {key}: {got.red.num_rois} red and {got.green.num_rois} "
                 f"green ROIs; labels, resized masks and positions == the plain CPU run's "
                 f"({cpu_s:.1f} s) bit for bit, sums and every CSV within rtol 1e-6")
+        # the display images: eight op-by-op blurs (σ 1 and 1.5) through the
+        # blur kernel's default form, equal to the CPU's bit for bit
+        from particle_col_image_segmentation_tpu_torch.ops import gaussian_blur_cuda
+
+        iso = ns.load_isotope_mats(os.path.join(tmp, "768x768"))
+        before = gaussian_blur_cuda.launches
+        shown = ns.display_images(iso, cfg, dev)
+        blurs = gaussian_blur_cuda.launches - before
+        want_shown = ns.display_images(iso, cfg, "cpu")
+        if blurs != 8 or sorted(shown) != sorted(want_shown) or not all(
+                np.array_equal(shown[k], want_shown[k]) for k in want_shown):
+            raise AssertionError(f"phase 11: display_images on the card ({blurs} blur launches) "
+                                 "differs from the CPU's")
+        log(f"phase 11 nanosims 768x768: display_images on the card (8 blur kernel launches, "
+            f"op by op) == the CPU's bit for bit ({len(shown)} images)")
         # the verb in a fresh interpreter, on the card by default
         acq = os.path.join(tmp, "768x768")
         verb_out = os.path.join(tmp, "verb")
@@ -3755,7 +3960,7 @@ def multihost_phase(card: str, dev, x4, cfg) -> tuple:
     fused_ms = time_ms(lambda: fused_segment_batch(x4, cfg), reps=3)
     del one_out
     torch.cuda.empty_cache()
-    launches = {k: 0 for k, *_ in KERNELS}
+    launches = {}
     record = {"shape": list(x4.shape), "max_regions": cfg.max_regions,
               "one_device_sharded_wall_s": one_wall_s, "fused_segment_batch_ms": fused_ms,
               "runs": {}}
@@ -3781,7 +3986,7 @@ def multihost_phase(card: str, dev, x4, cfg) -> tuple:
                     if info["launches"][k] <= 0:
                         raise AssertionError(f"phase 16 {tag}: process {pid} never launched {k}")
                 for k, n in info["launches"].items():
-                    launches[k] += n
+                    launches[k] = launches.get(k, 0) + n
                 log(f"phase 16 multihost {tag} [{card}]: process {pid} of 2, mesh "
                     f"{info['mesh']}, rows {info['local_rows']}: segment with tables "
                     f"{info['wall_s']:.4f} s wall, process_allgather {info['gather_s']:.4f} s "
@@ -3825,7 +4030,7 @@ def oracle_phase(card: str, dev, planes, acfg, reset_counts, read_counts) -> tup
     cases = ((f"bench plane 0 [{H},{W}], one strain", planes[0], dict(SINGLE)),
              (f"phase 6's RFP+DAPI planes fused [{H},{W}], two strains", fused,
               dict(BASE_TYPE_MAP)))
-    launches = {k: 0 for k, *_ in KERNELS}
+    launches = {}
     record = {}
     for name, img, ct in cases:
         reset_counts()
@@ -3841,7 +4046,7 @@ def oracle_phase(card: str, dev, planes, acfg, reset_counts, read_counts) -> tup
         seen = assert_plane_parity(ours, np.asarray(img), ct, acfg)
         oracle_s = time.perf_counter() - t0
         for k, n in got.items():
-            launches[k] += n
+            launches[k] = launches.get(k, 0) + n
         record[name] = {"analyze_plane_s": card_s, "oracle_s": oracle_s, "launches": got, **seen}
         log(f"phase 17 oracle {name}: analyze_plane(merged=True) on the card [{card}] "
             f"{card_s:.2f} s == the port's oracle field for field ({seen['regions']} regions, "
@@ -3856,7 +4061,7 @@ BENCH_TIMEOUT_S = 600
 # the kernels each config of the bench must launch on the card
 BENCH_KERNELS = {"config #5": ("K1", "K2", "K3", "K4"),
                  "config #3": ("K2", "K3", "K7", "K9", "K10", "K11"),
-                 "configs #1 and #2": ("K2", "K3", "K4")}
+                 "configs #1 and #2": ("K2", "K3", "K4", "blur")}
 
 
 def bench_py_keys() -> tuple:
@@ -4210,8 +4415,9 @@ def main() -> int:
     log(f"phase 3 config #2 stack [24,{H},{W}] uint16 (480 discs a plane) built in "
         f"{time.perf_counter() - t0:.1f} s")
     histogram_k4(f"config #2 blurred [24,{H},{W}]",
-                 gaussian_blur(torch.from_numpy(x2k_np).to(dev), 1.0))
+                 gaussian_blur(torch.from_numpy(x2k_np).to(dev), 1.0, fma=True))
     torch.cuda.empty_cache()
+    blur_err = blur_checks(dev, [config2_stack(), x2k_np], card)
 
     # K5's edge inputs (K4's, then runs meeting row and plane ends, B = 1 and
     # 64, tables that overflow) and K8's on both of its routes
@@ -4677,6 +4883,8 @@ def main() -> int:
     x2 = torch.from_numpy(config2_stack()).to(dev)
     more_shapes = threshold_times(card, x1, x1b, x2, torch.from_numpy(x2k_np).to(dev))
     torch.cuda.empty_cache()
+    blur_entry = blur_times(card, torch.from_numpy(x2k_np).to(dev))
+    torch.cuda.empty_cache()
     more_shapes["K6"] = {"shape": f"[{H},{W}] R={R1}, device time", "ms": k6_device_ms,
                          "device_ms": k6_device_ms, "plain_ms": plain_ms["K6"],
                          "bound_ms": (8 * H * W + 4 * R1) / HBM_BYTES_PER_S * 1e3,
@@ -4876,7 +5084,12 @@ def main() -> int:
          "bound_ms": bound_ms[k], "bound_by": "bytes", "library_ms": library_ms.get(k),
          **({"more_shapes": more_shapes[k]} if k in more_shapes else {})}
         for k, name, src, tpu in KERNELS
-    ], "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel,
+    ] + [{"name": "blur", "route": "cuda", "source": SRC + "blur.cu",
+          "replaces": TPU + "filters.py:158 gaussian_blur (XLA, no Pallas: not a TPU kernel)",
+          "launches": sum(v["blur"] for v in paths.values()),
+          "launches_by_path": {p: v["blur"] for p, v in paths.items()},
+          "max_abs_err": max(blur_err, zstack["blur_max_abs_err"]), **blur_entry}],
+        "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel,
         "data_axis": data_axis, "space_axis": space_axis, "space_refine": space_refine,
         "multihost": multihost, "oracle": oracle, "bench": bench_record}
     log(card)

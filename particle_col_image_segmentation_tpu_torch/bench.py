@@ -17,7 +17,7 @@ counterpart there:
 ``main`` prints one JSON line on stdout, last, with ``bench.py``'s keys
 and meanings plus ``device`` (the card's name), ``power_limit`` (the
 ``nvidia-smi --query-gpu=name,power.limit`` line) and ``launches`` (K1-K11
-over the whole run); progress goes to stderr.  ``vs_baseline`` divides by
+and the blur kernel over the whole run); progress goes to stderr.  ``vs_baseline`` divides by
 the pinned CPU figure of ``BASELINE.json`` at the checkout root, or by this
 run's CPU figure where that file is absent.
 
@@ -365,13 +365,15 @@ def bench_config1(dev, sizes: Sizes = FULL):
 
 def stack_stats(x):
     """Config #2's per-stack compute: Gaussian blur at σ 1, then per-plane
-    Otsu, CCL and counts; count + num a plane."""
+    Otsu, CCL and counts; count + num a plane.  bench.py jits this graph,
+    so the blur takes the contracted form (``fma=True``) that XLA's CPU
+    code gives it."""
     from particle_col_image_segmentation_tpu_torch.ops import (
         gaussian_blur,
         threshold_and_count_batch,
     )
 
-    den = gaussian_blur(x, sigma=1.0)
+    den = gaussian_blur(x, sigma=1.0, fma=True)
     _, _, count, num, _, _ = threshold_and_count_batch(den, max_regions=4095)
     return count + num
 

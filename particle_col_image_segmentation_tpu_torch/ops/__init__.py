@@ -1,6 +1,11 @@
 """Device ops of the port: plain PyTorch versions, the CUDA kernel wrappers
 (``*_cuda``) and the dispatch between them (``*_auto``)."""
 
+from particle_col_image_segmentation_tpu_torch.ops.blur_tiles import (  # noqa: F401
+    MAX_HALF,
+    gaussian_blur_cuda,
+    gaussian_taps,
+)
 from particle_col_image_segmentation_tpu_torch.ops.ccl import (  # noqa: F401
     compact_labels,
     compact_labels_auto,
@@ -32,6 +37,7 @@ from particle_col_image_segmentation_tpu_torch.ops.fill_tiles import (  # noqa: 
     particle_fill_step_cuda,
 )
 from particle_col_image_segmentation_tpu_torch.ops.filters import (  # noqa: F401
+    blur_plain,
     gaussian_blur,
     median_label_filter,
     median_label_filter_padded,

@@ -1,5 +1,7 @@
 """Plain median filter of label planes (the K1 kernel's reference version),
-and the Gaussian blur.
+and the Gaussian blur: its two forms (op by op as eager JAX rounds it, or
+contracted into FMAs as ``jax.jit``'s XLA code rounds it), their plain
+version and the dispatch to the blur kernel (``blur_tiles``).
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/filters.py``
 (``median_label_filter``, ``median_label_filter_padded`` and the
@@ -15,11 +17,18 @@ and one separable box sum counts a whole group.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
+
+from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
+from particle_col_image_segmentation_tpu_torch.ops.blur_tiles import (
+    gaussian_blur_cuda,
+    gaussian_taps,
+)
+from particle_col_image_segmentation_tpu_torch.ops.rounding import fma_f32
 
 __all__ = [
     "as_float32",
+    "blur_plain",
     "gaussian_blur",
     "median_label_filter",
     "median_label_filter_padded",
@@ -139,26 +148,60 @@ def _taps(xp: torch.Tensor, k, axis: int, n: int) -> torch.Tensor:
     return out
 
 
-def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
-    """MATLAB imgaussfilt parity: separable Gaussian, kernel 2·ceil(2σ)+1,
-    replicate ('nearest') padding; float32 [..., H, W] on img's device (any
-    dtype ``as_float32`` takes).
+def _taps_fma(xp: torch.Tensor, k, axis: int, n: int) -> torch.Tensor:
+    """The same sum as XLA's CPU code contracts it: fma(x₀, k₀, fl(x₁·k₁)),
+    then fma(x_o, k_o, acc) for every tap o ≥ 2, each rounded once."""
+    out = fma_f32(xp.narrow(axis, 0, n), k[0], xp.narrow(axis, 1, n) * float(k[1]))
+    for o in range(2, len(k)):
+        out = fma_f32(xp.narrow(axis, o, n), k[o], out)
+    return out
 
-    Plain PyTorch, as the JAX package leaves the blur to XLA.  It sums in
-    the JAX package's order, so the two agree bit for bit: normalised
-    float64 taps rounded to float32, columns (axis -2) first, then rows,
-    each output the taps in order, one multiply and one add a tap.  A fused
-    kernel has to keep that order and must not contract a multiply and an
-    add into an FMA."""
-    half = int(np.ceil(2 * sigma))
-    xs = np.arange(-half, half + 1, dtype=np.float64)
-    k = np.exp(-(xs * xs) / (2 * sigma * sigma))
-    k = (k / k.sum()).astype(np.float32)
-    x = as_float32(img)
+
+def blur_plain(x: torch.Tensor, k, fma: bool = False) -> torch.Tensor:
+    """The plain version of the blur kernel: float32 [..., H, W] x through
+    the taps k, replicate padding, columns (axis -2) first, then rows, with
+    float32 between the passes; each tap sum op by op, or contracted into
+    FMAs (``_taps_fma``) where ``fma``."""
+    taps = _taps_fma if fma else _taps
+    half = len(k) // 2
     H, W = x.shape[-2:]
     # edge replication commutes with the per-axis sums: pad each axis just
     # before its own pass
     rows = torch.arange(-half, H + half, device=x.device).clamp_(0, H - 1)
-    x = _taps(x.index_select(-2, rows), k, -2, H)
+    x = taps(x.index_select(-2, rows), k, -2, H)
     cols = torch.arange(-half, W + half, device=x.device).clamp_(0, W - 1)
-    return _taps(x.index_select(-1, cols), k, -1, W)
+    return taps(x.index_select(-1, cols), k, -1, W)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float, *, fma: bool = False) -> torch.Tensor:
+    """MATLAB imgaussfilt parity: separable Gaussian, kernel 2·ceil(2σ)+1,
+    replicate ('nearest') padding; float32 [..., H, W] on img's device (any
+    dtype ``as_float32`` takes).
+
+    Both forms take normalised float64 taps rounded to float32
+    (``gaussian_taps``) and sum columns (axis -2) first, then rows, each
+    output the taps in order, with float32 between the two passes.  They
+    differ in how a tap's multiply meets the add:
+
+    - ``fma=False`` (the default) rounds every product and every sum on its
+      own: the JAX package's ``gaussian_blur`` called op by op, as
+      ``models/nanosims.py`` calls it, bit for bit.  NanoSIMS takes it.
+    - ``fma=True`` rounds as ``jax.jit(gaussian_blur)`` on the CPU, whose
+      XLA code contracts the chain into FMAs:
+      ``acc = fma(x₀, k₀, fl(x₁·k₁))``, then ``acc = fma(x_o, k_o, acc)``
+      for every tap o ≥ 2, bit for bit.  Config #2 takes it, as bench.py
+      jits its ``stack_stats``.
+
+    A CUDA tensor on a Hopper card takes the blur kernel
+    (``blur_tiles.gaussian_blur_cuda``, uint16 and float32 read as they
+    lie, other dtypes cast first), which holds ceil(2σ) ≤ 64 (σ ≤ 32) and
+    raises a ValueError past it; any other GPU raises.  A CPU tensor takes
+    the plain version (``blur_plain``, the contracted form through
+    ``ops.rounding.fma_f32``)."""
+    if use_kernel(img):
+        x = img if img.dtype in (torch.uint16, torch.float32) else as_float32(img)
+        if not x.is_contiguous():  # uint16 through its int16 view: few ops take uint16
+            x = (x.view(torch.int16).contiguous().view(torch.uint16)
+                 if x.dtype == torch.uint16 else x.contiguous())
+        return gaussian_blur_cuda(x, sigma, fma=fma)
+    return blur_plain(as_float32(img), gaussian_taps(sigma), fma)

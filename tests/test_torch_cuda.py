@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels K1-K11 against their plain PyTorch versions,
-on the card.  Every test here needs a Hopper card and skips where there is
+"""The hand-written CUDA kernels K1-K11 and the blur kernel against their
+plain PyTorch versions, on the card.  Every test here needs a Hopper card and skips where there is
 none; on one, run them with
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -7,7 +7,8 @@ none; on one, run them with
 Outputs are integers, so the tolerance is exact equality.  Inputs are made
 with numpy from a seed.  The float32 values that the port rounds as XLA's
 fused multiply-adds (``ops.rounding.fma_f32``: the nearest distances, the
-Otsu centres) are held to the CPU run's bit patterns.
+Otsu centres) are held to the CPU run's bit patterns, and the blur
+kernel's float32 output to its plain version's, in both forms.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from particle_col_image_segmentation_tpu_torch.ops import (
+    MAX_HALF,
     bin_histogram_cuda,
     ccl_cuda,
     compact_labels,
@@ -22,6 +24,7 @@ from particle_col_image_segmentation_tpu_torch.ops import (
     connected_components,
     edt_sq,
     edt_sq_cuda,
+    gaussian_blur_cuda,
     median_label_filter,
     median_label_filter_cuda,
     particle_fill_step,
@@ -59,6 +62,8 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
 )
 
 from chip_smoke import (
+    BLUR_SIGMAS,
+    blur_inputs,
     config1_plane,
     config4_painting,
     config2_stack,
@@ -82,6 +87,7 @@ from chip_smoke import (
     k8_inputs,
     k9_inputs,
     off16,
+    plain_blur,
     plain_threshold,
     plain_morphology,
     plain_threshold_batch,
@@ -767,8 +773,11 @@ def test_threshold_functions_through_the_kernels(dev, case):
         t, want = plain_threshold_batch(x.to(torch.float32), 4095)
         conv = want[5].all()
     else:
+        blurs = gaussian_blur_cuda.launches
         den, got = stack_stats(x)
-        _equal([den], [gaussian_blur(x.cpu(), 1.0).to(dev)], case)
+        assert gaussian_blur_cuda.launches == blurs + 1, case
+        # config #2 rounds as bench.py's jitted graph: the contracted form
+        _equal([den], [gaussian_blur(x.cpu(), 1.0, fma=True).to(dev)], case)
         t, want = plain_threshold_batch(den, 4095)
         conv = want[5].all()
     after = _launches()
@@ -1066,3 +1075,67 @@ def test_sharded_refine_on_the_card_equals_one_device(dev, mesh_shape):
     assert bool(conv.all()) and bool(w_conv.all())
     _equal([labels, markers, num], [w_labels, w_markers, w_num])
     _equal([sums[..., i] for i in range(5)], list(table))
+
+
+BLUR_CASES = {case: (u16, f32, shifted) for case, u16, f32, shifted in blur_inputs()}
+
+
+@pytest.mark.parametrize("fma", [True, False])
+@pytest.mark.parametrize("sigma", BLUR_SIGMAS)
+@pytest.mark.parametrize("case", sorted(BLUR_CASES))
+def test_blur_kernel(dev, case, sigma, fma):
+    """The blur kernel against its plain version on the card, bit for bit,
+    uint16 and float32, in the contracted and the op-by-op form, and
+    ``gaussian_blur`` on the card launching it once."""
+    from particle_col_image_segmentation_tpu_torch.ops import gaussian_blur
+
+    u16, f32, shifted = BLUR_CASES[case]
+    for a in (u16, f32):
+        x = torch.from_numpy(a).to(dev)
+        if shifted:
+            x = off16(x.view(torch.int16)).view(x.dtype) if a is u16 else off16(x)
+        want = plain_blur(x, sigma, fma)
+        _equal([gaussian_blur_cuda(x, sigma, fma=fma).view(torch.int32)],
+               [want.view(torch.int32)], case)
+        before = gaussian_blur_cuda.launches
+        _equal([gaussian_blur(x, sigma, fma=fma).view(torch.int32)], [want.view(torch.int32)],
+               case)
+        assert gaussian_blur_cuda.launches == before + 1
+
+
+def test_blur_kernel_on_config2_stack_and_other_dtypes(dev):
+    """Config #2's [24,512,512] stack through the kernel in both forms
+    equals the plain version on the card and the CPU's; a uint8 or int16
+    stack is cast to float32 first, a transposed uint16 view copied."""
+    from particle_col_image_segmentation_tpu_torch.ops import gaussian_blur
+
+    stack = config2_stack()
+    x = torch.from_numpy(stack).to(dev)
+    for fma in (True, False):
+        got = gaussian_blur(x, 1.0, fma=fma)
+        _equal([got.view(torch.int32)], [plain_blur(x, 1.0, fma).view(torch.int32)])
+        assert torch.equal(got.cpu().view(torch.int32),
+                           gaussian_blur(torch.from_numpy(stack), 1.0, fma=fma).view(torch.int32))
+    small = stack[:2, :40, :50]
+    for a in (small.astype(np.uint8), small.astype(np.int16)):
+        got = gaussian_blur(torch.from_numpy(a).to(dev), 1.5, fma=True)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           gaussian_blur(torch.from_numpy(a), 1.5, fma=True).view(torch.int32))
+    t = torch.from_numpy(small).to(dev).transpose(-1, -2)
+    assert torch.equal(gaussian_blur(t, 1.0).cpu().view(torch.int32),
+                       gaussian_blur(torch.from_numpy(small).transpose(-1, -2), 1.0).view(
+                           torch.int32))
+
+
+def test_blur_kernel_refusals(dev):
+    """A non-contiguous CUDA tensor, a dtype the kernel does not read and a
+    σ past MAX_HALF raise; nothing launches."""
+    x = torch.zeros((6, 4), device=dev)
+    before = gaussian_blur_cuda.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        gaussian_blur_cuda(x.t(), 1.0)
+    with pytest.raises(ValueError, match="expected uint16 or float32"):
+        gaussian_blur_cuda(x.to(torch.int32), 1.0)
+    with pytest.raises(ValueError, match="the tile's limit"):
+        gaussian_blur_cuda(x, MAX_HALF / 2 + 0.01)
+    assert gaussian_blur_cuda.launches == before

@@ -348,18 +348,30 @@ def test_gaussian_blur_matches_jax(shape, sigma):
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(jax_blur(jnp.asarray(img), sigma)))
 
 
+@jax.jit
+def _jax_stack_stats(x):
+    """bench.py's jitted stack_stats graph (bench.py:326-330), returning the
+    blurred stack beside the six outputs."""
+    den = jax_blur(x.astype(jnp.float32), sigma=1.0)
+    return den, jax_threshold.threshold_and_count_batch(den, max_regions=4095)
+
+
 def test_stack_stats_matches_jax():
     """Config #2's compute (bench.py's stack_stats: blur σ 1, then
-    threshold_and_count_batch at max_regions 4095) on a [3,96,130] stack of
-    the bench's recipe."""
-    stack = config2_stack(3, 130, discs=6)[:, :96].copy()
-    den, got = stack_stats(_as_torch(stack))
-    want_den = jax_blur(jnp.asarray(stack).astype(jnp.float32), sigma=1.0)
-    np.testing.assert_array_equal(_bits(den.numpy()), _bits(want_den))
-    want = jax_threshold.threshold_and_count_batch(want_den, max_regions=4095)
-    for g, w in zip(got, want, strict=True):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    assert (got[2] > 0).all()
+    threshold_and_count_batch at max_regions 4095) on two [3,96,130] stacks
+    of the bench's recipe, against the graph as bench.py runs it: under
+    ``jax.jit``, whose XLA code contracts the blur into FMAs (the port's
+    ``fma=True``).  The blur and all six outputs, bit for bit."""
+    for stack in config2_stacks(2, 130, discs=6, planes=3):
+        stack = stack[:, :96].copy()
+        den, got = stack_stats(_as_torch(stack))
+        want_den, want = _jax_stack_stats(jnp.asarray(stack))
+        np.testing.assert_array_equal(_bits(den.numpy()), _bits(want_den))
+        for g, w in zip(got, want, strict=True):
+            w = np.asarray(w)
+            assert g.numpy().dtype == w.dtype and tuple(g.shape) == w.shape
+            np.testing.assert_array_equal(g.numpy(), w)
+        assert (got[2] > 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "int8", "int16", "uint16", "int32", "float32", "float64"])

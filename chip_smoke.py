@@ -46,11 +46,14 @@ nonzero and no result line is printed):
      ``nearest_neighbor_dists``' time at 1000 and 4095 cells); the blur
      kernel (``blur_checks``) against its plain version (``blur_plain``),
      bit for bit, in both forms (contracted and op by op), at σ 0.5, 1,
-     1.5, 2.3 and 32 (``MAX_HALF``'s, the widest it takes), on uint16 and
-     float32 ``blur_inputs`` ([1,1,1], [2,5,130], [3,96,130], planes
-     narrower and shorter than the kernel's half, a view off a 16-byte
-     boundary) and config #2's [24,512,512] and [24,2048,2048] stacks, and
-     its refusal past ``MAX_HALF``; K2's adversarial inputs
+     1.5, 2.3, 2.5, 2.6 (half-widths 5 and 6: the register ring's last and
+     the shared window's first) and 32 (``MAX_HALF``'s, the widest it
+     takes), on uint16 and float32 ``blur_inputs`` ([1,1,1], [2,5,130],
+     [3,96,130], planes narrower and shorter than the kernel's half,
+     widths 7-9, 15, 17, 239-241 and 481, heights 15-17 and 33, a width a
+     multiple of 4 but not of 8, views off a 16-byte boundary) and config
+     #2's [24,512,512] and [24,2048,2048] stacks, and its refusal past
+     ``MAX_HALF``; K2's adversarial inputs
      (``k2_inputs``: one value, a serpentine crossing every tile,
      checkerboards, 1-px stripes, binary noise, int32 extremes, widths
      1-129), each equal to scipy's min-index labels (``scipy_min_index``)
@@ -117,11 +120,13 @@ nonzero and no result line is printed):
      with the table route's histogram (bin ids, zeros + K4's table kernel)
      timed beside it, K4's fused histogram beside one torch.bincount of
      the offset ids and K2 on the binary mask, each with its bound; the
-     blur kernel (``blur_times``) on config #2's [24,2048,2048] uint16
-     stack at σ 1, contracted and op by op, and on its float32 copy, by
-     CUDA events and device time, beside its plain versions, its bound
-     and one conv2d of the replicate-padded stack (a yardstick only: not
-     bit-equal);
+     blur kernel (``blur_times``: first the route each σ of phase 3 takes,
+     both reached) on config #2's [24,2048,2048] uint16
+     stack at σ 1, contracted and op by op, on its float32 copy, on the
+     [24,512,512] stack and on a NanoSIMS-size [514,514] float32 image at
+     σ 1.5 op by op, by CUDA events and device time, with the route that
+     ran, beside its plain versions, its bound and one conv2d of the
+     replicate-padded stack (a yardstick only: not bit-equal);
   6. analyze path — run_analysis over a folder tree of 2048² bench planes
      (8 single-file 3D05 folders, batched 8 at a time, and one 3D05+6B07
      folder with RFP and DAPI files: per-channel analysis, DAPI dedup,
@@ -797,9 +802,10 @@ def plain_blur(x, sigma: float = 1.0, fma: bool = True):
     return blur_plain(as_float32(x), gaussian_taps(sigma), fma)
 
 
-# the blur kernel's σ: NanoSIMS's 1 and 1.5, config #2's 1, and 32, the
-# widest the kernel takes (ceil(2σ) = MAX_HALF)
-BLUR_SIGMAS = (0.5, 1.0, 1.5, 2.3, 32.0)
+# the blur kernel's σ: NanoSIMS's 1 and 1.5, config #2's 1, 2.5 and 2.6
+# (half-widths 5, the register ring's last, and 6, the shared window's
+# first), and 32, the widest the kernel takes (ceil(2σ) = MAX_HALF)
+BLUR_SIGMAS = (0.5, 1.0, 1.5, 2.3, 2.5, 2.6, 32.0)
 
 
 def blur_inputs(seed: int = 73):
@@ -807,7 +813,12 @@ def blur_inputs(seed: int = 73):
     the same shape, whether it is held off a 16-byte boundary).  Planes of one pixel, narrower than the
     kernel's half at σ ≥ 1 (1 px) and at σ 32 (40 px < 64), shorter than
     it, a row of 130 (one tile and two columns), [3,96,130] (tiles cut by
-    both edges), and a view off a 16-byte boundary."""
+    both edges), and a view off a 16-byte boundary; around the register
+    ring's shapes (csrc/blur.cu: 8 columns a lane, 16-byte loads, 240
+    columns and 16 rows a warp): widths 7, 8, 9, 15, 17 and 239-241,
+    481 (a third column tile of one column), heights 15-17 and 33, a width
+    a multiple of 4 but not of 8 (float32 rows of whole vectors, uint16
+    rows not), and rows of whole vectors off a 16-byte boundary."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -818,7 +829,16 @@ def blur_inputs(seed: int = 73):
                                  ("[2,70,1] narrower than every half", (2, 70, 1), False),
                                  ("[3,2,40] shorter and narrower than σ 32's half", (3, 2, 40),
                                   False),
-                                 ("2-D [40,33]", (40, 33), False)):
+                                 ("2-D [40,33]", (40, 33), False),
+                                 *((f"[2,20,{w}] width {w}", (2, 20, w), False)
+                                   for w in (7, 8, 9, 15, 17)),
+                                 *((f"[1,9,{w}] width {w}", (1, 9, w), False)
+                                   for w in (239, 240, 241, 481)),
+                                 *((f"[2,{h},64] height {h}", (2, h, 64), False)
+                                   for h in (15, 16, 17, 33)),
+                                 ("[2,33,244] width a multiple of 4, not of 8", (2, 33, 244),
+                                  False),
+                                 ("[2,33,64] off 16 bytes", (2, 33, 64), True)):
         u16 = rng.integers(0, 65536, shape).astype(np.uint16)
         f32 = (rng.random(shape) * 65535).astype(np.float32)
         yield case, u16, f32, shifted
@@ -1802,29 +1822,60 @@ def threshold_times(card: str, x1, x1b, x2, x2k) -> dict:
     return more_shapes
 
 
-def blur_times(card: str, x2k) -> dict:
+def blur_route(fn, reps: int = 5) -> str:
+    """The blur kernel's route in fn() calls: the name of the csrc/blur.cu
+    kernel they launched (``blur_ring``, the register ring, or
+    ``blur_window``, the shared window), read from a torch.profiler trace
+    of reps calls (a one-call trace can come back empty).  The smoke
+    traces only from phase 5 on: a first trace earlier left later traces
+    short of activities."""
+    import re
+
+    names = {m.group(0) for _, _, name in traced_calls(fn, reps)
+             if (m := re.search(r"blur_(ring|window)", name))}
+    if len(names) != 1:
+        raise AssertionError(f"one blur kernel expected in the trace, found {sorted(names)}")
+    return names.pop()
+
+
+def blur_times(card: str, x2k, x2) -> dict:
     """Phase 5: the blur kernel on config #2's uint16 stack x2k at σ 1,
-    contracted (config #2's form) and op by op, and on its float32 copy,
-    by CUDA events and device time (torch.profiler), beside the plain
+    contracted (config #2's form) and op by op, and on its float32 copy;
+    on config #2's smaller stack x2 ([24,512,512]) contracted; and on a
+    NanoSIMS-size [514,514] float32 image at σ 1.5 op by op (NanoSIMS's
+    display images) — by CUDA events and device time (torch.profiler),
+    each with the design that ran (``design``: ``blur_route``'s kernel
+    name; the record's ``route`` stays "cuda"), beside the plain
     versions on the card (the contracted one through ``fma_f32``; the op
     by op one is the port's blur before the kernel), the bound (bytes:
-    2 B a uint16 pixel or 4 B a float32 one read, 4 B written) and one
-    ``conv2d`` of the replicate-padded float32 stack with the taps' outer
-    product, TF32 off (a yardstick only: one 2-D sum in another order, not
-    bit-equal).  Returns the record's ``blur`` entry."""
+    2 B a uint16 pixel or 4 B a float32 one read, 4 B written) and, at
+    x2k, one ``conv2d`` of the replicate-padded float32 stack with the
+    taps' outer product, TF32 off (a yardstick only: one 2-D sum in
+    another order, not bit-equal).  First the route each σ of BLUR_SIGMAS
+    takes, which must reach both (phase 3 held both bit for bit).  Returns
+    the record's ``blur`` entry."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
     from particle_col_image_segmentation_tpu_torch.ops import gaussian_blur_cuda, gaussian_taps
     from particle_col_image_segmentation_tpu_torch.ops.filters import as_float32
 
+    def bound_ms(x) -> float:
+        return (x.element_size() + 4) * x.numel() / HBM_BYTES_PER_S * 1e3
+
+    small = torch.zeros((2, 40, 64), device=x2k.device)
+    routes = {sigma: blur_route(lambda: gaussian_blur_cuda(small, sigma)) for sigma in BLUR_SIGMAS}
+    if set(routes.values()) != {"blur_ring", "blur_window"}:
+        raise AssertionError(f"phase 5: BLUR_SIGMAS do not reach both blur routes: {routes}")
+    log(f"phase 5 blur routes by σ: {routes}")
     shape = list(x2k.shape)
     f32 = as_float32(x2k)
     fma_k = (lambda: gaussian_blur_cuda(x2k, 1.0, fma=True))
     entry = {"shape": f"config #2 {shape} uint16, σ 1, contracted",
              "ms": time_ms(fma_k, reps=20), "device_ms": device_ms(fma_k),
-             "plain_ms": time_ms(lambda: plain_blur(x2k), reps=2),
-             "bound_ms": 6 * x2k.numel() / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+             "design": blur_route(fma_k), "plain_ms": time_ms(lambda: plain_blur(x2k), reps=2),
+             "bound_ms": bound_ms(x2k), "bound_by": "bytes"}
     k = torch.tensor(gaussian_taps(1.0), device=x2k.device)
     half = len(k) // 2
     xp = F.pad(f32[:, None], (half, half, half, half), mode="replicate")
@@ -1840,20 +1891,28 @@ def blur_times(card: str, x2k) -> dict:
     entry["library_note"] = (f"one torch.nn.functional.conv2d of the replicate-padded float32 "
                              f"stack with the taps' outer product, TF32 off: a yardstick only, "
                              f"not bit-equal (max |conv2d - kernel| {lib_err})")
-    op_k = (lambda: gaussian_blur_cuda(x2k, 1.0))
-    f32_k = (lambda: gaussian_blur_cuda(f32, 1.0, fma=True))
+    img = torch.from_numpy(
+        (np.random.default_rng(5).random((514, 514)) * 4000).astype(np.float32)).to(x2k.device)
+    more = (
+        (f"config #2 {shape} uint16, σ 1, op by op", lambda: gaussian_blur_cuda(x2k, 1.0),
+         lambda: plain_blur(x2k, fma=False), x2k, None),
+        (f"config #2 {shape} float32, σ 1, contracted",
+         lambda: gaussian_blur_cuda(f32, 1.0, fma=True), lambda: plain_blur(f32), f32,
+         entry["library_ms"]),
+        (f"config #2 {list(x2.shape)} uint16, σ 1, contracted",
+         lambda: gaussian_blur_cuda(x2, 1.0, fma=True), lambda: plain_blur(x2), x2, None),
+        ("NanoSIMS-size [514, 514] float32, σ 1.5, op by op",
+         lambda: gaussian_blur_cuda(img, 1.5), lambda: plain_blur(img, 1.5, fma=False), img,
+         None))
     entry["more_shapes"] = [
-        {"shape": f"config #2 {shape} uint16, σ 1, op by op", "ms": time_ms(op_k, reps=20),
-         "device_ms": device_ms(op_k),
-         "plain_ms": time_ms(lambda: plain_blur(x2k, fma=False), reps=3),
-         "bound_ms": entry["bound_ms"], "bound_by": "bytes", "library_ms": None},
-        {"shape": f"config #2 {shape} float32, σ 1, contracted", "ms": time_ms(f32_k, reps=20),
-         "device_ms": device_ms(f32_k), "plain_ms": time_ms(lambda: plain_blur(f32), reps=2),
-         "bound_ms": 8 * x2k.numel() / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": entry["library_ms"]}]
+        {"shape": name, "ms": time_ms(fn, reps=20), "device_ms": device_ms(fn),
+         "design": blur_route(fn), "plain_ms": time_ms(plain_fn, reps=2),
+         "bound_ms": bound_ms(x), "bound_by": "bytes", "library_ms": lib}
+        for name, fn, plain_fn, x, lib in more]
     for m in [entry] + entry["more_shapes"]:
-        log(f"phase 5 times [{card}]: blur {m['shape']}: {m['ms']:.4f} ms by CUDA events, "
-            f"device {m['device_ms']:.4f}, bound {m['bound_ms']:.4f}; plain {m['plain_ms']:.3f} ms")
+        log(f"phase 5 times [{card}]: blur {m['shape']} ({m['design']}): {m['ms']:.4f} ms by "
+            f"CUDA events, device {m['device_ms']:.4f}, bound {m['bound_ms']:.4f}; plain "
+            f"{m['plain_ms']:.3f} ms")
     log(f"phase 5 times [{card}]: blur yardstick {entry['library_ms']:.4f} ms: "
         f"{entry['library_note']}")
     return entry
@@ -4883,7 +4942,7 @@ def main() -> int:
     x2 = torch.from_numpy(config2_stack()).to(dev)
     more_shapes = threshold_times(card, x1, x1b, x2, torch.from_numpy(x2k_np).to(dev))
     torch.cuda.empty_cache()
-    blur_entry = blur_times(card, torch.from_numpy(x2k_np).to(dev))
+    blur_entry = blur_times(card, torch.from_numpy(x2k_np).to(dev), x2)
     torch.cuda.empty_cache()
     more_shapes["K6"] = {"shape": f"[{H},{W}] R={R1}, device time", "ms": k6_device_ms,
                          "device_ms": k6_device_ms, "plain_ms": plain_ms["K6"],
@@ -5092,6 +5151,12 @@ def main() -> int:
         "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel,
         "data_axis": data_axis, "space_axis": space_axis, "space_refine": space_refine,
         "multihost": multihost, "oracle": oracle, "bench": bench_record}
+    line_keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k in record["kernels"]:
+        if not line_keys <= k.keys() or k["route"] not in ("cuda", "triton"):
+            raise AssertionError(f"the kernels line's {k['name']} entry lacks a key or names "
+                                 f"a route other than cuda or triton: {sorted(k)}")
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

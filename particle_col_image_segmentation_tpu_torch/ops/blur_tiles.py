@@ -4,7 +4,9 @@
 card, chosen by ``fma``: the op-by-op form (eager JAX) and the contracted
 form (``jax.jit`` on XLA's CPU code).  It ports no TPU kernel: the JAX
 package leaves the blur to XLA.  It equals its plain version
-(``filters.blur_plain``) bit for bit in both forms.
+(``filters.blur_plain``) bit for bit in both forms.  The C entry picks its
+route from the half-width ceil(2σ) alone: a register ring up to 5 (σ ≤
+2.5, config #2's and NanoSIMS's σ), a shared-memory window past it.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from particle_col_image_segmentation_tpu_torch import _kernels
 
 __all__ = ["MAX_HALF", "gaussian_blur_cuda", "gaussian_taps"]
 
-# the widest kernel the tile's shared memory takes: half = ceil(2σ) ≤ 64,
+# the widest kernel the shared window's tile takes: half = ceil(2σ) ≤ 64,
 # σ ≤ 32, 129 taps (csrc/blur.cu kMaxHalf)
 MAX_HALF = 64
 

@@ -31,7 +31,9 @@ from chip_smoke import blur_inputs, config2_stacks
 
 jit_blur = jax.jit(jax_blur, static_argnums=1)
 
-SIGMAS = [0.5, 1.0, 1.5, 2.3, 4.0]
+# 2.5 and 2.6: half-widths 5 and 6, the last of the blur kernel's register
+# ring and the first of its shared window (csrc/blur.cu)
+SIGMAS = [0.5, 1.0, 1.5, 2.3, 2.5, 2.6, 4.0]
 SHAPES = [(61, 77), (3, 37, 53), (2, 5, 130), (1, 1, 1)]
 
 

@@ -11,6 +11,8 @@ Otsu centres) are held to the CPU run's bit patterns, and the blur
 kernel's float32 output to its plain version's, in both forms.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -64,6 +66,7 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
 from chip_smoke import (
     BLUR_SIGMAS,
     blur_inputs,
+    blur_route,
     config1_plane,
     config4_painting,
     config2_stack,
@@ -1101,6 +1104,15 @@ def test_blur_kernel(dev, case, sigma, fma):
         _equal([gaussian_blur(x, sigma, fma=fma).view(torch.int32)], [want.view(torch.int32)],
                case)
         assert gaussian_blur_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("sigma", BLUR_SIGMAS)
+def test_blur_kernel_route(dev, sigma):
+    """The register ring up to half-width ceil(2σ) = 5, the shared window
+    past it (csrc/blur.cu), read from the kernel's name in a trace."""
+    x = torch.zeros((2, 40, 64), device=dev)
+    want = "blur_ring" if math.ceil(2 * sigma) <= 5 else "blur_window"
+    assert blur_route(lambda: gaussian_blur_cuda(x, sigma)) == want
 
 
 def test_blur_kernel_on_config2_stack_and_other_dtypes(dev):

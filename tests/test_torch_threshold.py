@@ -339,7 +339,7 @@ def test_threshold_and_count_batch_matches_jax(case):
         assert (got[4] > max_regions).any()
 
 
-@pytest.mark.parametrize("sigma", [1.0, 1.5, 2.3])
+@pytest.mark.parametrize("sigma", [1.0, 1.5, 2.3, 2.5, 2.6])
 @pytest.mark.parametrize("shape", [(61, 77), (3, 37, 53), (2, 5, 130), (1, 1, 1)])
 def test_gaussian_blur_matches_jax(shape, sigma):
     img = np.random.default_rng(len(shape) + int(10 * sigma)).integers(0, 65535, shape).astype(np.uint16)

@@ -1490,13 +1490,15 @@ def profile_phase(planes, cfg, dev, card: str) -> None:
     def analyze_tree(batch_planes: int, traced: bool = False):
         with tempfile.TemporaryDirectory(prefix="pcis_profile_") as tmp:
             seed_of = make_tree(tmp, range(16))
-            profiling.STAGE_TOTALS.clear()
+            profiling.reset()
+            profiling.enable()
             with profile(activities=acts) if traced else contextlib.nullcontext() as prof:
                 t0 = time.perf_counter()
                 run_analysis(tmp, cfg, make_figures=False, device=dev,
                              batch_planes=batch_planes, load_fn=lambda p: planes[seed_of[p]])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            profiling.disable()
         return wall, dict(profiling.STAGE_TOTALS), prof
 
     for bp in (1, 8, 8, 1):

@@ -47,6 +47,32 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _add_profile_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--profile", action="store_true",
+        help="print each span's host time (ms in all, spans, self ms) and the "
+        "host syncs' waits at exit; host time, not device time",
+    )
+
+
+def _profiled(run, profile: bool) -> int:
+    """``run()``; with ``profile``, the tracer keeps its spans while it runs
+    and prints its report after it."""
+    if not profile:
+        return run()
+    from particle_col_image_segmentation_tpu_torch.utils import profiling
+
+    profiling.reset()
+    profiling.enable()
+    try:
+        rc = run()
+    finally:
+        profiling.disable()
+    print("\n".join(profiling.report()))
+    profiling.reset()
+    return rc
+
+
 def _add_analysis_flags(p: argparse.ArgumentParser) -> None:
     d = AnalysisConfig()
     p.add_argument("--denoise-size", type=int, default=d.denoise_size)
@@ -60,10 +86,7 @@ def _add_analysis_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--px-to-um", type=float, default=d.px_to_um)
     p.add_argument("--max-regions", type=int, default=d.max_regions)
     p.add_argument("--no-figures", action="store_true")
-    p.add_argument(
-        "--profile", action="store_true",
-        help="print cumulative per-stage times at exit",
-    )
+    _add_profile_flag(p)
     p.add_argument("--strict-reference-errors", action="store_true")
 
 
@@ -172,6 +195,7 @@ def main(argv=None) -> int:
         "workaround that the port drops",
     )
     p.add_argument("--csv", default=None, help="write per-plane stats CSV here")
+    _add_profile_flag(p)
     p.add_argument(
         "--fail-fast", action="store_true",
         help="abort on the first decode failure instead of logging and "
@@ -247,7 +271,7 @@ def main(argv=None) -> int:
         parser.error("--batch-planes batches whole planes per device and cannot "
                      "combine with --space-parallel — pass one or the other")
     if args.command == "analyze":
-        return _analyze(args)
+        return _profiled(lambda: _analyze(args), args.profile)
     if args.command == "refine":
         return _refine(args)
     if args.command == "nanosims":
@@ -267,21 +291,17 @@ def main(argv=None) -> int:
         for folder in normalize_capture_tree(args.folder):
             print("normalized:", folder)
         return 0
-    return _batch(args)
+    return _profiled(lambda: _batch(args), args.profile)
 
 
 def _analyze(args) -> int:
     from particle_col_image_segmentation_tpu_torch.models.experiment import run_analysis
-    from particle_col_image_segmentation_tpu_torch.utils.profiling import STAGE_TOTALS
 
     device = _device(args.device)
     mesh = _mesh(device, 1, args.space_parallel) if args.space_parallel > 1 else None
     run_analysis(args.folder, _cfg_from_args(args),
                  make_figures=not args.no_figures, device=device,
                  batch_planes=args.batch_planes, mesh=mesh)
-    if args.profile:
-        for name, total in sorted(STAGE_TOTALS.items(), key=lambda kv: -kv[1]):
-            print(f"profile: {name:24s} {total*1e3:10.1f} ms")
     return 0
 
 

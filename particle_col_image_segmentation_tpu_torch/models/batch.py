@@ -105,19 +105,25 @@ def fused_segment_batch(
     ``packed`` (nibble-packed input) is a relay argument: only False binds.
     """
     refuse_relay_arg("fused_segment_batch", "packed", packed, False)
-    den = median_label_filter_auto(imgs, cfg.denoise_size, cfg.num_classes)
-    raw, conv_ccl = connected_components_auto(
-        den, background=None, num_classes=cfg.num_classes, with_flag=True,
-        max_iters=cfg.ccl_max_iters,
-    )
-    seg, num, conv_cmp = compact_labels_auto(raw, cfg.max_regions, with_flag=True)
-    areas, classes = region_counts_auto(
-        seg, den, cfg.max_regions, val_bound=cfg.num_classes - 1
-    )
-    class_px, particle_px, cell_px = _pixel_stats_from_tables(
-        areas, classes, cfg, particle_val, cell_vals
-    )
-    converged = conv_ccl & conv_cmp  # per plane [B]
+    with stage("pcis.segment"):
+        with stage("pcis.segment.median"):
+            den = median_label_filter_auto(imgs, cfg.denoise_size, cfg.num_classes)
+        with stage("pcis.segment.ccl"):
+            raw, conv_ccl = connected_components_auto(
+                den, background=None, num_classes=cfg.num_classes, with_flag=True,
+                max_iters=cfg.ccl_max_iters,
+            )
+        with stage("pcis.segment.compact"):
+            seg, num, conv_cmp = compact_labels_auto(raw, cfg.max_regions, with_flag=True)
+        with stage("pcis.segment.counts"):
+            areas, classes = region_counts_auto(
+                seg, den, cfg.max_regions, val_bound=cfg.num_classes - 1
+            )
+        with stage("pcis.segment.stats"):
+            class_px, particle_px, cell_px = _pixel_stats_from_tables(
+                areas, classes, cfg, particle_val, cell_vals
+            )
+            converged = conv_ccl & conv_cmp  # per plane [B]
     return seg, num, areas, classes, particle_px, cell_px, class_px, converged
 
 
@@ -279,22 +285,24 @@ def run_batch(
         segment_fn = make_space_sharded_segment_fn(mesh, cfg, particle_val, cell_vals)
     else:
         segment_fn = make_fused_segment_fn(mesh, cfg, particle_val, cell_vals)
-    # the span's events sit on the first device's stream; the other cards
-    # are synchronised before it closes, so it covers the whole mesh
+    # the other cards are waited for inside the batch's span, before the
+    # readback
     others = {d for d in devices[1:] if d.type == "cuda" and d != devices[0]}
     it = batched_device_iterator(
         load_fn, todo, batch_size=batch_size, devices=devices, on_error=on_error,
         with_paths=True, n_space=n_space,
     )
     for chunks, count, batch_paths in it:
-        H, W = chunks[0].shape[-2] * n_space, chunks[0].shape[-1]
-        with stage("fused_segment", device=devices[0], megapixels=count * H * W / 1e6):
+        with stage("pcis.batch"):
             outs = segment_fn(chunks)
-            for d in others:
-                torch.cuda.current_stream(d).synchronize()
-        # ONE host readback per device (data row) per batch, joined in plane
-        # order; the outputs (the labels) go before the next batch's pass runs
-        stats_host = np.concatenate([_stats_host(out) for out in outs])
+            with stage("pcis.sync.mesh"):
+                for d in others:
+                    torch.cuda.current_stream(d).synchronize()
+            # ONE host readback per device (data row) per batch, joined in
+            # plane order; the outputs (the labels) go before the next
+            # batch's pass runs
+            with stage("pcis.sync.batch_readback"):
+                stats_host = np.concatenate([_stats_host(out) for out in outs])
         del outs
         num = stats_host[:, 0]
         particle_px = stats_host[:, 1]

@@ -120,7 +120,7 @@ def process_single_h5_file(
 
     cell_types = classmaps.get_cell_type_map(file_path)
     ds_arr, device_out = _load_or_precomputed(full_file_path, cfg, device_outs, load_fn)
-    with stage("analyze_plane", device=device):
+    with stage("pcis.analyze_plane"):
         res = analyze_plane(ds_arr, cell_types, cfg, merged=True,
                             device_out=device_out, device=device, mesh=mesh)
 
@@ -195,7 +195,7 @@ def process_multiple_h5_files(
         ds_arr, device_out = _load_or_precomputed(
             full_file_path, cfg, device_outs, load_fn
         )
-        with stage("analyze_plane", device=device):
+        with stage("pcis.analyze_plane"):
             res = analyze_plane(ds_arr, cell_types, cfg, merged=False,
                                 device_out=device_out, device=device, mesh=mesh)
         results[channel] = res
@@ -317,7 +317,7 @@ def process_multiple_h5_files(
             f"{e.args[0]!r} needed by the fused analysis "
             f"(have: {sorted(channel_ds_arrs)})"
         ) from e
-    with stage("analyze_plane_fused", device=device):
+    with stage("pcis.analyze_plane_fused"):
         fused_res = analyze_plane(
             fused_dev, BASE_TYPE_MAP, cfg, merged=True, denoise=False, mesh=mesh,
         )
@@ -429,7 +429,7 @@ class _BatchedDeviceOuts:
             if len(sfps) == 1:
                 continue  # odd-shaped straggler: the folder flow runs it
             stack = torch.from_numpy(np.stack([arrs[fp] for fp in sfps])).to(self._device)
-            with stage("analyze_planes_batch", device=self._device):
+            with stage("pcis.analyze_planes_batch"):
                 out = analyze_planes_device(stack, ct, self._cfg, compute_merge=merged)
             for b, fp in enumerate(sfps):
                 self._ready[fp] = (split_plane_device_out(out, b), arrs[fp])

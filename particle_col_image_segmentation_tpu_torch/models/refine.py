@@ -60,6 +60,7 @@ from particle_col_image_segmentation_tpu_torch.parallel.mesh import (
     run_per_device,
 )
 from particle_col_image_segmentation_tpu_torch.parallel.sharded import make_sharded_refine_fn
+from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
 __all__ = [
     "RefineResult",
@@ -78,27 +79,36 @@ def refine_plane_device(boundary_map: torch.Tensor, cfg: RefineConfig,
     """Probability map [..., H, W] → (labels, markers, num_cells, table,
     distance, converged) on the map's device.  ``max_regions`` is 4095, so
     tables have 4096 rows, as in the JAX package."""
-    binary_mask = boundary_map < cfg.boundary_threshold  # reference :44-45
-    # reference :60: the distance of object pixels to the nearest boundary
-    # pixel, exact by default (a cap would merge deep plateaus into one marker)
-    if cfg.edt_cap is None:
-        dsq = edt_sq_exact_auto(~binary_mask, probe_cap=cfg.edt_probe_cap)
-    else:
-        dsq = edt_sq_auto(~binary_mask, cfg.edt_cap)
-    distance = sqrt_f32(dsq)
-    # maxima of d² are maxima of d, and int32 d² compares stay exact where
-    # adjacent float32 square roots would round together
-    maxima, conv_max = local_maxima_auto(dsq, with_flag=True)
-    raw, conv_ccl = connected_components_auto(
-        maxima.to(torch.uint8), background=0, num_classes=2, with_flag=True
-    )
-    markers, num, conv_cmp = compact_labels_auto(raw, max_regions, with_flag=True)
-    labels, conv_ws = watershed_auto(
-        boundary_map.to(torch.float32), markers, binary_mask, with_flag=True,
-        max_iters=cfg.watershed_max_iters, tunnel_basins=cfg.tunnel_basins,
-    )
-    table = centroid_sums_auto(labels, max_regions)
-    converged = conv_max & conv_ccl & conv_cmp & conv_ws
+    with stage("pcis.refine"):
+        with stage("pcis.refine.mask"):
+            binary_mask = boundary_map < cfg.boundary_threshold  # reference :44-45
+        # reference :60: the distance of object pixels to the nearest boundary
+        # pixel, exact by default (a cap would merge deep plateaus into one marker)
+        with stage("pcis.refine.edt"):
+            if cfg.edt_cap is None:
+                dsq = edt_sq_exact_auto(~binary_mask, probe_cap=cfg.edt_probe_cap)
+            else:
+                dsq = edt_sq_auto(~binary_mask, cfg.edt_cap)
+        with stage("pcis.refine.sqrt"):
+            distance = sqrt_f32(dsq)
+        # maxima of d² are maxima of d, and int32 d² compares stay exact where
+        # adjacent float32 square roots would round together
+        with stage("pcis.refine.maxima"):
+            maxima, conv_max = local_maxima_auto(dsq, with_flag=True)
+        with stage("pcis.refine.ccl"):
+            raw, conv_ccl = connected_components_auto(
+                maxima.to(torch.uint8), background=0, num_classes=2, with_flag=True
+            )
+        with stage("pcis.refine.compact"):
+            markers, num, conv_cmp = compact_labels_auto(raw, max_regions, with_flag=True)
+        with stage("pcis.refine.watershed"):
+            labels, conv_ws = watershed_auto(
+                boundary_map.to(torch.float32), markers, binary_mask, with_flag=True,
+                max_iters=cfg.watershed_max_iters, tunnel_basins=cfg.tunnel_basins,
+            )
+        with stage("pcis.refine.centroids"):
+            table = centroid_sums_auto(labels, max_regions)
+            converged = conv_max & conv_ccl & conv_cmp & conv_ws
     return labels, markers, num, table, distance, converged
 
 

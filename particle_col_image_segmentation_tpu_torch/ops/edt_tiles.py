@@ -18,6 +18,7 @@ import torch
 from particle_col_image_segmentation_tpu_torch import _kernels
 from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
 from particle_col_image_segmentation_tpu_torch.ops.edt import edt_sq, edt_sq_exact
+from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
 __all__ = ["edt_sq_cuda", "edt_sq_auto", "edt_sq_exact_auto", "max_tile_cap", "MAX_CAP"]
 
@@ -122,6 +123,9 @@ def edt_sq_exact_auto(feature: torch.Tensor, probe_cap: int = 32,
         feature = feature != 0  # K9 and the plain versions read any nonzero as a feature
     feature = feature.contiguous()
     capped, deep = edt_sq_auto(feature, probe_cap, with_flag=True)
-    if bool(deep):
-        return edt_sq_exact(feature, rows_per_step)
+    with stage("pcis.sync.edt_certificate"):
+        deep = bool(deep)
+    if deep:
+        with stage("pcis.edt.exact"):
+            return edt_sq_exact(feature, rows_per_step)
     return capped

@@ -35,6 +35,7 @@ from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
 from particle_col_image_segmentation_tpu_torch.ops.ccl_tiles import ccl_cuda
 from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import edt_sq_auto
 from particle_col_image_segmentation_tpu_torch.ops.scans import seg_or_scan_bidi
+from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
 __all__ = [
     "dilate_disk",
@@ -139,7 +140,10 @@ def _marked_components(root: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     plane_off = (torch.arange(B, device=root.device, dtype=torch.int64) * (H * W))[:, None, None]
     key = root.to(torch.int64) + plane_off  # a component's id across the stack
     flag = torch.zeros(root.numel(), dtype=torch.bool, device=root.device)
-    flag[key[seeds]] = True  # idempotent store: any order gives one answer
+    with stage("pcis.sync.mark_index"):
+        marked = key[seeds]  # a mask's index: its count read back
+    with stage("pcis.sync.mark_store"):
+        flag[marked] = True  # idempotent store: any order gives one answer
     return flag[key]
 
 

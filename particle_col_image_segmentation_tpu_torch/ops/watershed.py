@@ -46,6 +46,7 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
     minimax_costs_cuda,
     watershed_cuda,
 )
+from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
 __all__ = [
     "watershed", "watershed_auto", "minimax_costs", "claim_labels",
@@ -223,7 +224,8 @@ def claim_labels(cost, img, lab0, m, seeded, connectivity: int = 1, max_iters: i
     labels — 0 outside the mask and where no seed reaches —, per-plane bool
     still changing when the loop stopped); the steps run are kept in
     ``claim_labels.last_steps``."""
-    inf = torch.tensor(_INF, dtype=torch.float32, device=img.device)
+    with stage("pcis.sync.claim_inf"):  # a scalar's copy to the device
+        inf = torch.tensor(_INF, dtype=torch.float32, device=img.device)
     big = torch.full(img.shape, _BIG_LAB, dtype=torch.int32, device=img.device)
     seg, inc = basins if basins is not None else (None, 1)
     seg_flat = None if seg is None else seg.reshape(-1).to(torch.int64)
@@ -231,8 +233,11 @@ def claim_labels(cost, img, lab0, m, seeded, connectivity: int = 1, max_iters: i
     dist = torch.where(seeded, 0, big)
     eimg = torch.where(seeded, -inf, inf)
     changed = torch.ones(img.shape[:-2], dtype=torch.bool, device=img.device)
-    i = 0
-    while i < max_iters and bool(changed.any()):
+    # one host sync a step, reading the step's flags; the first step needs
+    # none (every plane starts as changing)
+    sync = "pcis.sync.tunnel_step" if seg is not None else "pcis.sync.claim_step"
+    i, going = 0, changed.numel() > 0
+    while i < max_iters and going:
         best = (big, torch.full_like(img, _INF), torch.full_like(img, _INF), big)
         for dy, dx in _offsets(connectivity):
             best = fold_claim(best, claim_candidates(cost, img, lab, dist, eimg, dy, dx,
@@ -246,6 +251,8 @@ def claim_labels(cost, img, lab0, m, seeded, connectivity: int = 1, max_iters: i
         changed = ((new_l != lab) | (new_d != dist) | (new_e != eimg)).flatten(-2).any(-1)
         lab, dist, eimg = new_l, new_d, new_e
         i += 1
+        with stage(sync):
+            going = bool(changed.any())
     claim_labels.last_steps = i
     reached = m & (cost < inf) & (lab != _BIG_LAB)
     return torch.where(reached, lab, 0), changed
@@ -257,9 +264,10 @@ claim_labels.last_steps = 0
 def _tunnelled_phase2(cost, c_changed, img, lab0, m, seeded, connectivity, max_iters,
                       with_flag):
     """Phase 2 on the basins' quotient graph after phase 1's ``cost``."""
-    seg, inc, basin_conv = basin_segments(cost, img, m, seeded, connectivity)
-    out, l_changed = claim_labels(cost, img, lab0, m, seeded, connectivity, max_iters,
-                                  basins=(seg, inc))
+    with stage("pcis.watershed.tunnel"):
+        seg, inc, basin_conv = basin_segments(cost, img, m, seeded, connectivity)
+        out, l_changed = claim_labels(cost, img, lab0, m, seeded, connectivity, max_iters,
+                                      basins=(seg, inc))
     if with_flag:
         return out, ~(c_changed | l_changed) & basin_conv
     return out
@@ -389,11 +397,13 @@ def watershed(
     """
     _check_args(connectivity)
     img, lab0, m, seeded = _inputs(image, markers, mask)
-    cost, c_changed = minimax_costs(img, m, seeded, connectivity, max_iters)
+    with stage("pcis.watershed.phase1"):
+        cost, c_changed = minimax_costs(img, m, seeded, connectivity, max_iters)
     if tunnel_basins:
         return _tunnelled_phase2(cost, c_changed, img, lab0, m, seeded, connectivity,
                                  max_iters, with_flag)
-    out, l_changed = claim_labels(cost, img, lab0, m, seeded, connectivity, max_iters)
+    with stage("pcis.watershed.phase2"):
+        out, l_changed = claim_labels(cost, img, lab0, m, seeded, connectivity, max_iters)
     if with_flag:
         return out, ~(c_changed | l_changed)
     return out
@@ -432,8 +442,9 @@ def watershed_auto(
                               max_iters=max_iters, with_flag=with_flag)
     img, lab0, m, seeded = _inputs(image, markers, mask)
     H, W = img.shape[-2:]
-    cost, c_changed, _ = minimax_costs_cuda(
-        img.reshape(-1, H, W), m.reshape(-1, H, W), seeded.reshape(-1, H, W),
-        connectivity, max_iters)
+    with stage("pcis.watershed.phase1"):
+        cost, c_changed, _ = minimax_costs_cuda(
+            img.reshape(-1, H, W), m.reshape(-1, H, W), seeded.reshape(-1, H, W),
+            connectivity, max_iters)
     return _tunnelled_phase2(cost.reshape(img.shape), c_changed.reshape(img.shape[:-2]),
                              img, lab0, m, seeded, connectivity, max_iters, with_flag)

@@ -30,6 +30,7 @@ import torch
 
 from particle_col_image_segmentation_tpu_torch import _kernels
 from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import as_planes
+from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
 __all__ = [
     "watershed_cuda", "minimax_costs_cuda", "claim_labels_cuda",
@@ -49,7 +50,7 @@ class PhaseLog(NamedTuple):
     """What one phase's loop did: ``passes`` as ``_run`` counts them (the
     last is the first that changed no plane, or ``max_iters``), ``launches``
     (passes enqueued, the chunks' tails past the fixpoint included),
-    ``syncs`` (host syncs, one a chunk) and ``tiles`` (the tiles each
+    ``syncs`` (the chunks' readbacks, one a chunk) and ``tiles`` (the tiles each
     launched pass ran, summed over planes; a plane has
     ceil(H/32)·ceil(W/32))."""
 
@@ -147,7 +148,8 @@ def _run(pass_fn, B: int, H: int, W: int, device, max_iters: int):
         rows[0] = last
         for j in range(n):
             pass_fn(rows[j], rows[j + 1], tiles, done + j + 1)
-        host = rows[1:].cpu().numpy()  # the chunk's one host sync
+        with stage("pcis.sync.watershed_chunk"):
+            host = rows[1:].cpu().numpy()  # the chunk's one host sync
         syncs += 1
         history.append(host[:, :B])
         tiles_run.extend(host[:, B].tolist())
@@ -155,8 +157,9 @@ def _run(pass_fn, B: int, H: int, W: int, device, max_iters: int):
         decided = passes_from_history(np.concatenate(history), max_iters)
         if decided is not None:
             passes, converged = decided
-            return (torch.from_numpy(converged).to(device),
-                    PhaseLog(passes, done, syncs, tuple(tiles_run)))
+            with stage("pcis.sync.watershed_flags"):  # a copy from pageable memory
+                converged = torch.from_numpy(converged).to(device)
+            return converged, PhaseLog(passes, done, syncs, tuple(tiles_run))
         last = rows[n]
         chunk = min(2 * chunk, _MAX_CHUNK)
 
@@ -289,9 +292,11 @@ def watershed_cuda(
     m = (torch.ones_like(lab0, dtype=torch.bool) if mask is None
          else mask.to(torch.bool).reshape(B, H, W))
     seeded = (lab0 > 0) & m
-    cost, c_changed, log1 = minimax_costs_cuda(img, m, seeded, connectivity, max_iters)
-    out, l_changed, log2 = claim_labels_cuda(cost, img, lab0, m, seeded, connectivity,
-                                             max_iters)
+    with stage("pcis.watershed.phase1"):
+        cost, c_changed, log1 = minimax_costs_cuda(img, m, seeded, connectivity, max_iters)
+    with stage("pcis.watershed.phase2"):
+        out, l_changed, log2 = claim_labels_cuda(cost, img, lab0, m, seeded, connectivity,
+                                                 max_iters)
     watershed_cuda.last_passes = (log1.passes, log2.passes)
     watershed_cuda.last_logs = (log1, log2)
     out = out.reshape(image.shape)

@@ -24,8 +24,9 @@ bench planes repeated; batches of 32) on one card, on ``cuda:0`` named 4
 times and on 2 and on all cards where the machine has them, each run's
 stats equal to the one-card run's at tolerance 0.  For each it reports the
 wall (median of 3), the median interval between batches past the first
-(the pipeline's fill left out), the ``fused_segment`` span a batch (the
-mesh's device work, ``utils.profiling.stage``), and the loader alone
+(the pipeline's fill left out), the ``pcis.batch`` span a batch (host
+time from the batch's dispatch to its readback, ``utils.profiling.stage``),
+and the loader alone
 (``batched_device_iterator`` to the same devices, each chunk synchronised
 as it is handed over); for each mesh, one batch's fused pass called
 chunk after chunk in the main thread, through the mesh's workers, and
@@ -53,7 +54,7 @@ def steady_state(card, planes, stats, cfg, n_planes: int, batch: int) -> dict:
     from particle_col_image_segmentation_tpu_torch.io.loader import batched_device_iterator
     from particle_col_image_segmentation_tpu_torch.models.batch import run_batch
     from particle_col_image_segmentation_tpu_torch.parallel import make_mesh
-    from particle_col_image_segmentation_tpu_torch.utils.profiling import STAGE_TOTALS
+    from particle_col_image_segmentation_tpu_torch.utils import profiling
 
     paths = [str(i) for i in range(n_planes)]
 
@@ -100,12 +101,13 @@ def steady_state(card, planes, stats, cfg, n_planes: int, batch: int) -> dict:
 
         walls, gaps, spans = [], [], []
         for _ in range(3):
-            STAGE_TOTALS.pop("fused_segment", None)
+            profiling.enable()
+            profiling.reset()
             t0 = time.perf_counter()
             got, marks = one_run()
             walls.append(time.perf_counter() - t0)
             gaps.append(steady(marks))
-            spans.append(STAGE_TOTALS["fused_segment"] / n_batches)
+            spans.append(profiling.STAGE_TOTALS["pcis.batch"] / n_batches)
             for p in paths:
                 g, w = got[p], stats[str(int(p) % len(planes))]
                 if ((g.num_regions, g.particle_px, g.cell_px, g.overflow, g.converged)
@@ -128,17 +130,17 @@ def steady_state(card, planes, stats, cfg, n_planes: int, batch: int) -> dict:
         lwall, lgap = statistics.median(loader_walls), statistics.median(loader_gaps)
         bmp = batch * H * W / 1e6
         out[name] = {"wall_s": walls, "mps": mp / wall, "batch_gap_ms": gap * 1e3,
-                     "steady_mps": bmp / gap, "fused_segment_ms": span * 1e3,
+                     "steady_mps": bmp / gap, "batch_span_ms": span * 1e3,
                      "loader_wall_s": loader_walls, "loader_gap_ms": lgap * 1e3,
                      "loader_steady_mps": bmp / lgap}
         cs.log(f"steady {name} [{card}]: run_batch over {n_planes} planes of {H}x{W} in "
                f"{n_batches} batches of {batch}, stats == one card's (tolerance 0): "
                f"{mp / wall:.1f} MP/s (median of 3 walls, {wall:.3f} s); a batch every "
-               f"{gap * 1e3:.2f} ms past the first ({bmp / gap:.1f} MP/s), its fused_segment "
+               f"{gap * 1e3:.2f} ms past the first ({bmp / gap:.1f} MP/s), its pcis.batch "
                f"span {span * 1e3:.2f} ms; the loader alone {lwall:.3f} s, a batch every "
                f"{lgap * 1e3:.2f} ms ({bmp / lgap:.1f} MP/s)")
 
-    # where a mesh's fused_segment span goes: the same four [8,H,W] chunks
+    # where a mesh's pcis.batch span goes: the same four [8,H,W] chunks
     # of one batch, (a) one call after another in the main thread, (b)
     # through the mesh's workers, (c) workers that run nothing on the card
     # and (d) workers that launch one tiny op each

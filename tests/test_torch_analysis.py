@@ -340,7 +340,7 @@ def test_cli_analyze_csvs_byte_identical_to_jax(tmp_path, capsys):
     assert jax_cli(["analyze", str(tmp_path / "jax"), *flags]) == 0
     assert torch_cli(["analyze", str(tmp_path / "torch"), "--device", "cpu",
                       "--batch-planes", "2", "--profile", *flags]) == 0
-    assert "profile: analyze_plane" in capsys.readouterr().out
+    assert "profile: pcis.analyze_plane" in capsys.readouterr().out
     assert _csvs(tmp_path / "torch") == _csvs(tmp_path / "jax")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -180,11 +180,26 @@ def test_relay_arguments_bind_at_their_default_and_are_refused_otherwise(case):
 
 
 def test_stage_takes_jax_arguments_and_times_on_the_card_where_there_is_one(monkeypatch):
-    with profiling.stage("signature-test", 1.0):
-        pass
-    assert profiling.STAGE_TOTALS["signature-test"] >= 0
-    assert profiling.timing_device() == torch.device("cpu")
-    assert profiling.timing_device("cpu") == torch.device("cpu")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
-    assert profiling.timing_device() == torch.device("cuda", 1)
+    """``stage`` binds the JAX package's (name, megapixels) and times on the
+    host alone: it synchronises no card, records no CUDA event, and keeps
+    its span only after ``enable``, as host seconds in ``STAGE_TOTALS``."""
+    def no_card(*_, **__):
+        raise AssertionError("the tracer touched the card")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_card)
+    monkeypatch.setattr(torch.cuda, "Event", no_card)
+    monkeypatch.setattr(torch.cuda, "current_stream", no_card)
+    inspect.signature(profiling.stage).bind("signature-test", 1.0)
+    profiling.reset()
+    try:
+        with profiling.stage("signature-test", 1.0):
+            pass
+        assert "signature-test" not in profiling.STAGE_TOTALS
+        profiling.enable()
+        with profiling.stage("signature-test", megapixels=1.0):
+            pass
+        assert profiling.STAGE_TOTALS["signature-test"] >= 0
+        assert [s.name for s in profiling.records()] == ["signature-test"]
+    finally:
+        profiling.disable()
+        profiling.reset()

@@ -11,9 +11,10 @@ nonzero and no result line is printed):
      finds zlib.h (the native TIFF codec's build) and whether PIL imports;
      the port's subpackages import (with their re-exports) and pull in
      neither h5py nor matplotlib;
-  2. build — the twelve kernels from csrc/: K1-K11, the ports of the
-     TPU kernels, and the Gaussian blur's kernel (``blur``, csrc/blur.cu,
-     no TPU kernel: XLA's blur), one nvcc per source, in parallel (K4's
+  2. build — the thirteen kernels from csrc/: K1-K11, the ports of the
+     TPU kernels, K12 (csrc/tunnel.cu, the tunnelled phase 2's step) and
+     the Gaussian blur's kernel (``blur``, csrc/blur.cu; no TPU kernel for
+     either: XLA's code), one nvcc per source, in parallel (K4's
      histogram in its own source), timed;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
      same card tensors, exact equality (all outputs are integers, so the
@@ -69,8 +70,12 @@ nonzero and no result line is printed):
      go quiet and wake again) and a batch of a few- and a many-pass plane
      (``ws_mixed``), and budgets of 1, 2, need − 1 and need passes
      (``ws_budgets``: planes that report converged equal plain, one pass
-     converges none), refine_plane_device's distance equal to numpy's sqrt
-     of its d², and K7 on the [8,2048,2048] watershed labels, a 2-D plane
+     converges none), K12's tunnelled phase 2 against the plain
+     claim_labels(basins=...) from the same costs and basins (``k12_checks``:
+     labels, per-plane flags and steps at budgets 1, 2, 7 and to
+     convergence, connectivity 1 and 2, on the [2,2048,2048] smooth and
+     16-level reliefs and ``sparse_seeds``), refine_plane_device's distance
+     equal to numpy's sqrt of its d², and K7 on the [8,2048,2048] watershed labels, a 2-D plane
      and ``k7_inputs`` (one id over 2048², runs crossing rows and planes,
      ids past R, R+1 = 4096 and 4097 with colliding slots, R+1 = 30001, an
      id a pixel, B = 64, a view off a 16-byte boundary); K3 on raw that is
@@ -109,7 +114,9 @@ nonzero and no result line is printed):
      of its five digit columns; each watershed phase on the [8,2048,2048]
      relief (its whole pass loop inside the events; its passes, launches,
      host syncs, the device time of its passes by torch.profiler, and the
-     tiles each pass ran);
+     tiles each pass ran); K12's phase 2 on the 16-level [8,2048,2048]
+     relief (its steps and host reads inside the events; the device time of
+     its steps and set-up by torch.profiler) beside the plain loop's;
      refine_plane_device on that relief, kernels and plain, on the card;
      K6 by device time too; the threshold path (``threshold_times``):
      config #1's single plane and [16,512,512] batch and config #2's
@@ -139,8 +146,8 @@ nonzero and no result line is printed):
      analyze_planes_device, kernels on the card equal to plain on the CPU;
   7. profile, only with --profile — see ``profile_phase``;
   8. refine path — refine_boundaries_stack over the [8,2048,2048] relief on
-     the card: K2, K3, K7, K9, K10 and K11 launched (counts reset just
-     before the run), labels, cell counts, areas and centroids equal to the
+     the card: K2, K3, K7, K9, K10 and K11 launched and K12 not (counts
+     reset just before the run), labels, cell counts, areas and centroids equal to the
      plain run on the card; the stack CSV of a [2,1024,1024] crop equal to
      the plain CPU run's byte for byte; the passes, launches and host syncs
      of each watershed phase;
@@ -200,8 +207,8 @@ nonzero and no result line is printed):
      scipy baseline (``4_vs_cpu``);
  12. the tunnelled refine (``tunnel_phase``) — refine_boundaries_stack with
      tunnel_basins=True over the [8,2048,2048] relief, smooth and at 16
-     levels: K2, K3, K7, K9 and K10 launched and K11 not (counts reset
-     just before each run); labels, cell counts, areas and centroids equal
+     levels: K2, K3, K7, K9 and K10 launched, K11 not, and K12 once a call
+     and three times a step (counts reset just before each run); labels, cell counts, areas and centroids equal
      to the plain run on the card on every plane where the plain run
      converged; every plane's basin segments (K2 on the below-level mask)
      equal to scipy's min-index labels (``basins_vs_scipy``); boundary IoU
@@ -209,8 +216,9 @@ nonzero and no result line is printed):
      priority flood (``tunnel_quality``: bench.py's 512² relief, smooth
      and 16 levels, where the tunnel may lose at most 0.005, and an 8-level
      sparse-seed relief, where it must gain 0.2); CUDA-event times
-     (tunnelled and default refine_plane_device, phase 2's steps and ms a
-     step, the basin segments and K2 alone) and peak device memory; the
+     (tunnelled and default refine_plane_device; phase 2 on K12, its steps,
+     ms a step and device time, beside the plain loop with the same labels,
+     flags and steps; the basin segments and K2 alone) and peak device memory; the
      ``refine --tunnel-basins`` verb in a fresh interpreter where h5py
      imports (the card's machine has none: the phase says it skipped it).
  13. the data axis (``data_axis_phase``) — see its docstring;
@@ -282,7 +290,10 @@ tunnel, data axis, space axis, spatial refine, multi-host (both phase 16
 children of both runs), oracle and bench (phase 18's child) paths' runs,
 ``bound_ms`` is the bytes each function must move over 3.35 TB/s,
 ``more_shapes`` holds K2's and K4's threshold-path shapes and K6's device
-time; the ``blur`` entry, after K11's, is the blur kernel's: no TPU kernel,
+time; K12's entry times the whole tunnelled phase 2 on the 16-level relief
+(its steps' host reads included) beside the plain loop, its ``bound_ms``
+the phase's inputs read and labels written once; the ``blur`` entry, after
+K12's, is the blur kernel's: no TPU kernel,
 its ``replaces`` XLA's blur, its ``library_ms`` one conv2d, not bit-equal;
 ``zstack`` holds phase 10's numbers, ``nanosims`` and
 ``morphology`` phase 11's, ``tunnel`` phase 12's, ``data_axis`` phase 13's,
@@ -330,6 +341,9 @@ KERNELS = [  # key, name, source, TPU kernel it replaces
     ("K9", "K9 capped edt", "edt.cu", "edt_tiles.py:41"),
     ("K10", "K10 watershed costs", "watershed.cu", "watershed_tiles.py:191"),
     ("K11", "K11 watershed labels", "watershed.cu", "watershed_tiles.py:244"),
+    ("K12", "K12 tunnel claim step", "tunnel.cu",
+     "watershed.py:159 watershed(tunnel_basins=True)'s phase 2 (XLA, no Pallas: not a TPU "
+     "kernel)"),
 ]
 SINGLE = ((1, "3D05"), (2, "Particle"), (3, "Background"))
 
@@ -2923,6 +2937,76 @@ def basins_vs_scipy(img, mk, m, conn: int):
     return int(sizes.size), int(sizes.sum()), int(sizes.max(initial=0))
 
 
+@contextlib.contextmanager
+def k12_calls():
+    """While open, the steps of each K12 phase 2 that ``watershed_auto``
+    runs (``ops.watershed``'s ``claim_labels_tunnel_cuda``), one entry a
+    call, from any thread."""
+    import importlib
+
+    # the module, not ``ops.watershed``, which the package binds to the function
+    ws = importlib.import_module("particle_col_image_segmentation_tpu_torch.ops.watershed")
+    seen, run = [], ws.claim_labels_tunnel_cuda
+
+    def counted(*args, **kw):
+        out = run(*args, **kw)
+        seen.append(out[2])
+        return out
+
+    ws.claim_labels_tunnel_cuda = counted
+    try:
+        yield seen
+    finally:
+        ws.claim_labels_tunnel_cuda = run
+
+
+def check_k12_launches(counts: dict, seen: list, case: str) -> None:
+    """K12 launches once a call to set up and three times a step."""
+    want = len(seen) + 3 * sum(seen)
+    if not seen or counts["K12"] != want:
+        raise AssertionError(f"{case}: K12 launched {counts['K12']} times for the steps "
+                             f"{seen} (want {want})")
+
+
+def k12_checks(dev, compare, cases) -> None:
+    """K12 (``claim_labels_tunnel_cuda``) against the plain
+    ``claim_labels(basins=...)`` on the card from the same costs and basins:
+    labels, per-plane flags and steps at max_iters 1, 2, 7 and to
+    convergence, both connectivities."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops.watershed import (
+        basin_segments,
+        claim_labels,
+    )
+    from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
+        claim_labels_tunnel_cuda,
+        minimax_costs_cuda,
+    )
+
+    for name, img, mk, m in cases:
+        seeded = (mk > 0) & m
+        for conn in (1, 2):
+            cost, busy, _ = minimax_costs_cuda(img, m, seeded, conn)
+            seg, inc, conv = basin_segments(cost, img, m, seeded, conn)
+            if busy.any() or not conv.all():
+                raise AssertionError(f"phase 3 K12 {name}: phase 1 or the basins did not "
+                                     "converge")
+            for budget in (1, 2, 7, 4096):
+                want, w_busy = claim_labels(cost, img, mk, m, seeded, conn, budget,
+                                            basins=(seg, inc))
+                w_steps = claim_labels.last_steps
+                got, g_busy, g_steps = claim_labels_tunnel_cuda(cost, img, mk, m, seeded, seg,
+                                                                inc, conn, budget)
+                case = f"{name} connectivity={conn} max_iters={budget} ({g_steps} steps)"
+                if g_steps != w_steps:
+                    raise AssertionError(f"K12 {case}: {g_steps} steps, plain {w_steps}")
+                compare("K12", case, [got, g_busy.to(torch.int32)],
+                        [want, w_busy.to(torch.int32)])
+            if g_busy.any():
+                raise AssertionError(f"phase 3 K12 {name}: did not converge")
+
+
 def tunnel_quality(dev) -> dict:
     """Boundary IoU against the port's oracle priority flood, the card's
     default and tunnelled labels: refine on bench.py's 512² relief (smooth
@@ -2968,10 +3052,12 @@ def tunnel_quality(dev) -> dict:
 def tunnel_phase(card: str, dev, stack8, reset_counts, read_counts) -> tuple:
     """Phase 12: refine_boundaries_stack with ``tunnel_basins=True`` on the
     [8,2048,2048] relief, smooth and at 16 levels (launch counts reset just
-    before each run: K2, K3, K7, K9 and K10 must launch, K11 must not);
+    before each run: K2, K3, K7, K9 and K10 must launch, K11 must not, K12
+    once a call and three times a step);
     labels, cell counts, areas and centroids equal to the plain run on the
     card on every plane where it converged; every plane's basins equal to
     scipy's; the boundary IoU checks (``tunnel_quality``); CUDA-event times
+    (phase 2 on K12 against the plain loop, equal labels, flags and steps)
     and peak device memory; the ``refine --tunnel-basins`` verb where h5py
     imports.  Returns (launch counts summed over both runs, record)."""
     import numpy as np
@@ -2996,6 +3082,7 @@ def tunnel_phase(card: str, dev, stack8, reset_counts, read_counts) -> tuple:
     from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
         _BIG_LAB,
         _INF,
+        claim_labels_tunnel_cuda,
         minimax_costs_cuda,
     )
 
@@ -3006,13 +3093,17 @@ def tunnel_phase(card: str, dev, stack8, reset_counts, read_counts) -> tuple:
         shape = f"[{arr.shape[0]},{H},{W}] {name}"
         reset_counts()
         t0 = time.perf_counter()
-        results = refine_boundaries_stack(arr, tcfg, REFINE_REGIONS, device=dev)
+        with k12_calls() as seen:
+            results = refine_boundaries_stack(arr, tcfg, REFINE_REGIONS, device=dev)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         got = read_counts()
         steps = claim_labels.last_steps
         if any(got[k] <= 0 for k in ("K2", "K3", "K7", "K9", "K10")) or got["K11"] != 0:
             raise AssertionError(f"phase 12 {shape}: the tunnelled path launched {got}")
+        check_k12_launches(got, seen, f"phase 12 {shape}")
+        if seen != [steps]:
+            raise AssertionError(f"phase 12 {shape}: K12 ran {seen} steps, last_steps {steps}")
         launches = {k: launches.get(k, 0) + v for k, v in got.items()}
 
         # the plain run on the card, compared where it converged
@@ -3065,15 +3156,28 @@ def tunnel_phase(card: str, dev, stack8, reset_counts, read_counts) -> tuple:
         t["basin_plain_ms"] = time_ms(lambda: connected_components(
             below, background=0, connectivity=4, num_classes=2), reps=1, warmup=0)
         t["basin_k2_bound_ms"] = 8 * x.numel() / HBM_BYTES_PER_S * 1e3  # int32 in, int32 out
-        t["phase2_ms"] = time_ms(lambda: claim_labels(cost, x, markers, mask, seeded,
-                                                      max_iters=tcfg.watershed_max_iters,
-                                                      basins=(seg, inc)), reps=1)
-        t["phase2_steps"] = claim_labels.last_steps
+        # phase 2 on K12 (host reads of the flags included) against the plain
+        # loop on the card: the same labels, flags and steps
+        budget = tcfg.watershed_max_iters
+        k12 = claim_labels_tunnel_cuda(cost, x, markers, mask, seeded, seg, inc, 1, budget)
+        plain = claim_labels(cost, x, markers, mask, seeded, max_iters=budget, basins=(seg, inc))
+        if (k12[2] != claim_labels.last_steps or not torch.equal(k12[0], plain[0])
+                or not torch.equal(k12[1], plain[1])):
+            raise AssertionError(f"phase 12 {shape}: K12's phase 2 differs from the plain loop")
+        t["phase2_ms"] = time_ms(lambda: claim_labels_tunnel_cuda(
+            cost, x, markers, mask, seeded, seg, inc, 1, budget), reps=3)
+        t["phase2_plain_ms"] = time_ms(lambda: claim_labels(
+            cost, x, markers, mask, seeded, max_iters=budget, basins=(seg, inc)), reps=1)
+        t["phase2_steps"] = k12[2]
         t["ms_a_step"] = t["phase2_ms"] / t["phase2_steps"]
-        # a step's least traffic: cost, img, eimg, lab, dist, markers, seg,
-        # inc (4 B each) and the mask and seed flags (1 B each) read once,
-        # lab, dist and eimg (4 B each) written once
-        t["step_bound_ms"] = 46 * x.numel() / HBM_BYTES_PER_S * 1e3
+        t["plain_ms_a_step"] = t["phase2_plain_ms"] / t["phase2_steps"]
+        t["phase2_device_ms"] = kernel_split(lambda: claim_labels_tunnel_cuda(
+            cost, x, markers, mask, seeded, seg, inc, 1, budget),
+            (("steps", ("tunnel_claim", "tunnel_tiebreak", "tunnel_adopt")),
+             ("init", ("tunnel_init",))), reps=3)
+        # the whole phase's least traffic (as K11's): cost, img, markers, seg,
+        # inc (4 B each) and the flags (1 B) read once, labels written once
+        t["phase2_bound_ms"] = 25 * x.numel() / HBM_BYTES_PER_S * 1e3
         seg_flat = seg.reshape(-1).to(torch.int64)
         claims = (torch.zeros_like(seg), cost, x, torch.where(seeded, markers, _BIG_LAB))
         t["broadcast_ms"] = time_ms(lambda: _segment_broadcast(seg_flat, *claims), reps=5)
@@ -3083,10 +3187,13 @@ def tunnel_phase(card: str, dev, stack8, reset_counts, read_counts) -> tuple:
                  largest_basin_px=basins[2])
         record["reliefs"][name] = t
         log(f"phase 12 times [{card}] {shape}: tunnelled refine_plane_device "
-            f"{t['refine_ms']:.3f} ms (default {t['default_refine_ms']:.3f}); phase 2 "
-            f"{t['phase2_ms']:.3f} ms, {t['phase2_steps']} steps, {t['ms_a_step']:.3f} ms a "
-            f"step (bound {t['step_bound_ms']:.3f}; its segment broadcast alone "
-            f"{t['broadcast_ms']:.3f}); basin segments {t['basins_ms']:.3f} ms (K2 alone "
+            f"{t['refine_ms']:.3f} ms (default {t['default_refine_ms']:.3f}); phase 2 on K12 "
+            f"{t['phase2_ms']:.3f} ms, {t['phase2_steps']} steps, {t['ms_a_step']:.4f} ms a "
+            f"step (device: steps {t['phase2_device_ms']['steps']:.3f} ms, set-up "
+            f"{t['phase2_device_ms']['init']:.3f}; the phase's bound "
+            f"{t['phase2_bound_ms']:.3f}) == the plain loop's labels, flags and steps; plain "
+            f"{t['phase2_plain_ms']:.3f} ms, {t['plain_ms_a_step']:.3f} ms a step (its "
+            f"segment broadcast alone {t['broadcast_ms']:.3f}); basin segments {t['basins_ms']:.3f} ms (K2 alone "
             f"{t['basin_k2_ms']:.3f}, bound {t['basin_k2_bound_ms']:.3f}, plain "
             f"{t['basin_plain_ms']:.3f}); peak device memory {t['peak_gib']:.3f} GiB above "
             f"the input")
@@ -3166,7 +3273,8 @@ def data_axis_phase(card: str, dev, planes, stats, stack8, results8, cfg, rcfg,
     the CSV of ``batch`` without the flag; refine_boundaries_sharded of phase
     8's relief (and, tunnelled, of its first two planes) must equal
     refine_boundaries_stack on the card, with K9, K2, K3, K10, K11 and K7
-    launched; ``_check_tunnel_chunk_fits`` passes for that chunk and raises
+    launched (tunnelled: K11 not, and K12 once a call and three times a
+    step); ``_check_tunnel_chunk_fits`` passes for that chunk and raises
     for 16 planes of 16384².  Times: run_batch MP/s for 1, 2 and 4 mesh
     positions (median of 3 walls), the refine data axis's wall against
     refine_boundaries_stack's, peak device memory.  Returns (launch counts of
@@ -3318,18 +3426,22 @@ def data_axis_phase(card: str, dev, planes, stats, stack8, results8, cfg, rcfg,
     def tunnel_on(name, mesh):
         reset_counts()
         t0 = time.perf_counter()
-        got = refine_boundaries_sharded(two, tcfg, REFINE_REGIONS, mesh=mesh, stack=True)
+        with k12_calls() as seen:
+            got = refine_boundaries_sharded(two, tcfg, REFINE_REGIONS, mesh=mesh, stack=True)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = read_counts()
         add(counts)
         if any(counts[k] <= 0 for k in ("K2", "K3", "K7", "K9", "K10")) or counts["K11"] != 0:
             raise AssertionError(f"phase 13 tunnel {name}: launched {counts}")
+        check_k12_launches(counts, seen, f"phase 13 tunnel {name}")
         same_refine(got, want, f"tunnel {name}")
-        record[f"tunnel {name}"] = {"wall_ms": wall_s * 1e3, "launches": counts}
+        record[f"tunnel {name}"] = {"wall_ms": wall_s * 1e3, "launches": counts,
+                                    "k12_steps": seen}
         log(f"phase 13 tunnel {name} [{card}]: refine_boundaries_sharded(tunnel_basins=True) "
             f"of [2,{H},{W}], n_space=2 (data-parallel) == refine_boundaries_stack("
-            f"tunnel_basins=True); launches {counts}; {wall_s * 1e3:.1f} ms wall (stack "
+            f"tunnel_basins=True); launches {counts} (K12's steps a call {seen}); "
+            f"{wall_s * 1e3:.1f} ms wall (stack "
             f"{record['tunnel_stack_wall_ms']:.1f})")
 
     tunnel_on("cuda:0 x2", make_mesh(n_data=1, n_space=2, devices=[dev] * 2))
@@ -4263,11 +4375,13 @@ def main() -> int:
     )
     from particle_col_image_segmentation_tpu_torch.ops.threshold import _value_range
     from particle_col_image_segmentation_tpu_torch.ops.watershed import (
+        basin_segments,
         claim_labels,
         minimax_costs,
     )
     from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
         claim_labels_cuda,
+        claim_labels_tunnel_cuda,
         minimax_costs_cuda,
     )
 
@@ -4607,6 +4721,13 @@ def main() -> int:
     for name, imgs in (("smooth relief", x8r[:2]), ("16-level relief", torch.from_numpy(q2).to(dev))):
         for conn in (1, 2):
             ws_phases(f"[2,{H},{W}] {name}", imgs, mk8[:2], mask8[:2], conn)
+    sq, smk = sparse_seeds()
+    k12_checks(dev, compare, [
+        (f"[2,{H},{W}] 16-level relief", torch.from_numpy(q2).to(dev), mk8[:2], mask8[:2]),
+        (f"[2,{H},{W}] smooth relief", x8r[:2], mk8[:2], mask8[:2]),
+        ("[1,128,128] sparse seeds", torch.from_numpy(sq[None]).to(dev),
+         torch.from_numpy(smk[None]).to(dev), torch.ones((1, 128, 128), dtype=torch.bool,
+                                                          device=dev))])
     island_m, island_mk = mask8[:2].clone(), mk8[:2].clone()
     island_m[:, 100:300, 100:103] = island_m[:, 100:300, 297:300] = False
     island_m[:, 100:103, 100:300] = island_m[:, 297:300, 100:300] = False
@@ -4915,10 +5036,34 @@ def main() -> int:
     ws_log["K11"] = ws_fn["K11"]()[2]
     plain_ms["K11"] = time_ms(lambda: claim_labels(cost8, x8r, mk8, mask8, seeded8),
                               reps=1, warmup=0)
+    # K12: the tunnelled phase 2 on the 16-level relief, its host reads of
+    # the flags inside the events; the plain loop runs the same steps
+    q8 = torch.from_numpy(quantize16(stack8)).to(dev)
+    qmask = q8 < rcfg.boundary_threshold
+    qmk = refine_plane_device(q8, rcfg, REFINE_REGIONS)[1]
+    qseeded = (qmk > 0) & qmask
+    qcost = minimax_costs_cuda(q8, qmask, qseeded)[0]
+    qseg, qinc, _ = basin_segments(qcost, q8, qmask, qseeded)
+    ws_fn["K12"] = lambda: claim_labels_tunnel_cuda(qcost, q8, qmk, qmask, qseeded, qseg, qinc,
+                                                    1, rcfg.watershed_max_iters)
+    ms["K12"] = time_ms(ws_fn["K12"], reps=5)
+    k12_steps = ws_fn["K12"]()[2]
+    plain_ms["K12"] = time_ms(lambda: claim_labels(qcost, q8, qmk, qmask, qseeded,
+                                                   max_iters=rcfg.watershed_max_iters,
+                                                   basins=(qseg, qinc)), reps=1, warmup=0)
+    k12_split = kernel_split(ws_fn["K12"], (
+        ("steps", ("tunnel_claim", "tunnel_tiebreak", "tunnel_adopt")),
+        ("init", ("tunnel_init",))))
     shapes.update(K7=f"[{REFINE_PLANES},{H},{W}] R={R1r}",
                   K10=f"[{REFINE_PLANES},{H},{W}] relief, {ws_log['K10'].passes} passes",
-                  K11=f"[{REFINE_PLANES},{H},{W}] relief, {ws_log['K11'].passes} passes")
-    for k in ("K7", "K10", "K11"):
+                  K11=f"[{REFINE_PLANES},{H},{W}] relief, {ws_log['K11'].passes} passes",
+                  K12=f"[{REFINE_PLANES},{H},{W}] 16-level relief, {k12_steps} steps")
+    log(f"phase 5 times [{card}]: K12 device time {k12_split['steps']:.3f} ms in its "
+        f"{k12_steps} steps ({k12_split['steps'] / k12_steps:.4f} a step), set-up "
+        f"{k12_split['init']:.3f} (torch.profiler); plain {plain_ms['K12'] / k12_steps:.3f} ms "
+        f"a step")
+    del ws_fn["K12"], q8, qmask, qmk, qseeded, qcost, qseg, qinc
+    for k in ("K7", "K10", "K11", "K12"):
         lib = f", {library_note[k]} {library_ms[k]:.3f} ms" if k in library_ms else ""
         log(f"phase 5 times [{card}]: {k} kernel {ms[k]:.3f} ms, plain "
             f"{plain_ms[k]:.3f} ms{lib} at {shapes[k]}")
@@ -5038,6 +5183,8 @@ def main() -> int:
     for k in ("K2", "K3", "K7", "K9", "K10", "K11"):
         if refine_launches[k] <= 0:
             raise AssertionError(f"{k} was never launched on the refine path")
+    if refine_launches["K12"] != 0:
+        raise AssertionError("K12 launched on the refine path without tunnel_basins")
     p_labels, p_num, p_table, p_conv = plain8.pop("out")
     if not bool(p_conv.all()):
         raise AssertionError("the plain refine did not converge")
@@ -5114,12 +5261,13 @@ def main() -> int:
     # bytes a pixel: inputs read, outputs written.  K10 is a whole phase 1:
     # img 4 + flags 1 in, cost 4 out; K11 a whole phase 2: cost 4 + img 4 +
     # flags 1 + markers 4 in, labels 4 out (each phase builds its starting
-    # state on the card, so no starting plane is read)
+    # state on the card, so no starting plane is read); K12 a whole
+    # tunnelled phase 2: K11's and the basins' seg 4 + inc 4 in
     n_px = {"K1": 2, "K2": 5, "K3": 8, "K4": 5, "K5": 5, "K6": 8, "K7": 4, "K8": 2,
-            "K9": 5, "K10": 9, "K11": 17}
+            "K9": 5, "K10": 9, "K11": 17, "K12": 25}
     planes_of = {"K1": BATCH, "K2": BATCH, "K3": BATCH, "K4": BATCH, "K5": 8, "K6": 1,
                  "K7": REFINE_PLANES, "K8": 8, "K9": 16, "K10": REFINE_PLANES,
-                 "K11": REFINE_PLANES}
+                 "K11": REFINE_PLANES, "K12": REFINE_PLANES}
     table_bytes = {"K3": 4 * BATCH, "K4": 8 * BATCH * (MAX_REGIONS + 1), "K5": 40 * 8 * R1,
                    "K6": 4 * R1, "K7": 20 * REFINE_PLANES * R1r, "K8": 4 * 8}
     bound_ms = {k: (n_px[k] * planes_of[k] * H * W + table_bytes.get(k, 0))

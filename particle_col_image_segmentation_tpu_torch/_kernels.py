@@ -11,7 +11,7 @@ failed build raises: there is no other path for CUDA tensors.
 The data axis (``parallel``) calls the wrappers from one thread per device,
 so the first build and load run under a lock, and each wrapper counts its
 launches through ``count_launch``; ``launch_counters`` resets and reads
-every wrapper's count, K1-K11 and the blur.
+every wrapper's count, K1-K12 and the blur.
 """
 
 from __future__ import annotations
@@ -55,6 +55,8 @@ _SIGNATURES = {
     "pcis_centroid_sums": (_I, [_P, _P] + [_I] * 5 + [_P]),
     "pcis_watershed_cost": (_I, [_P] * 6 + [_I] * 6 + [_P]),
     "pcis_watershed_label": (_I, [_P] * 10 + [_I] * 6 + [_P]),
+    "pcis_tunnel_init": (_I, [_P] * 11 + [_I] * 4 + [_P]),
+    "pcis_tunnel_step": (_I, [_P] * 13 + [_I] * 5 + [_P, _P]),
     "pcis_gaussian_blur": (_I, [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P]),
     "pcis_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -153,17 +155,18 @@ def _build_and_load() -> ctypes.CDLL:
     return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``: the wrappers run on one thread per
-    device, and ``+=`` on a shared attribute is not atomic."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` (the kernels one call of ``wrapper`` launched) to
+    ``wrapper.launches``: the wrappers run on one thread per device, and
+    ``+=`` on a shared attribute is not atomic."""
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += n
 
 
 def launch_counter_table() -> dict:
     """Every kernel wrapper that counts its launches, by kernel: K1-K11, the
-    ports of the TPU kernels, and ``blur``, the Gaussian blur's kernel (no
-    TPU kernel: XLA's blur)."""
+    ports of the TPU kernels, K12, the tunnelled claim step, and ``blur``, the
+    Gaussian blur's kernel (no TPU kernel for either: XLA's code)."""
     from particle_col_image_segmentation_tpu_torch import ops
     from particle_col_image_segmentation_tpu_torch.ops import watershed_tiles as wt
 
@@ -175,13 +178,15 @@ def launch_counter_table() -> dict:
         "K5": [ops.region_table_cuda], "K6": [ops.table_lookup_cuda],
         "K7": [ops.centroid_sums_cuda], "K8": [ops.particle_fill_step_cuda],
         "K9": [ops.edt_sq_cuda], "K10": [wt.watershed_cost_pass_cuda],
-        "K11": [wt.watershed_label_pass_cuda], "blur": [ops.gaussian_blur_cuda],
+        "K11": [wt.watershed_label_pass_cuda],
+        "K12": [wt.tunnel_init_cuda, wt.claim_labels_tunnel_cuda],
+        "blur": [ops.gaussian_blur_cuda],
     }
 
 
 def launch_counters() -> tuple:
     """(reset_counts, read_counts) over ``launch_counter_table``: reset just
-    before a path runs, read just after (launches a kernel, K1-K11 and
+    before a path runs, read just after (launches a kernel, K1-K12 and
     ``blur``)."""
     counters = launch_counter_table()
 

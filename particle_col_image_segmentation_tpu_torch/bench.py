@@ -16,7 +16,7 @@ counterpart there:
 
 ``main`` prints one JSON line on stdout, last, with ``bench.py``'s keys
 and meanings plus ``device`` (the card's name), ``power_limit`` (the
-``nvidia-smi --query-gpu=name,power.limit`` line) and ``launches`` (K1-K11
+``nvidia-smi --query-gpu=name,power.limit`` line) and ``launches`` (K1-K12
 and the blur kernel over the whole run); progress goes to stderr.  ``vs_baseline`` divides by
 the pinned CPU figure of ``BASELINE.json`` at the checkout root, or by this
 run's CPU figure where that file is absent.

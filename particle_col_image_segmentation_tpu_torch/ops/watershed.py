@@ -25,8 +25,11 @@ components of the below-level mask (``basin_segments``; K2 on CUDA
 tensors), where claims cross only segment boundaries, the level distance
 grows only onto at-level pixels, and every basin adopts the least claim of
 its pixels each step (``_segment_broadcast``, four segment minima).  Phase
-1 is unchanged.  There is no tile kernel for this phase 2: it is plain
-PyTorch on both devices, as it is XLA code in the JAX package.
+1 is unchanged.  On CUDA tensors ``watershed_auto`` runs this phase 2 on
+K12 (``ops.watershed_tiles.claim_labels_tunnel_cuda``, ``csrc/tunnel.cu``):
+the plain loop's Jacobi steps, one kernel step (three launches) a step,
+with the same flags, steps and budget.  The plain loop here serves CPU
+tensors and ``watershed``, as XLA code serves the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
     _INF,
     PhaseLog,
     claim_labels_band_cuda,
+    claim_labels_tunnel_cuda,
     minimax_costs_band_cuda,
     minimax_costs_cuda,
     watershed_cuda,
@@ -224,14 +228,12 @@ def claim_labels(cost, img, lab0, m, seeded, connectivity: int = 1, max_iters: i
     labels — 0 outside the mask and where no seed reaches —, per-plane bool
     still changing when the loop stopped); the steps run are kept in
     ``claim_labels.last_steps``."""
-    with stage("pcis.sync.claim_inf"):  # a scalar's copy to the device
-        inf = torch.tensor(_INF, dtype=torch.float32, device=img.device)
     big = torch.full(img.shape, _BIG_LAB, dtype=torch.int32, device=img.device)
     seg, inc = basins if basins is not None else (None, 1)
     seg_flat = None if seg is None else seg.reshape(-1).to(torch.int64)
     lab = torch.where(seeded, lab0, big)
     dist = torch.where(seeded, 0, big)
-    eimg = torch.where(seeded, -inf, inf)
+    eimg = torch.where(seeded, -_INF, _INF)  # float32, as the scalars round
     changed = torch.ones(img.shape[:-2], dtype=torch.bool, device=img.device)
     # one host sync a step, reading the step's flags; the first step needs
     # none (every plane starts as changing)
@@ -247,14 +249,14 @@ def claim_labels(cost, img, lab0, m, seeded, connectivity: int = 1, max_iters: i
             bd, be, bl = _segment_broadcast(seg_flat, bd, be, bs, bl)
         new_l = torch.where(seeded, lab0, torch.where(m, bl, big))
         new_d = torch.where(seeded, 0, torch.where(m, bd, big))
-        new_e = torch.where(seeded, -inf, torch.where(m, be, inf))
+        new_e = torch.where(seeded, -_INF, torch.where(m, be, _INF))
         changed = ((new_l != lab) | (new_d != dist) | (new_e != eimg)).flatten(-2).any(-1)
         lab, dist, eimg = new_l, new_d, new_e
         i += 1
         with stage(sync):
             going = bool(changed.any())
     claim_labels.last_steps = i
-    reached = m & (cost < inf) & (lab != _BIG_LAB)
+    reached = m & (cost < _INF) & (lab != _BIG_LAB)
     return torch.where(reached, lab, 0), changed
 
 
@@ -262,12 +264,21 @@ claim_labels.last_steps = 0
 
 
 def _tunnelled_phase2(cost, c_changed, img, lab0, m, seeded, connectivity, max_iters,
-                      with_flag):
-    """Phase 2 on the basins' quotient graph after phase 1's ``cost``."""
+                      with_flag, kernel=False):
+    """Phase 2 on the basins' quotient graph after phase 1's ``cost``: on
+    K12 with ``kernel`` (CUDA tensors), else the plain loop.  Either way the
+    steps run are kept in ``claim_labels.last_steps``."""
     with stage("pcis.watershed.tunnel"):
         seg, inc, basin_conv = basin_segments(cost, img, m, seeded, connectivity)
-        out, l_changed = claim_labels(cost, img, lab0, m, seeded, connectivity, max_iters,
-                                      basins=(seg, inc))
+        if kernel:
+            H, W = img.shape[-2:]
+            out, l_changed, claim_labels.last_steps = claim_labels_tunnel_cuda(
+                *(t.reshape(-1, H, W) for t in (cost, img, lab0, m, seeded, seg, inc)),
+                connectivity, max_iters)
+            out, l_changed = out.reshape(img.shape), l_changed.reshape(img.shape[:-2])
+        else:
+            out, l_changed = claim_labels(cost, img, lab0, m, seeded, connectivity,
+                                          max_iters, basins=(seg, inc))
     if with_flag:
         return out, ~(c_changed | l_changed) & basin_conv
     return out
@@ -428,7 +439,7 @@ def watershed_auto(
     by keyword only.
 
     With ``tunnel_basins``, CUDA tensors take K10 for phase 1 and the
-    tunnelled phase 2 (K2 for the basins, then plain Jacobi steps, at most
+    tunnelled phase 2 (K2 for the basins, then K12's Jacobi steps, at most
     ``max_iters``); CPU tensors take ``watershed(..., tunnel_basins=True)``."""
     del max_sweeps
     _check_args(connectivity)
@@ -447,4 +458,5 @@ def watershed_auto(
             img.reshape(-1, H, W), m.reshape(-1, H, W), seeded.reshape(-1, H, W),
             connectivity, max_iters)
     return _tunnelled_phase2(cost.reshape(img.shape), c_changed.reshape(img.shape[:-2]),
-                             img, lab0, m, seeded, connectivity, max_iters, with_flag)
+                             img, lab0, m, seeded, connectivity, max_iters, with_flag,
+                             kernel=True)

@@ -1,5 +1,5 @@
 """K10 and K11: the watershed's two CUDA tile passes and the loop that drives
-them.
+them; K12: the tunnelled phase 2's step and its loop.
 
 Counterpart of ``particle_col_image_segmentation_tpu/ops/watershed_tiles.py``
 (``watershed_sweeps`` and its ``_cost_kernel`` / ``_label_kernel`` band
@@ -19,6 +19,12 @@ The band mode (``minimax_costs_band_cuda``, ``claim_labels_band_cuda``)
 runs the same loop on row bands of a plane split over a mesh: each band
 carries one frozen halo row above and below, and pass 1 resumes from the
 band's state instead of the seeds (``parallel.sharded`` couples the bands).
+
+K12 (``csrc/tunnel.cu``, ``claim_labels_tunnel_cuda``) is phase 2 on the
+basins' quotient graph (``ops.watershed.basin_segments``): the plain
+Jacobi loop of ``ops.watershed.claim_labels(basins=...)`` step for step,
+each step three launches, with the same per-plane flags read by the host
+once a step, so the steps and the budget are the plain loop's.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ __all__ = [
     "watershed_cuda", "minimax_costs_cuda", "claim_labels_cuda",
     "minimax_costs_band_cuda", "claim_labels_band_cuda",
     "watershed_cost_pass_cuda", "watershed_label_pass_cuda", "passes_from_history",
-    "PhaseLog",
+    "PhaseLog", "claim_labels_tunnel_cuda", "tunnel_init_cuda",
 ]
 
 _INF = 3.4e38  # rounds to the float32 the kernels write as 3.4e38f
@@ -307,3 +313,92 @@ def watershed_cuda(
 
 watershed_cuda.last_passes = (0, 0)
 watershed_cuda.last_logs = ()
+
+
+def tunnel_init_cuda(flags, markers, seg, kind, lab, dist, eimg, slots, lists, changed,
+                     counts, connectivity: int) -> None:
+    """K12's set-up before step 0, one launch: both halves of the state pairs
+    ``lab``, ``dist`` (int32) and ``eimg`` (float32) [2, B, H, W] from the
+    uint8 ``flags`` and int32 ``markers``, the uint8 pixel kinds ``kind``
+    from the flags and the int32 segment ids ``seg``, the roots' entries of
+    the int64 ``slots`` [3, B, H, W], the int32 ``lists`` [5, words] (step
+    0's list of words, the words every step visits, the basins' words, the
+    stamps; a word is 32 pixels of a row), and the int32 ``changed`` [2, B]
+    zeroed; ``counts`` (int32 [4]) arrives zeroed."""
+    B, H, W = as_planes("tunnel_init_cuda", seg)
+    lib = _kernels.library()
+    with torch.cuda.device(seg.device):
+        err = lib.pcis_tunnel_init(
+            flags.data_ptr(), markers.data_ptr(), seg.data_ptr(), kind.data_ptr(),
+            lab.data_ptr(), dist.data_ptr(), eimg.data_ptr(), slots.data_ptr(),
+            lists.data_ptr(), changed.data_ptr(), counts.data_ptr(), B, H, W, connectivity,
+            _kernels.stream_of(seg),
+        )
+    _kernels.check(err, "tunnel_init_cuda")
+    _kernels.count_launch(tunnel_init_cuda)
+
+
+tunnel_init_cuda.launches = 0
+
+
+def claim_labels_tunnel_cuda(cost, img, lab0, m, seeded, seg, inc, connectivity: int = 1,
+                             max_iters: int = 1024):
+    """Phase 2 on the basins' quotient graph on K12, for CUDA [B, H, W]
+    tensors: ``cost``, ``img`` (float32), ``lab0`` (the markers), bool ``m``
+    and ``seeded``, and the int32 ``seg`` and ``inc`` of
+    ``ops.watershed.basin_segments``.  Runs the steps of
+    ``ops.watershed.claim_labels(basins=(seg, inc))``, at most
+    ``max_iters``, reading each step's per-plane flags on the host, and
+    returns what it returns: (labels, per-plane bool still changing), and
+    the steps run.  ``claim_labels_tunnel_cuda.launches`` counts the steps'
+    launches, three a step."""
+    img, cost, seg, inc = (t.contiguous() for t in (img, cost, seg, inc))
+    markers = lab0.to(torch.int32).contiguous()
+    flags = _flags(m.contiguous(), seeded.contiguous())
+    _kernels.require_cuda("claim_labels_tunnel_cuda", cost, img, seg, inc, flags, markers)
+    if seg.dtype != torch.int32 or inc.dtype != torch.int32:
+        raise ValueError("claim_labels_tunnel_cuda: seg and inc must be int32")
+    B, H, W = as_planes("claim_labels_tunnel_cuda", cost)
+    dev = cost.device
+    words = B * H * -(-W // 32)
+    lab = torch.empty((2, B, H, W), dtype=torch.int32, device=dev)  # init writes both
+    dist = torch.empty_like(lab)
+    eimg = torch.empty((2, B, H, W), dtype=torch.float32, device=dev)
+    kind = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
+    slots = torch.empty((3, B, H, W), dtype=torch.int64, device=dev)
+    lists = torch.empty((5, words), dtype=torch.int32, device=dev)
+    rim = torch.empty(words, dtype=torch.int32, device=dev)
+    changed = torch.empty((2, B), dtype=torch.int32, device=dev)
+    counts = torch.zeros(4, dtype=torch.int32, device=dev)
+    tunnel_init_cuda(flags, markers, seg, kind, lab, dist, eimg, slots, lists, changed, counts,
+                     connectivity)
+    # a step's flags land in page-locked memory (the step's own copy), and
+    # the host reads them after waiting on the stream: the loop holds its
+    # arguments, the device guard and the stream from the first step on
+    host = torch.empty(B, dtype=torch.int32, pin_memory=True)
+    host_flags = host.numpy()
+    stream = torch.cuda.current_stream(dev)
+    args = tuple(t.data_ptr() for t in (cost, img, inc, seg, kind, lab, dist, eimg, slots, rim,
+                                        lists, changed, counts))
+    shape = (B, H, W, connectivity, stream.cuda_stream, host.data_ptr())
+    lib = _kernels.library()
+    steps, going, err = 0, True, 0
+    with torch.cuda.device(dev):
+        while steps < max_iters and going:
+            err = lib.pcis_tunnel_step(*args, steps, *shape)
+            if err:
+                break
+            steps += 1
+            with stage("pcis.sync.tunnel_step"):  # the step's flags: one host sync a step
+                stream.synchronize()
+                going = bool(host_flags.any())
+    _kernels.count_launch(claim_labels_tunnel_cuda, 3 * steps)
+    _kernels.check(err, "claim_labels_tunnel_cuda")
+    state = lab[steps % 2]
+    still = (changed[(steps - 1) % 2] != 0 if steps
+             else torch.ones(B, dtype=torch.bool, device=dev))
+    reached = m & (cost < _INF) & (state != _BIG_LAB)
+    return torch.where(reached, state, 0), still, steps
+
+
+claim_labels_tunnel_cuda.launches = 0

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K11 and the blur kernel against their
+"""The hand-written CUDA kernels K1-K12 and the blur kernel against their
 plain PyTorch versions, on the card.  Every test here needs a Hopper card and skips where there is
 none; on one, run them with
 
@@ -58,7 +58,9 @@ from particle_col_image_segmentation_tpu_torch.ops import (
 from particle_col_image_segmentation_tpu_torch.ops.watershed import claim_labels, minimax_costs
 from particle_col_image_segmentation_tpu_torch.ops.watershed_tiles import (
     claim_labels_cuda,
+    claim_labels_tunnel_cuda,
     minimax_costs_cuda,
+    tunnel_init_cuda,
     watershed_cost_pass_cuda,
     watershed_label_pass_cuda,
 )
@@ -632,9 +634,9 @@ def test_watershed_kernels_odd_shape_unreachable_mask_and_budget(dev):
 @pytest.mark.parametrize("connectivity", [1, 2])
 def test_tunnelled_watershed_on_the_card(dev, connectivity):
     """watershed_auto(tunnel_basins=True) on the card (K10, K2 on the basins,
-    the plain phase 2; no K11) against the plain run on the card, on a batch
-    of 16-level reliefs and on the sparse-seed regime; the card's basins
-    against scipy's."""
+    K12's steps; no K11) against the plain run on the card, on a batch of
+    16-level reliefs and on the sparse-seed regime; K12 launches once to set
+    up and three times a step; the card's basins against scipy's."""
     from chip_smoke import basins_vs_scipy, sparse_seeds
 
     planes = [_relief_case(256, True, seed) for seed in (0, 1)]
@@ -644,17 +646,96 @@ def test_tunnelled_watershed_on_the_card(dev, connectivity):
               torch.ones((1, 128, 128), dtype=torch.bool, device=dev)]]
     for img, mk, mask in cases:
         before = (ccl_cuda.launches, watershed_cost_pass_cuda.launches,
-                  watershed_label_pass_cuda.launches)
+                  watershed_label_pass_cuda.launches, tunnel_init_cuda.launches,
+                  claim_labels_tunnel_cuda.launches)
         got, gconv = watershed_auto(img, mk, mask, connectivity=connectivity, max_iters=4096,
                                     with_flag=True, tunnel_basins=True)
         assert ccl_cuda.launches == before[0] + 1 and watershed_cost_pass_cuda.launches > before[1]
         assert watershed_label_pass_cuda.launches == before[2]
+        steps = claim_labels.last_steps
+        assert steps > 1 and tunnel_init_cuda.launches == before[3] + 1
+        assert claim_labels_tunnel_cuda.launches == before[4] + 3 * steps
         want, wconv = watershed(img, mk, mask, connectivity=connectivity, max_iters=4096,
                                 with_flag=True, tunnel_basins=True)
         assert gconv.all() and wconv.all()
         _equal([got], [want])
         largest = basins_vs_scipy(img, mk, mask, connectivity)[2]
     assert largest > 1  # the sparse-seed relief's basins span several pixels
+
+
+def _tunnel_cases():
+    """(name, img, markers, mask) numpy batches for K12: 16-level noise
+    reliefs of three sizes with sparse seeds (basins of thousands of pixels;
+    planes that converge at different steps), the bench's 16-level relief,
+    claims that tie in (d, e) and (d, e, s) so the marker id decides, +0.0
+    beside -0.0, and the sparse-seed regime's large basins."""
+    from chip_smoke import sparse_seeds
+
+    noise = [sparse_seeds(n, 16) for n in (128, 112, 96)]
+    levels = (np.stack([np.pad(q, ((0, 128 - len(q)),) * 2, constant_values=1.0)
+                        for q, _ in noise]),
+              np.stack([np.pad(mk, ((0, 128 - len(mk)),) * 2) for _, mk in noise]),
+              np.stack([np.pad(np.ones(q.shape, bool), ((0, 128 - len(q)),) * 2)
+                        for q, _ in noise]))
+    bench = [np.stack(t) for t in zip(*(_relief_case(256, True, seed) for seed in (0, 1)))]
+    # a plateau at 0.5 with a pit at 0.25, reached from both sides at once by
+    # markers 3 and 2: every claim on the pit ties in (d, e, s), and the least
+    # marker id wins; plane 1 adds markers 5 and 4 at mirrored corners, whose
+    # claims tie on the plateau
+    tie = np.full((2, 60, 80), 0.5, np.float32)
+    tie[:, 20:40, 30:50] = 0.25
+    tie_mk = np.zeros(tie.shape, np.int32)
+    tie_mk[:, 30, 5], tie_mk[:, 30, 74] = 3, 2
+    tie_mk[1, 2, 2], tie_mk[1, 57, 77] = 5, 4
+    # the same with the plateau at 0.0 written as +0.0 and -0.0, the pit at -0.25
+    zero = np.where(np.indices(tie.shape[1:]).sum(0) % 3 == 0, np.float32(-0.0),
+                    np.float32(0.0))[None].repeat(2, 0)
+    zero[:, 20:40, 30:50] = -0.25
+    zero[:, 25:30, 35:40] = -0.0  # an island at the plateau's level inside the pit
+    q, smk = sparse_seeds()
+    return [("16-level", *levels), ("bench relief", *bench),
+            ("ties", tie, tie_mk, np.ones(tie.shape, bool)),
+            ("signed zeros", zero, tie_mk, np.ones(tie.shape, bool)),
+            ("sparse seeds", q[None], smk[None], np.ones((1,) + q.shape, bool))]
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+def test_tunnel_claim_kernel_step_for_step(dev, connectivity):
+    """K12 (``claim_labels_tunnel_cuda``) against the plain
+    ``claim_labels(basins=…)`` on the card, from the same costs and basins:
+    labels, per-plane flags and steps equal at max_iters 1, 2, 7 and to
+    convergence, on ``_tunnel_cases``."""
+    from particle_col_image_segmentation_tpu_torch.ops.watershed import basin_segments
+
+    for name, *arrays in _tunnel_cases():
+        img, mk, mask = (torch.from_numpy(a).to(dev) for a in arrays)
+        seeded = (mk > 0) & mask
+        cost, busy, _ = minimax_costs_cuda(img, mask, seeded, connectivity)
+        seg, inc, conv = basin_segments(cost, img, mask, seeded, connectivity)
+        assert not busy.any() and conv.all(), name
+        in_basins = int((seg != torch.arange(seg.numel(), device=dev).reshape(seg.shape)).sum())
+        assert in_basins > 0 or name == "bench relief", name
+        if name == "16-level":  # the planes alone run different numbers of steps
+            alone = []
+            for b in range(img.shape[0]):
+                claim_labels(cost[b:b + 1], img[b:b + 1], mk[b:b + 1], mask[b:b + 1],
+                             seeded[b:b + 1], connectivity, 4096,
+                             basins=basin_segments(cost[b:b + 1], img[b:b + 1], mask[b:b + 1],
+                                                   seeded[b:b + 1], connectivity)[:2])
+                alone.append(claim_labels.last_steps)
+            assert len(set(alone)) > 1, alone
+        for budget in (1, 2, 7, 4096):
+            want, w_busy = claim_labels(cost, img, mk, mask, seeded, connectivity, budget,
+                                        basins=(seg, inc))
+            w_steps = claim_labels.last_steps
+            got, g_busy, g_steps = claim_labels_tunnel_cuda(cost, img, mk, mask, seeded, seg,
+                                                            inc, connectivity, budget)
+            case = f"{name} connectivity={connectivity} max_iters={budget}"
+            assert g_steps == w_steps, case
+            _equal([got, g_busy], [want, w_busy], case)
+        assert not g_busy.any() and w_steps < 4096, name
+        if name in ("ties", "signed zeros"):  # the pit went to the least marker
+            assert bool((got[:, 30, 40] == 2).all()), name
 
 
 def test_local_maxima_and_exact_edt_kernels(dev):

@@ -218,7 +218,7 @@ def test_otsu_at_any_bins_matches_jax_jitted(bins):
 
 
 def test_threshold_path_reaches_no_kernel_on_the_cpu(monkeypatch):
-    """On CPU tensors the threshold path takes the plain versions: no K1-K11
+    """On CPU tensors the threshold path takes the plain versions: no K1-K12
     wrapper launches, and the histogram kernel's wrapper is never called."""
 
     def refuse(*args, **kwargs):

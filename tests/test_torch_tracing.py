@@ -58,10 +58,8 @@ _REFINE_STEPS = {
 }
 # the plain phase 2 on the CPU; K11's chunks on the card
 REFINE_TREE = {**_REFINE_STEPS, "pcis.watershed.phase2": "pcis.refine.watershed",
-               "pcis.sync.claim_inf": "pcis.watershed.phase2",
                "pcis.sync.claim_step": "pcis.watershed.phase2"}
 TUNNEL_TREE = {**_REFINE_STEPS, "pcis.watershed.tunnel": "pcis.refine.watershed",
-               "pcis.sync.claim_inf": "pcis.watershed.tunnel",
                "pcis.sync.tunnel_step": "pcis.watershed.tunnel"}
 
 

@@ -16,6 +16,15 @@ import importlib
 
 import torch
 
+SPAN = "pcis.refine"
+
+
+def CALL_BYTES(B: int, H: int, W: int, options: dict) -> int:
+    """float32 maps in; int32 labels and markers and float32 distance out,
+    and the five int32 columns of the centroid table of max_regions + 1
+    rows."""
+    return B * H * W * (4 + 4 + 4 + 4) + B * (options["max_regions"] + 1) * 4 * 5
+
 
 class Entry:
     def __init__(self, options: dict):

@@ -11,6 +11,14 @@ import dataclasses
 
 import torch
 
+SPAN = "pcis.segment"
+
+
+def CALL_BYTES(B: int, H: int, W: int, options: dict) -> int:
+    """uint8 planes in; int32 ``seg`` and the two int32 region tables of
+    max_regions + 1 rows out (the per-plane stats are a few bytes)."""
+    return B * H * W * (1 + 4) + B * (options["max_regions"] + 1) * 4 * 2
+
 
 class Entry:
     def __init__(self, options: dict):

@@ -6,7 +6,11 @@ options, its entry driver ``entries/<entry>.py``, its plain reference
 ``reference/<reference>.py`` and the limits of the comparison) and a traffic
 mix (``traffic/<traffic>.json``: the parameters of the input generator
 ``traffic/<generator>.py``, the batches staged, the warm-up, and any option
-the mix sets).  Every metric is read by ``metrics/<name>.py``.
+the mix sets).  Every metric is read by ``metrics/<name>.py``.  An entry
+driver declares at module level what the readers need of its calls:
+``CALL_BYTES(B, H, W, options)``, the least bytes of one call, and
+``SPAN``, the name of the program's span around one call.  So a
+configuration joins by new files and new entries in ``BENCHMARK.json``.
 
 A run stages a few distinct batches on the card from the seed, warms every
 one up (set-up), then calls the entry in a closed loop, one caller, cycling
@@ -125,8 +129,12 @@ def judge(ref_mod, batches, options, answers, held, last: int, limits: dict,
     return {k: (v, limits[k]) for k, v in checks.items()}, wrong
 
 
-def _trace_context(root: Path, trace: devtrace.Trace, spec, calls: int, launches: dict,
-                   per_call: list, shape: tuple) -> SimpleNamespace:
+def _trace_context(root: Path, trace: devtrace.Trace, spec, entry_mod, calls: int,
+                   launches: dict, per_call: list, shape: tuple) -> SimpleNamespace:
+    """What the per-layer readers read: the trace and its window, the traced
+    calls' counts, and the declarations of the entry driver's module
+    ``entry_mod`` (None where it makes none): ``CALL_BYTES``, a call's least
+    bytes, and ``SPAN``, the program's span around a call."""
     lo, hi = trace.window()
     busy = devtrace.busy(trace, lo, hi)
     kernels = json.loads((root / "benchmark" / "kernels.json").read_text())
@@ -134,7 +142,8 @@ def _trace_context(root: Path, trace: devtrace.Trace, spec, calls: int, launches
     return SimpleNamespace(
         trace=trace, window=(lo, hi), window_s=hi - lo, busy=busy,
         busy_s=devtrace.busy_seconds(busy), calls=calls, launches=launches, per_call=per_call,
-        shape=tuple(shape), options=spec.options, entry=spec.config["entry"],
+        shape=tuple(shape), options=spec.options,
+        call_bytes=getattr(entry_mod, "CALL_BYTES", None), span=getattr(entry_mod, "SPAN", None),
         kernels=kernels, program_names=names, program_spaces=spaces)
 
 
@@ -166,7 +175,8 @@ def run_cell(root: Path, spec, seed: int, seconds: float, trace: bool, device, t
              chips: int = 1) -> dict:
     """One run of a cell on ``device``; the result line as a dict."""
     opts, traffic = spec.options, spec.traffic
-    entry = load_module(root, "entries", spec.config["entry"]).Entry(opts)
+    entry_mod = load_module(root, "entries", spec.config["entry"])
+    entry = entry_mod.Entry(opts)
     ref_mod = load_module(root, "reference", spec.config["reference"])
     t_imported = time.perf_counter()
     batches = load_module(root, "traffic", traffic["generator"]).make(traffic, seed, device)
@@ -261,7 +271,7 @@ def run_cell(root: Path, spec, seed: int, seconds: float, trace: bool, device, t
             path = Path(tmp) / "trace.json"
             prof.export_chrome_trace(str(path))
             tr = devtrace.load(path)
-        ctx = _trace_context(root, tr, spec, i, launches, per_call, batches[0].shape)
+        ctx = _trace_context(root, tr, spec, entry_mod, i, launches, per_call, batches[0].shape)
         result["device"]["busy_s"] = ctx.busy_s
         result["device"]["window_s"] = ctx.window_s
         metrics = spec.per_layer

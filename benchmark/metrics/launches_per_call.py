@@ -1,4 +1,4 @@
-"""launches_per_call: launches of the port's kernel wrappers (K1-K11, the
+"""launches_per_call: launches of the port's kernel wrappers (K1-K12, the
 blur; ``_kernels.launch_counters``) over the traced calls, a call."""
 
 

@@ -1,8 +1,9 @@
 """The program's own spans in a traced window: the ``pcis.*`` annotations
 of the port's tracer (``utils/profiling.py``), found by their prefix in
-any host category.  ``pcis.segment`` and ``pcis.refine`` are the entries'
-calls; a ``pcis.sync.*`` span is a place where the host waits on the card.
-A program that annotates nothing leaves the readers nothing to read.
+any host category.  Each entry driver names the span of its calls
+(``entries/<entry>.py``, ``SPAN``); a ``pcis.sync.*`` span is a place where
+the host waits on the card.  A program that annotates nothing leaves the
+readers nothing to read.
 """
 
 from __future__ import annotations
@@ -13,7 +14,6 @@ from benchmark import devtrace
 
 PREFIX = "pcis."
 SYNC = "pcis.sync."
-ENTRIES = ("pcis.segment", "pcis.refine")
 
 
 def program_spans(ctx):

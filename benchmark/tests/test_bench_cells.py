@@ -4,7 +4,6 @@ whose timed path is broken underneath comes out not correct."""
 
 from __future__ import annotations
 
-import hashlib
 import time
 from pathlib import Path
 
@@ -12,15 +11,10 @@ import pytest
 import torch
 
 from benchmark import harness
-from benchmark.tests.toy_cells import toy_root
+from benchmark.tests.toy_cells import digests, toy_root
 
 SEED = 2**31 + 11  # seeds reach past 32 signed bits
 TOYS = ("toy.segment.b32", "toy.refine.relief.b8", "toy.refine.q16tunnel.b8")
-
-
-def _digests(root: Path) -> dict:
-    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
-            for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
 
 
 @pytest.fixture(scope="module")
@@ -35,9 +29,9 @@ def _run(root, cell, trace=False, seconds=0.3):
 
 @pytest.mark.parametrize("cell", TOYS)
 def test_a_cell_added_by_files_alone_runs_correct(root, cell):
-    before = _digests(root)
+    before = digests(root)
     out = _run(root, cell)
-    assert _digests(root) == before  # the run changed no file
+    assert digests(root) == before  # the run changed no file
     assert out["correct"] and out["failed"] == 0 and out["attempted"] >= 1
     assert list(out) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
     assert set(out["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
@@ -49,8 +43,8 @@ def test_a_cell_added_by_files_alone_runs_correct(root, cell):
 
 
 def test_the_toy_files_are_new_files(root):
-    real = _digests(harness.ROOT / "benchmark")
-    copy = _digests(root / "benchmark")
+    real = digests(harness.ROOT / "benchmark")
+    copy = digests(root / "benchmark")
     assert all(copy[k] == v for k, v in real.items())
     assert sorted(set(copy) - set(real)) == sorted(
         [Path("configs/toy_labels2048.json"), Path("configs/toy_prob2048.json")]

@@ -1,88 +1,127 @@
-"""BENCHMARK.json against the benchmark's contract, the files it names, the
+"""BENCHMARK.json against the benchmark's contract (``contract.py``, over
+whatever configurations and cells it lists), the files it names, the
 imports of every benchmark module, and the command's refusals."""
 
 from __future__ import annotations
 
 import ast
 import json
-import re
+import shutil
 import subprocess
 import sys
 
 import pytest
 
 from benchmark import harness
+from benchmark.tests import contract
 
 ROOT = harness.ROOT
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-ONE_LINE = re.compile(r"^[^\n\t]{1,200}$")
+# the accepted benchmark's configurations and cells: later ones join them
+ACCEPTED_CONFIGS = {"labels2048", "prob2048"}
+ACCEPTED_CELLS = {"segment.b32", "refine.relief.b8", "refine.q16tunnel.b8"}
 
 
 def test_the_top_level_keys_and_the_command():
-    assert list(BENCH) == ["command", "paths", "run_seconds", "configs", "workloads",
-                           "end_to_end", "per_layer"]
-    assert BENCH["command"] == ["python3", "benchmark/run.py"]
-    assert BENCH["paths"] == ["benchmark"]
-    assert isinstance(BENCH["run_seconds"], int) and 1 <= BENCH["run_seconds"] <= 51
-    assert len(json.dumps(BENCH)) < 64 * 1024
+    contract.check_top(ROOT, BENCH)
 
 
 def test_names_units_and_lines():
-    names = [x["name"] for k in ("configs", "workloads", "end_to_end", "per_layer")
-             for x in BENCH[k]]
-    assert len(names) == len(set(names))
-    assert all(NAME.match(n) for n in names)
-    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
-        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
-    for x in BENCH["configs"] + BENCH["workloads"]:
-        assert ONE_LINE.match(x["why"])
-    for p in BENCH["per_layer"]:
-        assert ONE_LINE.match(p["layer"])
+    contract.check_names(ROOT, BENCH)
 
 
 def test_configs_and_cells():
-    assert [c["name"] for c in BENCH["configs"]] == ["labels2048", "prob2048"]
-    assert [w["name"] for w in BENCH["workloads"]] == [
-        "segment.b32", "refine.relief.b8", "refine.q16tunnel.b8"]
-    for c in BENCH["configs"]:
-        assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert c["file"].startswith("benchmark/") and ONE_LINE.match(c["source"])
-        config = json.loads((ROOT / c["file"]).read_text())
-        assert config["name"] == c["name"] and config["reduced"] == c["reduced"] == []
-        for kind in ("entries", "reference"):
-            key = "entry" if kind == "entries" else "reference"
-            assert (ROOT / "benchmark" / kind / f"{config[key]}.py").is_file()
-    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
-    assert len(pairs) == len(set(pairs))
-    for w in BENCH["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
-        traffic = json.loads((ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json").read_text())
-        assert (ROOT / "benchmark" / "traffic" / f"{traffic['generator']}.py").is_file()
+    contract.check_configs_and_cells(ROOT, BENCH)
+    assert ACCEPTED_CONFIGS <= {c["name"] for c in BENCH["configs"]}
+    cells = {w["name"]: w for w in BENCH["workloads"]}
+    assert ACCEPTED_CELLS <= set(cells)
+    assert all(cells[w]["chips"] == 1 for w in ACCEPTED_CELLS)
 
 
 def test_metrics():
-    cells = {w["name"] for w in BENCH["workloads"]}
-    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
-    assert {"mps", "call_p95_ms", "peak_mem_gib", "setup_s"} <= set(e2e)
-    for m in BENCH["end_to_end"]:
-        assert m["source"] in ("host_clock", "device_trace")
-        assert 0.01 <= m["bound"] <= 0.25
-    for m in BENCH["per_layer"]:
-        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
-        # the metric it moves is reported in every cell it lists
-        assert set(m["workloads"]) <= set(e2e[m["moves"]].get("workloads", cells))
-        assert harness.reader_of(m["moves"]) == "mps"
-    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
-        assert set(m.get("workloads", cells)) <= cells
-        assert (ROOT / "benchmark" / "metrics" / f"{harness.reader_of(m['name'])}.py").is_file()
-        if "roofline" in m["name"]:
-            assert m["unit"] == "%" and harness.reader_of(m["name"]).endswith("_roofline")
-    for cell in cells:  # every cell reports setup_s, another end-to-end metric and a per-layer one
-        spec = harness.load_spec(ROOT, cell)
-        assert "setup_s" in {m["name"] for m in spec.end_to_end} and len(spec.end_to_end) > 1
-        assert spec.per_layer
+    contract.check_metrics(ROOT, BENCH)
+    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    assert {"mps", "call_p95_ms", "peak_mem_gib", "setup_s"} <= e2e
+
+
+def _copy(tmp_path):
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return tmp_path, json.loads((tmp_path / "BENCHMARK.json").read_text())
+
+
+def _cell(bench, name, **kw):
+    return {**bench["workloads"][0], "name": name, **kw}
+
+
+def _unknown_config(root, bench):
+    bench["workloads"].append(_cell(bench, "x.b1", config="nowhere"))
+
+
+def _config_without_a_cell(root, bench):
+    file = "benchmark/configs/spare.json"
+    config = json.loads((root / bench["configs"][0]["file"]).read_text())
+    (root / file).write_text(json.dumps({**config, "name": "spare"}))
+    bench["configs"].append({**bench["configs"][0], "name": "spare", "file": file})
+
+
+def _missing_generator(root, bench):
+    (root / "benchmark" / "traffic" / "x.json").write_text(json.dumps({"generator": "nowhere"}))
+    bench["workloads"].append(_cell(bench, "x.b1", traffic="x"))
+
+
+def _two_chips(root, bench):
+    bench["workloads"][0]["chips"] = 2
+
+
+def _too_many_on_four_chips(root, bench):
+    for w in bench["workloads"][:2]:
+        w["chips"] = 4
+
+
+def _too_many_cells(root, bench):
+    for k in range(contract.MAX_CELLS):
+        bench["workloads"].append(_cell(bench, f"x.b{k}", traffic=f"x{k}"))
+
+
+def _reduced_differs_from_its_file(root, bench):
+    bench["configs"][0]["reduced"] = ["plane"]
+
+
+def _reduced_not_a_list_of_names(root, bench):
+    for c in bench["configs"]:
+        c["reduced"] = "plane"
+
+
+def _a_name_twice(root, bench):
+    bench["workloads"][1]["name"] = bench["workloads"][0]["name"]
+
+
+def _a_name_with_a_space(root, bench):
+    bench["per_layer"][0]["name"] = "launches per call"
+
+
+def _a_layer_that_moves_setup(root, bench):
+    bench["per_layer"][0]["moves"] = "setup_s"
+
+
+def _a_layer_that_moves_the_peak(root, bench):
+    bench["per_layer"][0]["moves"] = "peak_mem_gib"
+
+
+@pytest.mark.parametrize("breach", [
+    _unknown_config, _config_without_a_cell, _missing_generator, _two_chips,
+    _too_many_on_four_chips, _too_many_cells, _reduced_differs_from_its_file,
+    _reduced_not_a_list_of_names, _a_name_twice, _a_name_with_a_space,
+    _a_layer_that_moves_setup, _a_layer_that_moves_the_peak,
+], ids=lambda f: f.__name__.strip("_"))
+def test_the_contract_check_finds_each_breach(tmp_path, breach):
+    root, bench = _copy(tmp_path)
+    contract.check(root, bench)  # the copy as it is passes
+    breach(root, bench)
+    with pytest.raises(AssertionError):
+        contract.check(root, bench)
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "particle_col_image_segmentation_tpu"}

@@ -1,10 +1,12 @@
 """The readers of the program's spans (``benchmark/spans.py``,
 ``host_syncs_per_call``, ``entry_idle_pct``, ``sync_idle_pct``) on
-hand-built traces with known gaps and spans."""
+hand-built traces with known gaps and spans, and the entry driver's
+declarations that they read (``SPAN``, ``CALL_BYTES``)."""
 
 from __future__ import annotations
 
 import json
+import shutil
 from types import SimpleNamespace
 
 import pytest
@@ -34,13 +36,14 @@ PROGRAM = [
 ]
 
 
-def _ctx(tmp_path, events, calls=1):
+def _ctx(tmp_path, events, calls=1, entry="refine", root=harness.ROOT):
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": [
         {"ph": "X", "cat": c, "name": n, "ts": ts, "dur": d, "pid": 0, "tid": 0}
         for c, n, ts, d in events]}))
-    spec = SimpleNamespace(options={"max_regions": 4095}, config={"entry": "refine"})
-    return harness._trace_context(harness.ROOT, devtrace.load(path), spec, calls, {}, [],
+    spec = SimpleNamespace(options={"max_regions": 4095})
+    entry_mod = harness.load_module(root, "entries", entry)
+    return harness._trace_context(root, devtrace.load(path), spec, entry_mod, calls, {}, [],
                                   (1, 10, 10))
 
 
@@ -74,7 +77,8 @@ def test_syncs_count_a_call_over_the_traced_calls(tmp_path):
 
 def test_a_call_with_spans_and_no_sync_reads_zero(tmp_path):
     ctx = _ctx(tmp_path, DEVICE + HARNESS + [("cpu_op", "pcis.segment", 1002, 296),
-                                             ("cpu_op", "pcis.segment.ccl", 1002, 200)])
+                                             ("cpu_op", "pcis.segment.ccl", 1002, 200)],
+               entry="segment")
     assert _read("host_syncs_per_call", ctx) == 0.0
     assert _read("sync_idle_pct", ctx) == 0.0
     # 1002-1010, 1140-1200, 1290-1298
@@ -91,6 +95,30 @@ def test_a_trace_without_program_spans_reads_nothing(tmp_path, name):
 def test_entry_idle_reads_nothing_without_an_entry_span(tmp_path):
     ctx = _ctx(tmp_path, DEVICE + HARNESS + [("cpu_op", "pcis.sync.tunnel_step", 1130, 80)])
     assert _read("entry_idle_pct", ctx) is None
+    assert _read("host_syncs_per_call", ctx) == 1.0
+
+
+def test_each_entry_counts_only_its_own_span(tmp_path):
+    # a segment call's span over the readback, beside the refine call's
+    events = DEVICE + HARNESS + PROGRAM + [("cpu_op", "pcis.segment", 1300, 20)]
+    # refine: 1005-1010, 1140-1200, 1290-1295, as without the segment span
+    assert _read("entry_idle_pct", _ctx(tmp_path, events)) == pytest.approx(100 * 70 / 320)
+    # segment: 1310-1320
+    ctx = _ctx(tmp_path, events, entry="segment")
+    assert _read("entry_idle_pct", ctx) == pytest.approx(100 * 10 / 320)
+
+
+def test_an_entry_without_the_declarations_reads_nothing(tmp_path):
+    """A driver that declares neither ``SPAN`` nor ``CALL_BYTES``: neither
+    reader has anything to read, though the trace holds entry spans."""
+    root = tmp_path / "root"
+    (root / "benchmark" / "entries").mkdir(parents=True)
+    shutil.copy(harness.ROOT / "benchmark" / "kernels.json", root / "benchmark")
+    (root / "benchmark" / "entries" / "bare.py").write_text('"""A bare driver."""\n')
+    ctx = _ctx(tmp_path, DEVICE + HARNESS + PROGRAM, entry="bare", root=root)
+    assert ctx.busy_s > 0
+    assert _read("entry_idle_pct", ctx) is None
+    assert _read("call_roofline", ctx) is None
     assert _read("host_syncs_per_call", ctx) == 1.0
 
 

@@ -54,8 +54,9 @@ def ctx(tmp_path):
         {"ph": "X", "cat": c, "name": n, "ts": ts, "dur": d, "pid": 0, "tid": 0}
         for c, n, ts, d in EVENTS]}))
     trace = devtrace.load(path)
-    spec = SimpleNamespace(options={"max_regions": 4095}, config={"entry": "refine"})
-    return harness._trace_context(harness.ROOT, trace, spec, 1, {"K2": 2, "K9": 1},
+    spec = SimpleNamespace(options={"max_regions": 4095})
+    entry_mod = harness.load_module(harness.ROOT, "entries", "refine")
+    return harness._trace_context(harness.ROOT, trace, spec, entry_mod, 1, {"K2": 2, "K9": 1},
                                   [{"ws_passes": 9}], (1, 10, 10))
 
 
@@ -78,7 +79,8 @@ def test_the_readers_on_the_toy_trace(ctx):
     assert _read("tunnel_steps", ctx) is None  # nothing to read
     k2 = roofline.least_seconds(roofline.k2_bytes(100, 1) + roofline.k2_bytes(100, 4))
     assert _read("ccl_roofline", ctx) == pytest.approx(100 * k2 / 180e-6)
-    call = roofline.least_seconds(roofline.refine_call_bytes(1, 10, 10, {"max_regions": 4095}))
+    refine = harness.load_module(harness.ROOT, "entries", "refine")
+    call = roofline.least_seconds(refine.CALL_BYTES(1, 10, 10, {"max_regions": 4095}))
     assert _read("call_roofline", ctx) == pytest.approx(100 * call / 230e-6)
 
 

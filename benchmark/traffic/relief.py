@@ -9,10 +9,15 @@ disc pixel to the nearest pixel outside every disc (0 outside).  ``levels``
 is the port's ``bench.quantize16``).
 
 Every seed gets the same work: each staged batch's relief is drawn once,
-on the device, from the traffic file's ``layout_seed``, and ``--seed``
-moves each of the batch's planes by a cyclic shift of its own (in place of
-``refine_relief``'s 17·b columns), so the seed changes where every cell
-lies, never how many there are or how large.
+on the device, from the traffic file's ``layout_seed``; the batch's planes
+are its images under the symmetries of the plane (flips of rows and of
+columns, and on a square plane the transpose: 8 images, 4 on another
+plane), plane b the image b modulo their number; and ``--seed`` orders the
+batch's planes.  So every seed's batches hold the same planes, in another
+order, and every seed's calls take the same watershed steps and passes.
+A flip or a transpose keeps each disc whole and the plane's edges where
+they were; a cyclic shift (``refine_relief``'s 17·b columns) would split
+the discs at its seam and change the steps with the seed.
 """
 
 from __future__ import annotations
@@ -20,7 +25,6 @@ from __future__ import annotations
 import torch
 
 from benchmark import plain
-from benchmark.plain import shift_planes
 
 
 def _relief(p: dict, gen: torch.Generator, device) -> torch.Tensor:
@@ -47,11 +51,25 @@ def _relief(p: dict, gen: torch.Generator, device) -> torch.Tensor:
     return prob
 
 
+def _images(x: torch.Tensor, batch: int) -> torch.Tensor:
+    """[batch, H, W]: plane b is ``x``'s image under symmetry b modulo 8 (4
+    where H != W): bit 2 transposes, bit 0 flips the rows, bit 1 the
+    columns."""
+    n = 8 if x.shape[0] == x.shape[1] else 4
+    planes = []
+    for k in range(batch):
+        y = x.t() if k % n & 4 else x
+        dims = [d for d, bit in ((0, 1), (1, 2)) if k % n & bit]
+        planes.append(y.flip(dims) if dims else y)
+    return torch.stack(planes)
+
+
 def make(p: dict, seed: int, device) -> list:
     """``p["staged"]`` distinct [batch, H, W] float32 batches on ``device``."""
     layout = torch.Generator(device=device)
     layout.manual_seed(p["layout_seed"])
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return [shift_planes(_relief(p, layout, device).expand(p["batch"], *p["plane"]), gen)
+    return [_images(_relief(p, layout, device), p["batch"])[
+                torch.randperm(p["batch"], generator=gen, device=device)]
             for _ in range(p["staged"])]

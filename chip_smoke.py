@@ -794,17 +794,15 @@ def config2_stack(planes: int = 24, n: int = 512, discs: int = 30, seed: int = 2
 
 
 def stack_stats(x):
-    """Config #2's compute (bench.py's stack_stats): the Gaussian blur at
-    σ 1, contracted as bench.py's jitted graph rounds it (``fma=True``),
-    then ``threshold_and_count_batch`` at max_regions 4095.  Returns the
-    blurred stack and the six outputs."""
-    from particle_col_image_segmentation_tpu_torch.ops import (
-        gaussian_blur,
-        threshold_and_count_batch,
-    )
+    """Config #2's compute (bench.py's stack_stats,
+    ``models.zstack.zstack_stats_device``: the Gaussian blur at σ 1,
+    contracted as bench.py's jitted graph rounds it, then per-plane Otsu,
+    CCL and counts at max_regions 4095).  Returns the blurred stack and
+    ``threshold_and_count_batch``'s six outputs."""
+    from particle_col_image_segmentation_tpu_torch.models.zstack import zstack_stats_device
 
-    den = gaussian_blur(x, 1.0, fma=True)
-    return den, threshold_and_count_batch(den, max_regions=TH_REGIONS)
+    r = zstack_stats_device(x, max_regions=TH_REGIONS)
+    return r.den, (r.mask, r.seg, r.count, r.num_fg, r.num_total, r.converged)
 
 
 def plain_blur(x, sigma: float = 1.0, fma: bool = True):

@@ -364,18 +364,13 @@ def bench_config1(dev, sizes: Sizes = FULL):
 
 
 def stack_stats(x):
-    """Config #2's per-stack compute: Gaussian blur at σ 1, then per-plane
-    Otsu, CCL and counts; count + num a plane.  bench.py jits this graph,
-    so the blur takes the contracted form (``fma=True``) that XLA's CPU
-    code gives it."""
-    from particle_col_image_segmentation_tpu_torch.ops import (
-        gaussian_blur,
-        threshold_and_count_batch,
-    )
+    """Config #2's per-stack compute (``models.zstack.zstack_stats_device``:
+    the contracted Gaussian blur at σ 1, as bench.py's jitted graph gives
+    it, then per-plane Otsu, CCL and counts); count + num a plane."""
+    from particle_col_image_segmentation_tpu_torch.models.zstack import zstack_stats_device
 
-    den = gaussian_blur(x, sigma=1.0, fma=True)
-    _, _, count, num, _, _ = threshold_and_count_batch(den, max_regions=4095)
-    return count + num
+    r = zstack_stats_device(x)
+    return r.count + r.num_fg
 
 
 def bench_config2(tmpdir: str, dev, sizes: Sizes = FULL):

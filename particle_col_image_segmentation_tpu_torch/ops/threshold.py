@@ -22,6 +22,17 @@ CPU's; ``torch.cumsum`` sums in another order on each device, and a float32
 sum of ``count · centre`` in another order can move Otsu's argmax between
 two cuts that tie within rounding.
 
+``threshold_and_count_batch`` and config #2's
+``models.zstack.zstack_stats_device`` share one body
+(``_threshold_and_count_planes``): the histogram once a call, the Otsu
+reduction, the mask, CCL, compaction, tables and counts, a span a step
+(``pcis.threshold.otsu``, ``.ccl``, ``.compact``, ``.counts``) and no host
+sync on the card.  On the card every Otsu threshold (``_otsu_batch``)
+replays its reduction (bin centres, prefix sums, argmax: some 75 launches
+on a few values a plane) as one CUDA graph (``_otsu_graphed``), so that
+the host's launches no longer pace the card; the graph holds the same
+kernels, so the thresholds keep their bits.
+
 Inputs are [H, W] (``histogram``, ``otsu_threshold``,
 ``threshold_and_count``) or [B, H, W] (the batched functions) of any dtype
 ``filters.as_float32`` takes: uint8, int8, int16, uint16 (torch.uint16),
@@ -29,6 +40,8 @@ int32, float16, bfloat16, float32 or float64, cast to float32 first.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -46,6 +59,7 @@ from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import (
 )
 from particle_col_image_segmentation_tpu_torch.ops.regionprops_tiles import region_counts_auto
 from particle_col_image_segmentation_tpu_torch.ops.rounding import fma_f32
+from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
 __all__ = [
     "histogram",
@@ -98,6 +112,57 @@ def _histogram_batch(x3: torch.Tensor, bins: int):
     return counts, _centers(lo[..., 0], span[..., 0], bins)
 
 
+def _otsu_from_range(counts, lo, span, bins: int) -> torch.Tensor:
+    """Otsu's cut [B] from counts [B, bins] and each plane's ``lo`` and
+    ``span`` [B, 1]: the bin centres, then ``_otsu_from_hist``."""
+    return _otsu_from_hist(counts, _centers(lo, span, bins))
+
+
+_OTSU_GRAPHS: dict = {}  # (device, stream, planes, bins) -> (graph, its inputs, its cut)
+_otsu_lock = threading.Lock()
+
+
+def _otsu_graphed(counts, lo, span, bins: int) -> torch.Tensor:
+    """``_otsu_from_range`` on the card, replayed as one CUDA graph a
+    (device, current stream, planes, bins).  The first call of a key
+    captures the graph (a host sync, once, in ``pcis.sync.otsu_graph``);
+    every call copies its inputs into the graph's, replays it and copies
+    the cut out, on the current stream.  A graph's buffers serve one
+    stream, and the lock keeps two threads' copies and replays on it from
+    interleaving."""
+    with torch.cuda.device(counts.device), _otsu_lock:
+        stream = torch.cuda.current_stream()
+        key = (counts.device, stream.cuda_stream, counts.shape[0], bins)
+        if key not in _OTSU_GRAPHS:
+            with stage("pcis.sync.otsu_graph"):  # the capture syncs the card, once a key
+                static = [t.clone() for t in (counts, lo, span)]
+                side = torch.cuda.Stream()
+                side.wait_stream(stream)
+                with torch.cuda.stream(side):  # loads the kernels outside the capture
+                    _otsu_from_range(*static, bins)
+                stream.wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    cut = _otsu_from_range(*static, bins)
+            _OTSU_GRAPHS[key] = (graph, static, cut)
+        graph, static, cut = _OTSU_GRAPHS[key]
+        for held, t in zip(static, (counts, lo, span)):
+            held.copy_(t)
+        graph.replay()
+        return cut.clone()
+
+
+def _otsu_batch(x3: torch.Tensor, bins: int) -> torch.Tensor:
+    """Per-plane Otsu thresholds [B] of a float32 [B, H, W] stack: the
+    histogram as ``_histogram_batch`` bins it, then the reduction, as one
+    graph on the card."""
+    if not use_kernel(x3):
+        return _otsu_from_hist(*_histogram_batch(x3, bins))
+    lo, span = _value_range(x3)
+    counts = bin_histogram_cuda(x3.contiguous(), lo, span, bins)
+    return _otsu_graphed(counts, lo[..., 0], span[..., 0], bins)
+
+
 def _prefix_sum(c: torch.Tensor) -> torch.Tensor:
     """Inclusive float32 prefix sums along the last axis, in XLA's CPU order
     for ``jnp.cumsum``: up to 16 entries one after another from 0; past
@@ -135,7 +200,8 @@ def _otsu_from_hist(counts: torch.Tensor, centers: torch.Tensor) -> torch.Tensor
 def otsu_threshold(img: torch.Tensor, bins: int = 256) -> torch.Tensor:
     """Otsu's threshold (float32 scalar tensor) of one image: pixels above
     it are foreground."""
-    return _otsu_from_hist(*histogram(img, bins))
+    x = as_float32(img)
+    return _otsu_batch(x.reshape(1, -1, x.shape[-1] if x.ndim else 1), bins)[0]
 
 
 def otsu_threshold_batch(imgs: torch.Tensor, bins: int = 256) -> torch.Tensor:
@@ -143,7 +209,7 @@ def otsu_threshold_batch(imgs: torch.Tensor, bins: int = 256) -> torch.Tensor:
     ``otsu_threshold`` of its plane."""
     if imgs.ndim != 3:
         raise ValueError(f"otsu_threshold_batch: expected [B, H, W], got {tuple(imgs.shape)}")
-    return _otsu_from_hist(*_histogram_batch(as_float32(imgs), bins))
+    return _otsu_batch(as_float32(imgs), bins)
 
 
 def threshold_and_count(img: torch.Tensor, max_regions: int = 4096, min_area: int = 1):
@@ -166,6 +232,36 @@ def threshold_and_count(img: torch.Tensor, max_regions: int = 4096, min_area: in
     return mask, seg, count, num
 
 
+def _threshold_and_count_planes(x: torch.Tensor, bins: int, max_regions: int,
+                                min_area: int) -> tuple:
+    """The body of config #1's batched count on a float32 [B, H, W] stack,
+    shared with config #2 (``models.zstack``): each plane's Otsu threshold
+    from one histogram, the mask above it, the 8-connected CCL of the
+    2-class mask with the background labelled too, raster-rank compaction,
+    the area and class tables [B, max_regions + 1], and the count of
+    foreground regions with area ≥ ``min_area``.  A span a step
+    (``pcis.threshold.otsu``, ``.ccl``, ``.compact``, ``.counts``); no host
+    sync on the card.  Returns (thresholds, mask, seg, count, num_fg,
+    num_total, converged, areas, classes), as ``threshold_and_count_batch``
+    describes the six it returns."""
+    with stage("pcis.threshold.otsu"):
+        thresholds = _otsu_batch(x, bins)
+    with stage("pcis.threshold.ccl"):
+        mask = x > thresholds[:, None, None]
+        m8 = mask.to(torch.uint8)
+        raw, conv_ccl = connected_components_auto(m8, background=None, num_classes=2,
+                                                  with_flag=True)
+    with stage("pcis.threshold.compact"):
+        seg, num_total, conv_cmp = compact_labels_auto(raw, max_regions, with_flag=True)
+    with stage("pcis.threshold.counts"):
+        areas, classes = region_counts_auto(seg, m8, max_regions, val_bound=1)
+        fg = (classes == 1) & (areas > 0)
+        count = (fg & (areas >= min_area)).sum(dim=-1, dtype=torch.int32)
+        num_fg = fg.sum(dim=-1, dtype=torch.int32)
+    return (thresholds, mask, seg, count, num_fg, num_total, conv_ccl & conv_cmp, areas,
+            classes)
+
+
 def threshold_and_count_batch(imgs: torch.Tensor, max_regions: int = 4096, min_area: int = 1):
     """Batched config #1: per-plane Otsu → CCL → per-plane particle counts
     of a [B, H, W] stack.
@@ -181,13 +277,7 @@ def threshold_and_count_batch(imgs: torch.Tensor, max_regions: int = 4096, min_a
     undercount, since components past capacity are dropped from the table.
     ``converged`` is False where the plain CCL's 64 rounds ran out (the
     kernels always converge)."""
-    x = as_float32(imgs)
-    mask = x > otsu_threshold_batch(x)[:, None, None]
-    m8 = mask.to(torch.uint8)
-    raw, conv_ccl = connected_components_auto(m8, background=None, num_classes=2, with_flag=True)
-    seg, num_total, conv_cmp = compact_labels_auto(raw, max_regions, with_flag=True)
-    areas, classes = region_counts_auto(seg, m8, max_regions, val_bound=1)
-    fg = (classes == 1) & (areas > 0)
-    count = (fg & (areas >= min_area)).sum(dim=-1, dtype=torch.int32)
-    num_fg = fg.sum(dim=-1, dtype=torch.int32)
-    return mask, seg, count, num_fg, num_total, conv_ccl & conv_cmp
+    if imgs.ndim != 3:
+        raise ValueError(
+            f"threshold_and_count_batch: expected [B, H, W], got {tuple(imgs.shape)}")
+    return _threshold_and_count_planes(as_float32(imgs), 256, max_regions, min_area)[1:7]

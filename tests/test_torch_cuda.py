@@ -883,6 +883,42 @@ def test_threshold_functions_through_the_kernels(dev, case):
             t.reshape(-1)[0].view(torch.int32)], case)
 
 
+def test_the_otsu_graph_replays_the_eager_reduction(dev):
+    """``_otsu_graphed``, the shared body's Otsu reduction replayed as one
+    CUDA graph, on new counts and ranges of a captured shape at each call:
+    cuts equal to the eager ``_otsu_from_range`` on the card and on the CPU
+    bit for bit, at two plane counts and two bin counts, on a second
+    stream (a graph of its own), and a cut handed back is not overwritten
+    by a later replay."""
+    from particle_col_image_segmentation_tpu_torch.ops import threshold as th
+
+    gen = np.random.default_rng(29)
+    for planes, bins in ((3, 256), (5, 256), (3, 1000)):
+        cuts = []
+        for _ in range(3):
+            a, b = gen.normal(gen.uniform(-50, 50, 2)[:, None, None, None],
+                              gen.uniform(1, 900, 2)[:, None, None, None], (2, planes, 64, 96))
+            x = np.where(gen.random((planes, 64, 96)) < gen.uniform(0.1, 0.9), a, b)
+            x = torch.from_numpy(x.astype(np.float32)).to(dev)
+            lo, span = th._value_range(x)
+            counts = bin_histogram_cuda(x, lo, span, bins)
+            args = (counts, lo[..., 0], span[..., 0], bins)
+            got = th._otsu_graphed(*args)
+            want = th._otsu_from_range(*args)
+            cpu = th._otsu_from_range(*(t.cpu() for t in args[:3]), bins)
+            case = f"[{planes},64,96] at {bins} bins"
+            _equal([got.view(torch.int32), got.cpu().view(torch.int32)],
+                   [want.view(torch.int32), cpu.view(torch.int32)], case)
+            cuts.append((got, want, case))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            cuts.append((th._otsu_graphed(*args), th._otsu_from_range(*args), case + " on a stream"))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for got, want, case in cuts:
+            _equal([got.view(torch.int32)], [want.view(torch.int32)], case)
+
+
 def test_config2_tiff_decode_to_card_stack_stats(dev, tmp_path):
     """Config #2's [24,512,512] stack written as a multi-page uint16 TIFF goes
     decode (the port's native codec) -> card -> stack_stats, equal to the

@@ -395,6 +395,8 @@ def test_inputs_are_checked():
         otsu_threshold(torch.zeros((4, 4), dtype=torch.bool))
     with pytest.raises(ValueError, match=r"\[B, H, W\]"):
         otsu_threshold_batch(torch.zeros((4, 4)))
+    with pytest.raises(ValueError, match=r"\[B, H, W\]"):
+        threshold_and_count_batch(torch.zeros((4, 4)))
     with pytest.raises(ValueError, match=r"\[H, W\]"):
         threshold_and_count(torch.zeros((1, 4, 4)))
 

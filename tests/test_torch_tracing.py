@@ -1,5 +1,6 @@
-"""The port's tracer (``utils/profiling.py``) and the spans of its two
-benchmarked entries, ``fused_segment_batch`` and ``refine_plane_device``.
+"""The port's tracer (``utils/profiling.py``) and the spans of its
+benchmarked entries, ``fused_segment_batch``, ``refine_plane_device`` and
+``zstack_stats_device``.
 
 On the CPU: a span off records and allocates nothing; after ``enable`` the
 entries give their step trees, one call id a call; threads keep their own
@@ -28,6 +29,8 @@ from particle_col_image_segmentation_tpu_torch.cli import main as torch_cli
 from particle_col_image_segmentation_tpu_torch.config import AnalysisConfig, RefineConfig
 from particle_col_image_segmentation_tpu_torch.models.batch import fused_segment_batch
 from particle_col_image_segmentation_tpu_torch.models.refine import refine_plane_device
+from particle_col_image_segmentation_tpu_torch.models.zstack import zstack_stats_device
+from particle_col_image_segmentation_tpu_torch.ops import gaussian_blur, threshold_and_count_batch
 from particle_col_image_segmentation_tpu_torch.utils import profiling
 
 from chip_smoke import refine_relief
@@ -61,6 +64,11 @@ REFINE_TREE = {**_REFINE_STEPS, "pcis.watershed.phase2": "pcis.refine.watershed"
                "pcis.sync.claim_step": "pcis.watershed.phase2"}
 TUNNEL_TREE = {**_REFINE_STEPS, "pcis.watershed.tunnel": "pcis.refine.watershed",
                "pcis.sync.tunnel_step": "pcis.watershed.tunnel"}
+# the threshold body's steps, config #1's and config #2's
+THRESHOLD_STEPS = ("pcis.threshold.otsu", "pcis.threshold.ccl", "pcis.threshold.compact",
+                   "pcis.threshold.counts")
+ZSTACK_TREE = {"pcis.zstack": None, "pcis.zstack.blur": "pcis.zstack",
+               **{name: "pcis.zstack" for name in THRESHOLD_STEPS}}
 
 
 @pytest.fixture
@@ -142,6 +150,36 @@ def test_the_tunnel_step_syncs_are_its_steps(kept):
     refine_plane_device(_relief(16), RefineConfig(tunnel_basins=True))
     steps = [s for s in profiling.records() if s.name == "pcis.sync.tunnel_step"]
     assert len(steps) == ws.claim_labels.last_steps > 1
+
+
+def _zstack():
+    rng = np.random.default_rng(5)
+    x = (rng.random((3, 64, 80)) * 400).astype(np.uint16)
+    x[:, 20:30, 12:40] += 3000
+    x[1:, 40:44, 50:70] += 9000
+    return torch.from_numpy(x)
+
+
+def test_the_zstack_entry_gives_its_step_tree_and_syncs_nothing(kept):
+    """``zstack_stats_device`` opens ``pcis.zstack``, its blur and the
+    threshold body's four steps inside it, and no ``pcis.sync.*`` span;
+    config #1's ``threshold_and_count_batch`` runs the same body under the
+    same four spans, and its six outputs are the entry's."""
+    x = _zstack()
+    got = zstack_stats_device(x)
+    spans = profiling.records()
+    assert _tree(spans) == ZSTACK_TREE
+    assert [s.name for s in spans if s.parent is not None and s.name != "pcis.zstack.blur"] \
+        == list(THRESHOLD_STEPS)
+    profiling.reset()
+    six = threshold_and_count_batch(gaussian_blur(x, 1.0, fma=True), max_regions=4095)
+    assert _tree(profiling.records()) == {name: None for name in THRESHOLD_STEPS}
+    assert not any(s.name.startswith(profiling.SYNC) for s in spans + profiling.records())
+    want = (got.mask, got.seg, got.count, got.num_fg, got.num_total, got.converged)
+    for name, a, b in zip(("mask", "seg", "count", "num_fg", "num_total", "converged"), six, want,
+                          strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert six[2].tolist() == [1, 2, 2] and six[4].tolist() == [2, 3, 3]
 
 
 def test_threads_keep_their_own_stacks(kept):
@@ -252,12 +290,13 @@ def dev():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["segment.b32", "refine.relief.b8", "refine.q16tunnel.b8"])
+@pytest.mark.parametrize("cell", ["segment.b32", "refine.relief.b8", "refine.q16tunnel.b8",
+                                  "zstack.b50"])
 def test_every_host_sync_of_an_entry_is_a_sync_span_on_the_card(dev, cell):
     """One call of the cell's entry on its staged inputs under
     ``torch.cuda.set_sync_debug_mode("warn")``: each synchronising call
     lies inside a ``pcis.sync.*`` span, and there are as many as spans
-    (none in ``fused_segment_batch``)."""
+    (none in ``fused_segment_batch`` and ``zstack_stats_device``)."""
     from benchmark import harness
 
     spec = harness.load_spec(harness.ROOT, cell)
@@ -300,7 +339,7 @@ def test_every_host_sync_of_an_entry_is_a_sync_span_on_the_card(dev, cell):
     print(f"{cell}: {len(seen)} syncs, spans {dict(spans)}")
     assert not outside, f"syncs outside a pcis.sync span: {dict(outside)}"
     assert len(seen) == sum(spans.values())
-    if cell == "segment.b32":
+    if cell in ("segment.b32", "zstack.b50"):
         assert not seen
     if "tunnel" in cell:
         assert spans["pcis.sync.tunnel_step"] == entry.counters()["tunnel_steps"]

@@ -11,10 +11,11 @@ nonzero and no result line is printed):
      finds zlib.h (the native TIFF codec's build) and whether PIL imports;
      the port's subpackages import (with their re-exports) and pull in
      neither h5py nor matplotlib;
-  2. build — the thirteen kernels from csrc/: K1-K11, the ports of the
-     TPU kernels, K12 (csrc/tunnel.cu, the tunnelled phase 2's step) and
-     the Gaussian blur's kernel (``blur``, csrc/blur.cu; no TPU kernel for
-     either: XLA's code), one nvcc per source, in parallel (K4's
+  2. build — the fourteen kernels from csrc/: K1-K11, the ports of the
+     TPU kernels, K12 (csrc/tunnel.cu, the tunnelled phase 2's step), the
+     Gaussian blur's kernel (``blur``, csrc/blur.cu; no TPU kernel for
+     either: XLA's code) and the plateau maxima pair after K2 (``maxima``,
+     csrc/maxima.cu; none either), one nvcc per source, in parallel (K4's
      histogram in its own source), timed;
   3. kernel vs plain — each kernel against its plain PyTorch version on the
      same card tensors, exact equality (all outputs are integers, so the
@@ -63,7 +64,9 @@ nonzero and no result line is printed):
      num_classes, and off a 16-byte boundary; and the refine slice on the
      2048² relief (480 touching cell pairs, plane b rolled by 17·b columns):
      the exact EDT (K9 probe, and a plane that forces the exact fallback),
-     local maxima through K2 (connectivity 1 and 2), each watershed phase —
+     local maxima through K2 and the plateau maxima pair (connectivity 1
+     and 2; the pair's CUDA-event time at [8,2048,2048] beside the glue it
+     replaced, ``maxima_times``), each watershed phase —
      K10's costs and K11's labels — on smooth and 16-level reliefs at
      [2,2048,2048] (connectivity 1 and 2), an unreachable masked island, a
      random [3,97,130] relief, a serpentine corridor (``ws_corridor``: tiles
@@ -1675,6 +1678,39 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def maxima_times(card: str, dsq) -> dict:
+    """The plateau maxima step on K2's 8-connected labels of the [B, H, W]
+    int32 d² stack ``dsq``: the kernel pair's CUDA-event time beside the
+    PyTorch glue it replaced (``_has_higher`` and ``_marked_components``,
+    two host syncs included), both outputs equal, and the pair's bound (the
+    value and root read, the bool written, the root read again: 13 B a
+    pixel).  CUDA events only: phase 3 keeps the profiler off."""
+    import torch
+
+    from particle_col_image_segmentation_tpu_torch.ops import ccl_cuda, plateau_maxima_cuda
+    from particle_col_image_segmentation_tpu_torch.ops.morphology import (
+        _OFFSETS8,
+        _has_higher,
+        _marked_components,
+    )
+
+    root = ccl_cuda(dsq, connectivity=8)
+
+    def glue():
+        return ~_marked_components(root, _has_higher(dsq, _OFFSETS8))
+
+    if not torch.equal(plateau_maxima_cuda(dsq, root, 8), glue()):
+        raise AssertionError("the maxima pair disagrees with the glue it replaced")
+    t = {"shape": f"{list(dsq.shape)} int32 relief d², 8-connected",
+         "ms": time_ms(lambda: plateau_maxima_cuda(dsq, root, 8), reps=20, warmup=3),
+         "glue_ms": time_ms(glue, reps=5),
+         "k2_ms": time_ms(lambda: ccl_cuda(dsq, connectivity=8), reps=10),
+         "bound_ms": 13 * dsq.numel() / HBM_BYTES_PER_S * 1e3}
+    log(f"phase 3 maxima pair {t['shape']}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}), "
+        f"the glue it replaced {t['glue_ms']:.4f} ms, K2 before it {t['k2_ms']:.4f} ms; {card}")
+    return t
 
 
 def device_ms(fn, reps: int = 5) -> float:
@@ -4694,6 +4730,7 @@ def main() -> int:
     for conn in (2, 1):
         compare("K2", f"local_maxima_auto [2,2048,2048] relief EDT² connectivity={conn}",
                 [local_maxima_auto(dsq8[:2], conn)], [local_maxima(dsq8[:2], conn)])
+    maxima_entry = maxima_times(card, dsq8)
     maxima8 = local_maxima_auto(dsq8)
     mk8, num8 = compact_labels_cuda(ccl_cuda(maxima8.to(torch.uint8), background=0),
                                     REFINE_REGIONS)
@@ -5295,7 +5332,14 @@ def main() -> int:
           "replaces": TPU + "filters.py:158 gaussian_blur (XLA, no Pallas: not a TPU kernel)",
           "launches": sum(v["blur"] for v in paths.values()),
           "launches_by_path": {p: v["blur"] for p, v in paths.items()},
-          "max_abs_err": max(blur_err, zstack["blur_max_abs_err"]), **blur_entry}],
+          "max_abs_err": max(blur_err, zstack["blur_max_abs_err"]), **blur_entry},
+        {"name": "maxima", "route": "cuda", "source": SRC + "maxima.cu",
+         "replaces": TPU + "morphology.py local_maxima_auto (K2's band sweeps: no "
+                     "TPU kernel of its own)",
+         "launches": sum(v["maxima"] for v in paths.values()),
+         "launches_by_path": {p: v["maxima"] for p, v in paths.items()},
+         "max_abs_err": err["K2"], "plain_ms": None, "bound_by": "bytes",
+         "library_ms": None, **maxima_entry}],
         "zstack": zstack, "nanosims": nanosims, "morphology": morph_times, "tunnel": tunnel,
         "data_axis": data_axis, "space_axis": space_axis, "space_refine": space_refine,
         "multihost": multihost, "oracle": oracle, "bench": bench_record}

@@ -11,7 +11,7 @@ failed build raises: there is no other path for CUDA tensors.
 The data axis (``parallel``) calls the wrappers from one thread per device,
 so the first build and load run under a lock, and each wrapper counts its
 launches through ``count_launch``; ``launch_counters`` resets and reads
-every wrapper's count, K1-K12 and the blur.
+every wrapper's count, K1-K12, the blur and the plateau maxima pair.
 """
 
 from __future__ import annotations
@@ -58,6 +58,9 @@ _SIGNATURES = {
     "pcis_tunnel_init": (_I, [_P] * 11 + [_I] * 4 + [_P]),
     "pcis_tunnel_step": (_I, [_P] * 13 + [_I] * 5 + [_P, _P]),
     "pcis_gaussian_blur": (_I, [_P, _I, _P, _I, _I, _I, _P, _I, _I, _P]),
+    "pcis_maxima_scratch_len": (_L, [_I, _I, _I]),
+    "pcis_plateau_maxima_u8": (_I, [_P, _P, _P, _L, _P, _I, _I, _I, _I, _P]),
+    "pcis_plateau_maxima_i32": (_I, [_P, _P, _P, _L, _P, _I, _I, _I, _I, _P]),
     "pcis_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -165,8 +168,10 @@ def count_launch(wrapper, n: int = 1) -> None:
 
 def launch_counter_table() -> dict:
     """Every kernel wrapper that counts its launches, by kernel: K1-K11, the
-    ports of the TPU kernels, K12, the tunnelled claim step, and ``blur``, the
-    Gaussian blur's kernel (no TPU kernel for either: XLA's code)."""
+    ports of the TPU kernels, K12, the tunnelled claim step, ``blur``, the
+    Gaussian blur's kernel (no TPU kernel for either: XLA's code), and
+    ``maxima``, the plateau maxima pair after K2 (none: the JAX package
+    rides K2's band sweeps)."""
     from particle_col_image_segmentation_tpu_torch import ops
     from particle_col_image_segmentation_tpu_torch.ops import watershed_tiles as wt
 
@@ -180,14 +185,14 @@ def launch_counter_table() -> dict:
         "K9": [ops.edt_sq_cuda], "K10": [wt.watershed_cost_pass_cuda],
         "K11": [wt.watershed_label_pass_cuda],
         "K12": [wt.tunnel_init_cuda, wt.claim_labels_tunnel_cuda],
-        "blur": [ops.gaussian_blur_cuda],
+        "blur": [ops.gaussian_blur_cuda], "maxima": [ops.plateau_maxima_cuda],
     }
 
 
 def launch_counters() -> tuple:
     """(reset_counts, read_counts) over ``launch_counter_table``: reset just
-    before a path runs, read just after (launches a kernel, K1-K12 and
-    ``blur``)."""
+    before a path runs, read just after (launches a kernel, K1-K12,
+    ``blur`` and ``maxima``)."""
     counters = launch_counter_table()
 
     def reset_counts() -> None:

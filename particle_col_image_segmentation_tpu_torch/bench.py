@@ -16,10 +16,11 @@ counterpart there:
 
 ``main`` prints one JSON line on stdout, last, with ``bench.py``'s keys
 and meanings plus ``device`` (the card's name), ``power_limit`` (the
-``nvidia-smi --query-gpu=name,power.limit`` line) and ``launches`` (K1-K12
-and the blur kernel over the whole run); progress goes to stderr.  ``vs_baseline`` divides by
-the pinned CPU figure of ``BASELINE.json`` at the checkout root, or by this
-run's CPU figure where that file is absent.
+``nvidia-smi --query-gpu=name,power.limit`` line) and ``launches`` (K1-K12,
+the blur kernel and the maxima pair over the whole run); progress goes to
+stderr.  ``vs_baseline`` divides by the pinned CPU figure of
+``BASELINE.json`` at the checkout root, or by this run's CPU figure where
+that file is absent.
 
 ``--device`` defaults to ``cuda`` and never falls back: without a Hopper
 card it raises.  ``--device cpu`` runs the plain PyTorch versions at

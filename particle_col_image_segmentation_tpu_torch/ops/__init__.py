@@ -53,6 +53,9 @@ from particle_col_image_segmentation_tpu_torch.ops.histogram_tiles import (  # n
     bin_histogram,
     bin_histogram_cuda,
 )
+from particle_col_image_segmentation_tpu_torch.ops.maxima_tiles import (  # noqa: F401
+    plateau_maxima_cuda,
+)
 from particle_col_image_segmentation_tpu_torch.ops.morphology import (  # noqa: F401
     boundary_mask,
     close_disk,

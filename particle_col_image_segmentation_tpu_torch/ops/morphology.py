@@ -13,10 +13,12 @@ has no pixel with a strictly higher neighbour.  The plain version floods
 that "bad" status through each plateau by a fixpoint (the JAX XLA loop, step
 for step).  On a CUDA tensor the plateaus are K2's components of the value
 image, and a component is bad iff any of its pixels has a higher neighbour:
-``flag[root[has_higher]] = True`` marks it with an idempotent store (no
-atomics and no reduce, whose serialisation on the plane's largest plateau
-would dominate), and each pixel reads its root's mark back.  Same fixpoint,
-same maxima.
+the plateau maxima pair (``ops.maxima_tiles``, ``csrc/maxima.cu``) sets the
+component's bit where a pixel has a higher neighbour, and each pixel reads
+its root's bit back, with no host sync.  Same fixpoint, same maxima.  The
+space axis (``parallel.sharded``) keeps its own route on bands with halo
+rows: ``_has_higher`` and ``_marked_components``, the marking by an
+idempotent store ``flag[root[seeds]] = True``.
 
 Hole filling is the same pattern on the mask itself: background pixels
 4-connected to the image border stay background, every other background
@@ -24,7 +26,7 @@ pixel is a hole.  The plain version (``fill_holes_fixpoint``) floods the
 border inwards by the JAX fixpoint, step for step, budget and flag
 included.  On a CUDA tensor K2 labels the mask's 4-connected equal-value
 components, the components holding a border background pixel are marked by
-the same idempotent store, and every unmarked background pixel is a hole.
+the idempotent store, and every unmarked background pixel is a hole.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from particle_col_image_segmentation_tpu_torch._dispatch import use_kernel
 from particle_col_image_segmentation_tpu_torch.ops.ccl_tiles import ccl_cuda
 from particle_col_image_segmentation_tpu_torch.ops.edt_tiles import edt_sq_auto
+from particle_col_image_segmentation_tpu_torch.ops.maxima_tiles import plateau_maxima_cuda
 from particle_col_image_segmentation_tpu_torch.ops.scans import seg_or_scan_bidi
 from particle_col_image_segmentation_tpu_torch.utils.profiling import stage
 
@@ -148,21 +151,22 @@ def _marked_components(root: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
 
 
 def _local_maxima_ccl(img: torch.Tensor, connectivity: int) -> torch.Tensor:
-    """Local maxima of a CUDA uint8/int32 [..., H, W] stack through K2."""
+    """Local maxima of a CUDA uint8/int32 [..., H, W] stack through K2 and
+    the plateau maxima pair."""
     H, W = img.shape[-2:]
     planes = img.reshape(-1, H, W).contiguous()
-    root = ccl_cuda(planes, connectivity=8 if connectivity == 2 else 4)
-    higher = _has_higher(planes, _OFFSETS8 if connectivity == 2 else _OFFSETS4)
-    return (~_marked_components(root, higher)).reshape(img.shape)
+    conn = 8 if connectivity == 2 else 4
+    root = ccl_cuda(planes, connectivity=conn)
+    return plateau_maxima_cuda(planes, root, conn).reshape(img.shape)
 
 
 def local_maxima_auto(img: torch.Tensor, connectivity: int = 2, max_iters: int = 256,
                       with_flag: bool = False, max_sweeps: int = 16):
-    """K2 for a CUDA tensor (uint8 or int32 values; other types raise), the
-    plain fixpoint for a CPU tensor; the same maxima.  With ``with_flag``
-    the kernel path reports every plane converged: it is not iterative.
-    ``max_sweeps`` is the JAX package's TPU band-sweep budget, accepted and
-    not read."""
+    """K2 and the plateau maxima pair for a CUDA tensor (uint8 or int32
+    values; other types raise), the plain fixpoint for a CPU tensor; the
+    same maxima.  With ``with_flag`` the kernel path reports every plane
+    converged: it is not iterative.  ``max_sweeps`` is the JAX package's TPU
+    band-sweep budget, accepted and not read."""
     del max_sweeps
     if use_kernel(img):
         if img.dtype not in (torch.uint8, torch.int32):

@@ -242,8 +242,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             single_channel.as_plane(plane)
     # the bench, as the verb and as its own module, runs on the card unless
-    # asked for the CPU; its launch counts read the package's table: K1-K12
-    # and the blur kernel
+    # asked for the CPU; its launch counts read the package's table: K1-K12,
+    # the blur kernel and the plateau maxima pair
     from particle_col_image_segmentation_tpu_torch import _kernels, bench, cli
 
     asked = []
@@ -252,7 +252,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert torch_cli(["bench"]) == 0 and bench.main([]) == 0
     assert torch_cli(["bench", "--device", "cpu"]) == 0
     assert asked == [torch.device("cuda")] * 2 + [torch.device("cpu")]
-    assert list(_kernels.launch_counter_table()) == [f"K{i}" for i in range(1, 13)] + ["blur"]
+    assert list(_kernels.launch_counter_table()) == [f"K{i}" for i in range(1, 13)] + [
+        "blur", "maxima"]
 
 
 @pytest.mark.parametrize("verb", ["analyze", "batch", "refine", "bench"])

@@ -198,12 +198,12 @@ def test_bench_verb_on_the_cpu_prints_the_fallback_record():
     for k, v in rec["fallback_smoke"].items():
         assert isinstance(v, (int, float)) and math.isfinite(v), k
     assert rec["fallback_smoke"]["3_boundary_iou"] == rec["watershed_boundary_iou"]
-    assert rec["launches"] == {**{f"K{i}": 0 for i in range(1, 13)}, "blur": 0}
+    assert rec["launches"] == {**{f"K{i}": 0 for i in range(1, 13)}, "blur": 0, "maxima": 0}
     assert rec["cpu_live_mps"] > 0 and rec["platform_copy_gbps"] > 0
 
 
 # the wrappers chip_smoke.py counted K1-K11 with before the table moved into
-# the package, K12's and the blur kernel's
+# the package, K12's, the blur kernel's and the plateau maxima pair's
 SMOKE_TABLE = {
     "K1": [ops.median_label_filter_cuda, ops.median_label_filter_rows_padded_cuda],
     "K2": [ops.ccl_cuda],
@@ -215,6 +215,7 @@ SMOKE_TABLE = {
     "K11": [watershed_tiles.watershed_label_pass_cuda],
     "K12": [watershed_tiles.tunnel_init_cuda, watershed_tiles.claim_labels_tunnel_cuda],
     "blur": [ops.gaussian_blur_cuda],
+    "maxima": [ops.plateau_maxima_cuda],
 }
 
 

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels K1-K12 and the blur kernel against their
-plain PyTorch versions, on the card.  Every test here needs a Hopper card and skips where there is
-none; on one, run them with
+"""The hand-written CUDA kernels K1-K12, the blur kernel and the plateau
+maxima pair against their plain PyTorch versions, on the card.  Every test
+here needs a Hopper card and skips where there is none; on one, run them with
 
     python -m pytest tests/test_torch_cuda.py -q
 
@@ -755,6 +755,93 @@ def test_local_maxima_and_exact_edt_kernels(dev):
     _equal([edt_sq_exact_auto(deep)], [edt_sq_exact(deep)])
     with pytest.raises(ValueError, match="uint8 or int32"):
         local_maxima_auto(dsq.to(torch.float32))
+
+
+def _snake(h, w, pitch=4):
+    """(path, beside): a one-pixel path from (1, 1) winding down an [h, w]
+    plane, rows ``pitch`` apart, and the pixel just past its far end."""
+    path = np.zeros((h, w), bool)
+    rows = list(range(1, h - 1, pitch))
+    for k, r in enumerate(rows):
+        path[r, 1:w - 1] = True
+        if k + 1 < len(rows):
+            c = w - 2 if k % 2 == 0 else 1
+            path[r:rows[k + 1] + 1, c] = True
+    # the last row is entered where the row before it turned down
+    last = len(rows) - 1
+    entry = 1 if last == 0 else (w - 2 if (last - 1) % 2 == 0 else 1)
+    return path, (rows[-1], w - 1 if entry == 1 else 0)
+
+
+def _blocky(rng, shape, values, k=3, salt=0.02):
+    """Plateaus: k x k blocks of values drawn from ``values``, with salt."""
+    B, H, W = shape
+    idx = rng.integers(0, len(values), (B, H // k + 1, W // k + 1))
+    idx = np.repeat(np.repeat(idx, k, 1), k, 2)[:, :H, :W]
+    salted = rng.random(shape) < salt
+    idx[salted] = rng.integers(0, len(values), int(salted.sum()))
+    return np.asarray(values)[idx]
+
+
+def _maxima_inputs(dtype, seed=83):
+    """(case, [B, H, W] values) for the plateau maxima pair: a flat stack, a
+    winding plateau whose one higher neighbour sits past its far end (and
+    the same without it), three planes whose plateaus share one root index
+    with only the middle one marked, thin and odd shapes, a 2048² plane, and
+    the dtype's extreme values (INT32_MIN and INT32_MAX, negatives)."""
+    rng = np.random.default_rng(seed)
+    if dtype == np.uint8:
+        extremes = [0, 1, 127, 254, 255]
+    else:
+        extremes = [-2**31, -2**31 + 1, -7, -1, 0, 2**31 - 2, 2**31 - 1]
+    cases = [("flat [3,33,65]", np.full((3, 33, 65), 7, dtype)),
+             ("flat [1,64,128]", np.zeros((1, 64, 128), dtype))]
+    path, beside = _snake(201, 300)
+    for far in (True, False):
+        img = np.where(path, 5, 1).astype(dtype)
+        if far:
+            img[beside] = 9
+        cases.append((f"winding plateau, higher past its far end {far}", img[None]))
+    shared = np.ones((3, 40, 40), dtype)
+    shared[:, 10:20, 10:20] = 5  # one root index, 10 * 40 + 10, in every plane
+    shared[1, 15, 20] = 9  # only the middle plane's plateau has a higher neighbour
+    cases.append(("[3,40,40] plateaus sharing a root index", shared))
+    for shape in ((1, 1, 1000), (1, 1000, 1), (2, 33, 65), (1, 2048, 2048)):
+        cases.append((f"blocks {list(shape)}", _blocky(rng, shape, [0, 1, 2, 3]).astype(dtype)))
+    cases.append(("extremes [2,97,130]", _blocky(rng, (2, 97, 130), extremes).astype(dtype)))
+    cases.append(("extremes [1,256,256] 1 px", _blocky(rng, (1, 256, 256), extremes, k=1)
+                  .astype(dtype)))
+    return cases
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_plateau_maxima_pair(dev, dtype, connectivity):
+    """``local_maxima_auto`` (K2, then the maxima pair) against the plain
+    fixpoint ``local_maxima`` exactly on ``_maxima_inputs``, with one K2
+    launch and two of the pair a call and no synchronising call; the pair
+    alone on copies 4 bytes past a 16-byte boundary (the scalar route)."""
+    from particle_col_image_segmentation_tpu_torch.ops import plateau_maxima_cuda
+
+    conn = 8 if connectivity == 2 else 4
+    for case, x_np in _maxima_inputs(dtype):
+        x = torch.from_numpy(x_np).to(dev)
+        want, conv = local_maxima(x, connectivity, max_iters=4096, with_flag=True)
+        assert conv.all(), case
+        torch.cuda.synchronize()
+        before = (ccl_cuda.launches, plateau_maxima_cuda.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = local_maxima_auto(x, connectivity)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert (ccl_cuda.launches, plateau_maxima_cuda.launches) == (
+            before[0] + 1, before[1] + 2), case
+        _equal([got], [want], case)
+        root = ccl_cuda(x, connectivity=conn)
+        _equal([plateau_maxima_cuda(off16(x), off16(root), conn)], [want], case)
+        if case.startswith("[3,40,40]"):  # the plateau is a maximum but in the middle plane
+            assert got[[0, 2], 12, 12].all() and not got[1, 12, 12], case
 
 
 # ---- the threshold path: K4 as the Otsu histogram, configs #1 and #2 ----

@@ -275,7 +275,8 @@ def test_every_kernel_launch_sits_inside_a_device_guard():
         assert bad == [], f"{path.name}: {bad}"
         total += sites
         launched |= names
-    assert total == 16  # K1-K11, K8 by two routes, K4's histogram, the blur, K12's two
+    # K1-K11, K8 by two routes, K4's histogram, the blur, K12's two, the maxima pair
+    assert total == 17
     assert launched == _launch_entry_points()
     # the walk catches a launch outside the guard
     sites, _, bad = _launches_outside_device_guards(ast.parse(
